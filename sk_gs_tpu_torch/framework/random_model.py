@@ -1,0 +1,128 @@
+"""A random SK-GS model and orbit cameras, made from a seed with numpy.
+
+``random_model_flat`` writes the arrays of a trained ``sk``-stage model in
+the JAX package's flat checkpoint naming (``params/xyz``,
+``params/sk_deform/layers/0/w``, ``alive``, ...), so that it goes through
+``convert.model_from_flat`` as a real checkpoint would. The scene is an
+articulated cloud: joints scattered in a ball, a random tree over the live
+joints, and each live Gaussian placed near one joint.
+"""
+from __future__ import annotations
+
+import math
+from typing import Dict
+
+import numpy as np
+import torch
+
+from .. import resolve_device
+from ..models.gaussian_splatting import num_rest
+from ..models.sk_gs import SKGSConfig
+from ..models.skeleton import MAX_LEVELS, parents_table
+from ..ops.transforms import look_at, perspective_opencv
+from ..render.settings import ViewParams
+
+
+# the live share of the joint slots, and the weight spread of the skeleton
+# net's three heads (rotation, rotation delta, scale delta): enough motion to
+# exercise the warp without throwing the cloud out of view
+JOINT_ALIVE_FRAC = 0.95
+HEAD_STD = (2e-2, 1e-2, 1e-4)
+# orbit camera: distance to the origin and vertical field of view (radians)
+ORBIT_RADIUS = 4.0
+ORBIT_FOVY = 0.7
+
+
+def _unit_quats(rng: np.random.Generator, n: int) -> np.ndarray:
+    q = rng.normal(size=(n, 4))
+    return q / np.linalg.norm(q, axis=-1, keepdims=True)
+
+
+def random_model_flat(cfg: SKGSConfig, seed: int, n_alive: int,
+                      log_scale_mean: float = -3.4) -> Dict[str, np.ndarray]:
+    """Flat ``{path: ndarray}`` of a random model with ``cfg``'s widths:
+    ``n_alive`` of ``cfg.gauss.capacity`` slots live, a random tree over the
+    live joints, ``cfg.num_frames`` train times in [0, 1]. The Gaussians'
+    log-scales centre on ``log_scale_mean`` (-3.4 puts ~0.72M pairs in a
+    400 x 400 view of 80,000 of them)."""
+    rng = np.random.default_rng(seed)
+    f32 = np.float32
+    n, m, nf = cfg.gauss.capacity, cfg.num_superpoints, cfg.num_frames
+    if not 0 < n_alive <= n:
+        raise ValueError(f'n_alive {n_alive} outside (0, {n}]')
+    if cfg.LBS_method != 'W':
+        raise ValueError("the random model carries LBS_method 'W' (sp_W)")
+
+    sp_alive = rng.uniform(size=m) < JOINT_ALIVE_FRAC
+    sp_alive[0] = True
+    live_j = np.flatnonzero(sp_alive)
+    joints = rng.normal(size=(m, 3)) * 0.45
+    # random recursive tree over the live joints; dead joints hang off the root
+    order = rng.permutation(live_j)
+    root = int(order[0])
+    parent = np.full(m, root, np.int32)
+    for i in range(1, order.size):
+        parent[order[i]] = order[rng.integers(0, i)]
+
+    alive = np.zeros(n, bool)
+    alive[rng.permutation(n)[:n_alive]] = True
+    anchor = rng.choice(live_j, size=n)
+    xyz = joints[anchor] + rng.normal(size=(n, 3)) * 0.18
+
+    flat = {
+        'params/xyz': xyz.astype(f32),
+        'params/f_dc': (rng.normal(size=(n, 1, 3)) * 0.8).astype(f32),
+        'params/f_rest': (rng.normal(size=(n, num_rest(cfg.gauss.sh_degree), 3))
+                          * 0.1).astype(f32),
+        'params/scaling': (log_scale_mean
+                           + rng.normal(size=(n, 3)) * 0.4).astype(f32),
+        'params/rotation': _unit_quats(rng, n).astype(f32),
+        'params/opacity': rng.normal(loc=0.5, scale=1.5, size=(n, 1)).astype(f32),
+        'params/joints': joints.astype(f32),
+        'params/sp_W': rng.normal(size=(n, m)).astype(f32),
+        'alive': alive,
+        'active_sh_degree': np.asarray(cfg.gauss.sh_degree, np.int32),
+        'sp_alive': sp_alive,
+        'joint_parents': parents_table(parent, root, MAX_LEVELS),
+        'joint_root': np.asarray(root, np.int32),
+        'train_times': np.linspace(0.0, 1.0, nf).astype(f32),
+    }
+    g_q = _unit_quats(rng, nf) * 0.05
+    g_q[:, 3] = 1.0
+    g_q /= np.linalg.norm(g_q, axis=-1, keepdims=True)
+    flat['params/global_tr'] = np.concatenate(
+        [rng.normal(size=(nf, 3)) * 0.05, g_q], axis=-1).astype(f32)
+
+    # skeleton net: torch.nn.Linear's default uniform init on the trunk
+    net = cfg.sk_net
+    fan_in = net.pos_enc.output_dim + net.t_enc.output_dim
+    in0, cin = fan_in, fan_in
+    for i in range(net.depth):
+        bound = 1.0 / math.sqrt(cin)
+        flat[f'params/sk_deform/layers/{i}/w'] = rng.uniform(
+            -bound, bound, size=(cin, net.width)).astype(f32)
+        flat[f'params/sk_deform/layers/{i}/b'] = rng.uniform(
+            -bound, bound, size=(net.width,)).astype(f32)
+        cin = net.width + (in0 if i in net.skips else 0)
+    for j, (oc, std) in enumerate(zip(net.out_dims, HEAD_STD)):
+        flat[f'params/sk_deform/heads/{j}/w'] = (
+            rng.normal(size=(cin, oc)) * std).astype(f32)
+        flat[f'params/sk_deform/heads/{j}/b'] = np.zeros(oc, f32)
+    return flat
+
+
+def orbit_view(angle: float, width: int, height: int, elevation: float = 0.3,
+               device='cuda') -> ViewParams:
+    """OpenCV camera on a circle around the origin, looking at it (y down)."""
+    device = resolve_device(device)
+    r, fovy = ORBIT_RADIUS, ORBIT_FOVY
+    eye = [r * math.sin(angle) * math.cos(elevation), -r * math.sin(elevation),
+           -r * math.cos(angle) * math.cos(elevation)]
+    fovx = 2.0 * math.atan(math.tan(fovy / 2.0) * width / height)
+    return ViewParams(
+        Tw2v=look_at(eye, [0.0, 0.0, 0.0], [0.0, -1.0, 0.0], coord='opencv',
+                     device=device),
+        Tv2c=perspective_opencv(fovy, size=(width, height), device=device),
+        campos=torch.tensor(eye, dtype=torch.float32, device=device),
+        tan_fovx=torch.tensor(math.tan(fovx / 2.0), device=device),
+        tan_fovy=torch.tensor(math.tan(fovy / 2.0), device=device))
