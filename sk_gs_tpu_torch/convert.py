@@ -8,7 +8,18 @@ sit under ``state/model/``, which is found and stripped here.
 
 Weights keep the JAX layout (linear ``w`` is [in, out]), so the skeleton
 net's leaves map one to one: ``params/sk_deform/layers/3/w`` ->
-``sk_deform.layers.3.w``.
+``sk_deform.layers.3.w``. ``adam_from_flat`` reads a trainer checkpoint's
+Adam moments (``state/opt/mu/...``, ``state/opt/nu/...``,
+``state/opt/count``) and ``model_to_flat`` writes the port's model back in
+the JAX names.
+
+Carried: the leaves the ``sk`` family reads (``SKGSModel.leaves``), the
+buffers it reads (``AUX_BUFFERS``) and the training state it updates
+(``STAT_BUFFERS``: ``max_radii2d``, ``xyz_grad_accum``, ``denom``,
+``sk_cache``; zeros when the checkpoint has none). Not carried: the leaves
+of the other stage families (``hyper``, ``sp_points``, ``sp_hyper``,
+``joint_pos``, ``sp_deform``, ``canonical``) and their moments, and the
+model fields only they use; they stay in the JAX checkpoint.
 """
 from __future__ import annotations
 
@@ -20,7 +31,9 @@ import torch
 
 from . import resolve_device
 from .models.deform import SkeletonNetConfig, skeleton_net
-from .models.sk_gs import AUX_BUFFERS, GAUSS_LEAVES, SK_LEAVES, SKGSConfig, SKGSModel
+from .models.optim import AdamState
+from .models.sk_gs import (AUX_BUFFERS, GAUSS_LEAVES, SK_LEAVES, STAT_BUFFERS,
+                           SKGSConfig, SKGSModel)
 from .ops.mlp import MLP
 from .render.settings import RasterConfig
 
@@ -48,8 +61,10 @@ def model_prefix(flat: Mapping[str, np.ndarray]) -> str:
 
 
 def model_from_flat(flat: Mapping[str, np.ndarray], cfg: SKGSConfig,
-                    rcfg: RasterConfig, device='cuda') -> SKGSModel:
-    """Build the serving model on ``device`` (CUDA unless asked otherwise)."""
+                    rcfg: RasterConfig, device='cuda',
+                    trainable: bool = False) -> SKGSModel:
+    """Build the model on ``device`` (CUDA unless asked otherwise), frozen
+    for serving unless ``trainable``."""
     device = resolve_device(device)
     pre = model_prefix(flat)
 
@@ -72,7 +87,40 @@ def model_from_flat(flat: Mapping[str, np.ndarray], cfg: SKGSConfig,
                                  device)
     buffers = {k: _tensor(get(k), device, _BUFFER_DTYPES[k])
                for k in AUX_BUFFERS}
-    return SKGSModel(cfg, rcfg, params, net, buffers)
+    for k in STAT_BUFFERS:
+        if pre + k in flat:
+            buffers[k] = _tensor(flat[pre + k], device)
+    return SKGSModel(cfg, rcfg, params, net, buffers, trainable=trainable)
+
+
+def adam_from_flat(flat: Mapping[str, np.ndarray],
+                   model: SKGSModel) -> AdamState:
+    """The Adam state of a trainer checkpoint for the leaves ``model``
+    holds, on the model's device."""
+    if model_prefix(flat) != 'state/model/':
+        raise KeyError('no trainer checkpoint (arrays under "state/model/")')
+    leaves = {k: p.detach() for k, p in model.leaves().items()}
+    moments = {}
+    for moment in ('mu', 'nu'):
+        moments[moment] = {}
+        for name, p in leaves.items():
+            key = f'state/opt/{moment}/{name}'
+            if key not in flat:
+                raise KeyError(f'missing optimizer array {key!r}')
+            moments[moment][name] = _tensor(flat[key], p.device)
+    return AdamState(mu=moments['mu'], nu=moments['nu'],
+                     count=int(np.asarray(flat['state/opt/count'])))
+
+
+def model_to_flat(model: SKGSModel) -> Dict[str, np.ndarray]:
+    """A copy of the model's leaves and buffers as numpy arrays in the JAX
+    names (``params/xyz``, ``params/sk_deform/layers/0/w``, ``alive``,
+    ...)."""
+    out = {'params/' + k: np.array(p.detach().cpu())
+           for k, p in model.leaves().items()}
+    for k in AUX_BUFFERS + STAT_BUFFERS:
+        out[k] = np.array(getattr(model, k).cpu())
+    return out
 
 
 def skeleton_net_from_flat(flat: Mapping[str, np.ndarray],

@@ -1,10 +1,12 @@
-"""Gaussian model config, state and renderer inputs (port of ``GaussianConfig``,
-``GaussianModel`` and ``gaussian_inputs`` of
+"""Gaussian model config, state, renderer inputs and the training helpers
+the ``sk`` family reads (port of ``GaussianConfig``, ``GaussianModel``,
+``gaussian_inputs``, ``expon_lr`` and ``ndc_grad_norm`` of
 ``sk_gs_tpu/models/gaussian_splatting.py``)."""
 from __future__ import annotations
 
 from typing import Dict, NamedTuple, Tuple
 
+import numpy as np
 import torch
 
 from ..render.settings import GaussianInputs
@@ -38,7 +40,8 @@ class GaussianConfig(NamedTuple):
 class GaussianModel(NamedTuple):
     """Raw (pre-activation) capacity-padded leaves and the state a render
     reads. The densification statistics of the JAX ``GaussianModel``
-    (``max_radii2d``, ``xyz_grad_accum``, ``denom``) belong to training."""
+    (``max_radii2d``, ``xyz_grad_accum``, ``denom``) are buffers of
+    ``SKGSModel``, which the trainer updates."""
     params: Dict[str, torch.Tensor]
     alive: torch.Tensor             # [Ncap] bool
     active_sh_degree: torch.Tensor  # [] int32
@@ -46,6 +49,32 @@ class GaussianModel(NamedTuple):
 
 def num_rest(sh_degree: int) -> int:
     return (sh_degree + 1) ** 2 - 1
+
+
+def expon_lr(step, lr_init, lr_final, lr_delay_steps=0, lr_delay_mult=1.0,
+             max_steps=1_000_000) -> float:
+    """Log-linear decay from lr_init to lr_final over max_steps, with an
+    optional sine warm-up over lr_delay_steps; host-side."""
+    if step < 0 or (lr_init == 0.0 and lr_final == 0.0):
+        return 0.0
+    if lr_delay_steps > 0:
+        delay_rate = lr_delay_mult + (1 - lr_delay_mult) * np.sin(
+            0.5 * np.pi * np.clip(step / lr_delay_steps, 0, 1))
+    else:
+        delay_rate = 1.0
+    t = np.clip(step / max_steps, 0, 1)
+    return float(delay_rate * np.exp(np.log(lr_init) * (1 - t)
+                                     + np.log(lr_final) * t))
+
+
+def ndc_grad_norm(means2d_grad: torch.Tensor, image_size,
+                  eps: float = 0.0) -> torch.Tensor:
+    """Per-Gaussian norm of the pixel-space position gradient in NDC units
+    (times 0.5 W and 0.5 H), the units the densify threshold is set in."""
+    scale = torch.tensor([image_size[0] * 0.5, image_size[1] * 0.5],
+                         dtype=torch.float32, device=means2d_grad.device)
+    g2 = means2d_grad[..., :2] * scale
+    return torch.sqrt(torch.sum(torch.square(g2), dim=-1) + eps)
 
 
 def gaussian_inputs(m: GaussianModel, cfg: GaussianConfig,

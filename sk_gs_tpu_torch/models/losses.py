@@ -1,10 +1,93 @@
-"""Image metrics (port of ``psnr`` and the separable ``ssim`` of
-``sk_gs_tpu/models/losses.py``)."""
+"""Loss weights, image losses and metrics (port of ``LossWeights``,
+``l1_loss``, ``mse_loss``, ``ssim_loss``, ``psnr`` and the separable
+``ssim`` of ``sk_gs_tpu/models/losses.py``)."""
 from __future__ import annotations
+
+import math
+from typing import Dict, Optional
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+
+class LossWeights:
+    """Scheduled per-name loss weights, evaluated on the host: each entry is
+    a number, or a dict with 'lambda' and optional '_vary' ('fix', 'linear',
+    'log'), '_steps', '_values'; other keys of the dict are the loss's own
+    settings (``cfg``), such as the image loss's 'method'."""
+
+    def __init__(self, cfg: Optional[dict] = None, default: float = 0.0):
+        self.default = default
+        self.entries: Dict[str, dict] = {}
+        self._step = 0
+        for name, c in (cfg or {}).items():
+            if name == 'default':
+                self.default = float(c)
+                continue
+            e = {'lambda': default, 'vary': 'fix', 'steps': [], 'values': []}
+            if isinstance(c, (int, float, bool)):
+                e['lambda'] = float(c)
+            elif isinstance(c, dict):
+                c = dict(c)
+                e['lambda'] = float(c.pop('lambda', default))
+                e['vary'] = c.pop('_vary', 'fix')
+                e['steps'] = list(c.pop('_steps', []))
+                e['values'] = [float(v) for v in c.pop('_values', [])]
+                e['cfg'] = c
+            self.entries[name] = e
+
+    def set_step(self, step: int):
+        self._step = step
+
+    def cfg(self, name: str) -> dict:
+        return self.entries.get(name, {}).get('cfg', {})
+
+    def ever_nonzero(self, name: str) -> bool:
+        """True if this loss can ever have weight > 0."""
+        if name not in self.entries:
+            return self.default > 0
+        e = self.entries[name]
+        return e['lambda'] > 0 or any(v > 0 for v in e['values'])
+
+    def w(self, name: str) -> float:
+        if name not in self.entries:
+            return self.default
+        e = self.entries[name]
+        steps, values, vary = e['steps'], e['values'], e['vary']
+        if not steps:
+            return e['lambda']
+        stage = int(np.sum(self._step >= np.asarray(steps)))
+        if stage == len(steps):
+            return max(0.0, values[-1])
+        if stage == 0:
+            return e['lambda']
+        v1, v2 = values[stage - 1], values[stage]
+        if v2 <= 0:
+            return 0.0
+        s1, s2 = steps[stage - 1], steps[stage]
+        ratio = (self._step - s1) / max(s2 - s1, 1)
+        if isinstance(vary, list):
+            vary = vary[stage]
+        if vary == 'fix':
+            return v2
+        if vary == 'linear':
+            return v1 * (1 - ratio) + v2 * ratio
+        if vary == 'log':
+            return math.exp(math.log(v1) * (1 - ratio) + math.log(v2) * ratio)
+        raise NotImplementedError(f'vary={vary}')
+
+
+def l1_loss(pred: torch.Tensor, gt: torch.Tensor) -> torch.Tensor:
+    return torch.mean(torch.abs(pred[..., :3] - gt[..., :3]))
+
+
+def mse_loss(pred: torch.Tensor, gt: torch.Tensor) -> torch.Tensor:
+    return torch.mean(torch.square(pred[..., :3] - gt[..., :3]))
+
+
+def ssim_loss(pred: torch.Tensor, gt: torch.Tensor) -> torch.Tensor:
+    return 1.0 - ssim(pred[..., :3], gt[..., :3])
 
 
 def ssim(img1: torch.Tensor, img2: torch.Tensor, window_size: int = 11,

@@ -1,17 +1,19 @@
-"""SK-GS: skeleton-driven dynamic Gaussian splatting, serving side (port of
-``SKGSConfig``, the model state, ``sk_stage`` and ``forward_deltas`` of
+"""SK-GS: skeleton-driven dynamic Gaussian splatting (port of ``SKGSConfig``,
+the model state, ``sk_stage`` and ``forward_deltas`` of
 ``sk_gs_tpu/models/sk_gs.py``).
 
-Ported: the ``static`` stage (zero deltas) and the ``sk`` family evaluated
-by running the skeleton net at time t, with the per-frame root transform
-interpolated between the two neighbouring train frames. Not ported yet, and
-raising ``NotImplementedError``: the ``init`` and ``sp`` families, the
-``test_time_interpolate`` branch over the cached skeleton outputs, and
-``sk_r_delta`` reposing.
+Ported: the ``static`` stage (zero deltas) and the ``sk`` family, served by
+running the skeleton net at time t with the per-frame root transform
+interpolated between the two neighbouring train frames, and trained at a
+train frame's own root transform (``time_id``), where ``sk_fix`` detaches
+the skeleton's outputs and the net's output row is returned for the
+``sk_cache``. Not ported yet, and raising ``NotImplementedError``: the
+``init`` and ``sp`` families, the ``test_time_interpolate`` branch over the
+cached skeleton outputs, and ``sk_r_delta`` reposing.
 """
 from __future__ import annotations
 
-from typing import Dict, NamedTuple, Optional, Tuple
+from typing import Dict, NamedTuple, Tuple
 
 import torch
 from torch import nn
@@ -72,6 +74,33 @@ class SKGSConfig(NamedTuple):
     lr_deform_max_steps: int = 40000
     lr_joints: float = 0.1
 
+    @property
+    def stages(self) -> Dict[str, Tuple[int, int, int]]:
+        """(start, end, length) of every stage, in schedule order."""
+        sched = dict(self.train_schedule)
+        out = {}
+        step = 0
+        for name in STAGE_NAMES:  # every stage present, possibly empty
+            n = int(sched.get(name, 0))
+            out[name] = (step, step + n, n)
+            step += n
+        return out
+
+    @property
+    def total_steps(self) -> int:
+        return sum(n for _, n in self.train_schedule)
+
+    @property
+    def time_interval(self) -> float:
+        return 1.0 / self.num_frames
+
+    def stage_at(self, step: int) -> str:
+        """The stage whose (start, end] holds ``step``; 'sk' past the end."""
+        for name, (start, end, _) in self.stages.items():
+            if start < step <= end:
+                return name
+        return 'sk'
+
 
 class StageOutputs(NamedTuple):
     d_xyz: torch.Tensor
@@ -86,25 +115,39 @@ SK_LEAVES = ('joints', 'global_tr', 'sp_W', 'sp_radius', 'sp_weight',
              'sk_feature')
 AUX_BUFFERS = ('alive', 'active_sh_degree', 'sp_alive', 'joint_parents',
                'joint_root', 'train_times')
+# Training state: the densification statistics and the per-frame cache of
+# the skeleton net's outputs ([frames, M, sum(sk_net.out_dims)]).
+STAT_BUFFERS = ('max_radii2d', 'xyz_grad_accum', 'denom', 'sk_cache')
 
 
 class SKGSModel(nn.Module):
-    """A trained SK-GS model on one device: capacity-padded Gaussian leaves
+    """An SK-GS model on one device: capacity-padded Gaussian leaves
     (``alive`` marks live slots), the skeleton (joints, per-frame root
-    transforms, parents table, LBS matrix) and the skeleton net. Built by
-    ``convert.model_from_flat``; the weights are frozen (serving)."""
+    transforms, parents table, LBS matrix), the skeleton net, and the
+    training statistics. Built by ``convert.model_from_flat``. Frozen unless
+    ``trainable``: then every leaf and the net's weights require grad."""
 
     def __init__(self, cfg: SKGSConfig, rcfg: RasterConfig,
                  params: Dict[str, torch.Tensor], sk_deform: nn.Module,
-                 buffers: Dict[str, torch.Tensor]):
+                 buffers: Dict[str, torch.Tensor], trainable: bool = False):
         super().__init__()
         self.cfg = cfg
         self.rcfg = rcfg
         self.params = nn.ParameterDict(
-            {k: nn.Parameter(v, requires_grad=False) for k, v in params.items()})
-        self.sk_deform = sk_deform.requires_grad_(False)
+            {k: nn.Parameter(v, requires_grad=trainable)
+             for k, v in params.items()})
+        self.sk_deform = sk_deform.requires_grad_(trainable)
         for name in AUX_BUFFERS:
             self.register_buffer(name, buffers[name])
+        xyz = params['xyz']
+        n, m = xyz.shape[0], params['joints'].shape[0]
+        zeros = {'max_radii2d': (n,), 'xyz_grad_accum': (n,), 'denom': (n,),
+                 'sk_cache': (cfg.num_frames, m, sum(cfg.sk_net.out_dims))}
+        for name in STAT_BUFFERS:
+            buf = buffers.get(name)
+            if buf is None:
+                buf = torch.zeros(zeros[name], device=xyz.device)
+            self.register_buffer(name, buf)
 
     @property
     def device(self) -> torch.device:
@@ -113,6 +156,14 @@ class SKGSModel(nn.Module):
     def gauss_view(self) -> GaussianModel:
         return GaussianModel(params=dict(self.params), alive=self.alive,
                              active_sh_degree=self.active_sh_degree)
+
+    def leaves(self) -> Dict[str, nn.Parameter]:
+        """Every trainable leaf by its JAX name: the params (``xyz``, ...)
+        and the net's weights (``sk_deform/layers/0/w``, ...)."""
+        out = dict(self.params.items())
+        for name, p in self.sk_deform.named_parameters():
+            out['sk_deform/' + name.replace('.', '/')] = p
+        return out
 
 
 def skeleton_net_input(params, joints: torch.Tensor) -> torch.Tensor:
@@ -132,9 +183,15 @@ def sk_rot_activation(sk_r: torch.Tensor) -> torch.Tensor:
 
 
 def sk_stage(cfg: SKGSConfig, model: SKGSModel, points: torch.Tensor,
-             t: torch.Tensor, time_id: Optional[int] = None,
-             sk_r_delta=None, training: bool = False) -> StageOutputs:
-    """Skeleton-driven warp via forward kinematics and dense LBS."""
+             t: torch.Tensor, time_id=None, sk_r_delta=None,
+             detach: bool = False, training: bool = False) -> StageOutputs:
+    """Skeleton-driven warp via forward kinematics and dense LBS.
+    ``time_id`` (an int or a 0-d integer tensor) takes that train frame's
+    root transform; ``detach`` (the ``sk_fix`` stage) cuts the gradient of
+    the joint transforms and the net's rotation and scale deltas. The aux
+    'cache_row' [M, sum(out_dims)] is what the trainer stores in
+    ``sk_cache``: the normalised quaternion (the raw axis-angle in lie
+    mode), then the rotation and scale deltas."""
     if sk_r_delta is not None:
         raise NotImplementedError('sk_r_delta reposing is not ported yet')
     if not training and cfg.test_time_interpolate:
@@ -160,9 +217,13 @@ def sk_stage(cfg: SKGSConfig, model: SKGSModel, points: torch.Tensor,
     sk_r_raw, d_rot, d_scale = skeleton_net_apply(model.sk_deform, cfg.sk_net,
                                                   x_in, t)
     sk_r = sk_rot_activation(sk_r_raw)
+    cached_r = sk_r if sk_r_raw.shape[-1] == 4 else sk_r_raw
+    cache_row = torch.cat([cached_r, d_rot, d_scale], dim=-1)
     sk_T = skeleton.kinematic_transforms(joints, sk_r, g_tr,
                                          model.joint_parents,
                                          model.joint_root)
+    if detach:
+        sk_T, d_rot, d_scale = sk_T.detach(), d_rot.detach(), d_scale.detach()
     weights, indices = superpoints.calc_lbs_weight(
         points, joints, model.sp_alive, cfg.num_knn, cfg.LBS_method,
         sp_W=params['sp_W'] if 'sp_W' in params else None,
@@ -171,21 +232,22 @@ def sk_stage(cfg: SKGSConfig, model: SKGSModel, points: torch.Tensor,
     dense_w = superpoints.dense_lbs_rows(weights, indices, sk_T.shape[0])
     d_xyz, d_rotation, d_scaling = superpoints.warp_blend_dense(
         points, sk_T, dense_w, d_rot, d_scale)
-    aux = {'skT': sk_T, 'knn_w': weights, 'knn_i': indices, 'g_tr': g_tr}
+    aux = {'skT': sk_T, 'knn_w': weights, 'knn_i': indices, 'g_tr': g_tr,
+           'cache_row': cache_row}
     return StageOutputs(d_xyz, d_rotation, d_scaling, aux)
 
 
 def forward_deltas(cfg: SKGSConfig, model: SKGSModel, t: torch.Tensor,
-                   stage: str, time_id: Optional[int] = None,
-                   sk_r_delta=None, training: bool = False) -> StageOutputs:
+                   stage: str, time_id=None, sk_r_delta=None,
+                   training: bool = False) -> StageOutputs:
     """Stage-dispatched deformation deltas."""
     if stage == 'static':
         zero = torch.zeros((), device=model.device)
         return StageOutputs(zero, zero, zero, {})
     if stage in SK_STAGES:
-        # sk_fix only detaches its outputs during training: same values
         return sk_stage(cfg, model, model.params['xyz'], t, time_id,
-                        sk_r_delta, training)
+                        sk_r_delta, detach=stage == 'sk_fix',
+                        training=training)
     if stage in STAGE_NAMES:
         raise NotImplementedError(f'stage {stage!r} is not ported yet')
     raise ValueError(f'unknown stage {stage!r}')

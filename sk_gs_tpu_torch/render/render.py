@@ -11,10 +11,10 @@ from typing import Dict, NamedTuple, Optional
 import torch
 
 from .binning import BinnedSplats, build_tile_lists
-from .blend import assemble_image, blend_forward_plain
+from .blend import assemble_image
 from .preprocess import PreprocessOut, preprocess
 from .settings import GaussianInputs, RasterConfig, ViewParams
-from .tile_kernel import tile_blend_fwd
+from .tile_kernel import TileBlend
 
 
 class BlendInputs(NamedTuple):
@@ -25,22 +25,28 @@ class BlendInputs(NamedTuple):
 
 
 def prepare_blend(g: GaussianInputs, view: ViewParams, cfg: RasterConfig,
-                  active_sh_degree: Optional[torch.Tensor] = None
+                  active_sh_degree: Optional[torch.Tensor] = None,
+                  means2d_offset: Optional[torch.Tensor] = None
                   ) -> BlendInputs:
     """Everything the tile blend reads. The per-Gaussian rows get a zero
     dummy row n (opacity 0: it never adds) and are brought into depth-rank
-    order once, so the blend reads entry i's row at ``sort_gauss[i]``."""
+    order once, so the blend reads entry i's row at ``sort_gauss[i]``.
+    ``means2d_offset`` [N, 2] is added to the pixel means first (binning
+    uses the means without it, as in the JAX package)."""
     pre = preprocess(g, view, cfg, active_sh_degree)
     colors = pre.colors
     if g.extras is not None:
         colors = torch.cat([colors, g.extras], dim=-1)
     binned = build_tile_lists(pre, cfg)
+    means2d = pre.means2d
+    if means2d_offset is not None:
+        means2d = means2d + means2d_offset
 
     def pad1(x):
         return torch.cat([x, torch.zeros_like(x[:1])], dim=0)
 
     do = binned.depth_order.to(torch.int64)
-    geo = pad1(torch.cat([pre.means2d, pre.conic,
+    geo = pad1(torch.cat([means2d, pre.conic,
                           g.opacities.reshape(-1, 1)], dim=-1))[do]
     return BlendInputs(pre, binned, geo.contiguous(),
                        pad1(colors)[do].contiguous())
@@ -48,23 +54,23 @@ def prepare_blend(g: GaussianInputs, view: ViewParams, cfg: RasterConfig,
 
 def blend_tiles(binned: BinnedSplats, geo: torch.Tensor, col: torch.Tensor,
                 cfg: RasterConfig):
-    """(tile_color [T, P, ch], tile_alpha [T, P]) through the kernel's
-    wrapper, or the plain version everywhere when ``cfg.use_kernel`` is off.
-    Unlike the JAX ``blend_tiles`` it takes the depth-ordered rows of
-    ``prepare_blend``."""
-    blend = tile_blend_fwd if cfg.use_kernel else blend_forward_plain
-    return blend(geo, col, binned.sort_gauss, binned.tile_start,
-                 binned.tile_count, cfg)
+    """(tile_color [T, P, ch], tile_alpha [T, P]), differentiable in ``geo``
+    and ``col``, through ``TileBlend``: the kernels' wrappers, or the plain
+    versions everywhere when ``cfg.use_kernel`` is off. Unlike the JAX
+    ``blend_tiles`` it takes the depth-ordered rows of ``prepare_blend``."""
+    return TileBlend.apply(geo, col, binned.sort_gauss, binned.tile_start,
+                           binned.tile_count, cfg)
 
 
 def render(g: GaussianInputs, view: ViewParams, cfg: RasterConfig,
            active_sh_degree: Optional[torch.Tensor] = None,
            means2d_offset: Optional[torch.Tensor] = None
            ) -> Dict[str, torch.Tensor]:
-    """``means2d_offset`` is accepted for the JAX signature; it serves the
-    densification gradients of training and is ignored here."""
-    del means2d_offset
-    pre, binned, geo, col = prepare_blend(g, view, cfg, active_sh_degree)
+    """``means2d_offset``: pass zeros [N, 2] that require grad, and its
+    gradient is the pixel-space position gradient the densification
+    statistics read (the JAX ``render.py:48`` contract)."""
+    pre, binned, geo, col = prepare_blend(g, view, cfg, active_sh_degree,
+                                          means2d_offset)
     tile_color, tile_alpha = blend_tiles(binned, geo, col, cfg)
     out = assemble_image(tile_color, tile_alpha, cfg)
     images = out['images']

@@ -14,7 +14,8 @@ import pytest
 import torch
 
 from sk_gs_tpu_torch import cuda_build, resolve_device
-from sk_gs_tpu_torch.render.tile_kernel import KERNELS, tile_blend_fwd
+from sk_gs_tpu_torch.render.tile_kernel import (KERNELS, tile_blend_bwd,
+                                                tile_blend_fwd)
 
 ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = re.compile(r'^\s*(import|from)\s+(jax|sk_gs_tpu)\b', re.M)
@@ -46,7 +47,9 @@ def test_importing_every_module_loads_no_jax():
                          capture_output=True, text=True, timeout=240)
     assert out.returncode == 0, out.stderr
     res = json.loads(out.stdout.strip().splitlines()[-1])
-    assert 'sk_gs_tpu_torch.framework.evaluate' in res['modules']
+    for name in ('framework.evaluate', 'framework.trainer', 'data.synthetic',
+                 'models.optim'):
+        assert 'sk_gs_tpu_torch.' + name in res['modules']
     assert res['bad'] == []
 
 
@@ -56,7 +59,7 @@ def test_entry_points_refuse_cpu_fallback(monkeypatch):
         resolve_device('cuda')
     from sk_gs_tpu_torch import convert
     from sk_gs_tpu_torch.framework.presets import synthetic_fullscale
-    cfg, rcfg = synthetic_fullscale()
+    cfg, rcfg, _ = synthetic_fullscale()
     with pytest.raises(RuntimeError, match='cuda'):
         convert.model_from_flat({'params/xyz': np.zeros((1, 3))}, cfg, rcfg)
     assert resolve_device('cpu') == torch.device('cpu')
@@ -66,18 +69,25 @@ def test_kernel_wrapper_launches_only_on_cuda():
     geo = torch.zeros(5, 6)
     col = torch.zeros(5, 3)
     ints = torch.zeros(4, dtype=torch.int32)
+    tiles = torch.zeros(4, 256, 3)
+    alpha = torch.zeros(4, 256)
     from sk_gs_tpu_torch.render.settings import RasterConfig
     cfg = RasterConfig(image_width=32, image_height=32)
-    before = tile_blend_fwd.launches
+    before = (tile_blend_fwd.launches, tile_blend_bwd.launches)
     with pytest.raises(ValueError, match='CUDA'):
         tile_blend_fwd.launch(geo, col, ints, ints, ints, cfg)
-    assert tile_blend_fwd.launches == before
-    assert [k.name for k in KERNELS] == ['tile_blend_fwd']
-    assert tile_blend_fwd.source == 'sk_gs_tpu_torch/csrc/tile_blend_fwd.cu'
-    assert (ROOT / tile_blend_fwd.source).is_file()
-    path, line = tile_blend_fwd.replaces.split(':')
-    assert 'def _fwd_kernel_tile' in (ROOT / path).read_text().splitlines()[
-        int(line) - 1]
+    with pytest.raises(ValueError, match='CUDA'):
+        tile_blend_bwd.launch(geo, col, ints, ints, ints, tiles, alpha, tiles,
+                              alpha, cfg)
+    assert (tile_blend_fwd.launches, tile_blend_bwd.launches) == before
+    assert [k.name for k in KERNELS] == ['tile_blend_fwd', 'tile_blend_bwd']
+    for kernel, tpu_fn in ((tile_blend_fwd, 'def _fwd_kernel_tile'),
+                           (tile_blend_bwd, 'def _bwd_kernel_tile')):
+        assert kernel.source == f'sk_gs_tpu_torch/csrc/{kernel.name}.cu'
+        assert (ROOT / kernel.source).is_file()
+        assert kernel.library.source == ROOT / kernel.source
+        path, line = kernel.replaces.split(':')
+        assert tpu_fn in (ROOT / path).read_text().splitlines()[int(line) - 1]
 
 
 def test_missing_nvcc_raises(monkeypatch, tmp_path):

@@ -5,11 +5,15 @@ Tolerances: preprocess float fields rtol/atol 1e-5 (the same elementwise
 formulas, matrix products summed in another order); integer fields and the
 binning exactly; blended pixels atol 3e-5, the bound the JAX package's own
 Pallas-vs-oracle test uses (exp and the transmittance product round
-differently in the two frameworks). The Pallas kernel runs in interpret
-mode, as tests/test_tile_kernel.py runs it.
+differently in the two frameworks); blend gradients 3e-4 of each column
+group's max magnitude, the bar of its gradient test
+(tests/test_tile_kernel.py:31-64). The Pallas kernels run in interpret
+mode, as tests/test_tile_kernel.py runs them, with a chunk that holds each
+tile's list where the stop rule matters (see test_torch_slice.py).
 """
 from importlib import import_module
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -21,7 +25,8 @@ import sk_gs_tpu_torch.render.binning as tbin
 import sk_gs_tpu_torch.render.blend as tblend
 from sk_gs_tpu_torch.render.settings import (GaussianInputs, RasterConfig,
                                              ViewParams)
-from sk_gs_tpu_torch.render.tile_kernel import tile_blend_fwd
+from sk_gs_tpu_torch.render.tile_kernel import (TileBlend, tile_blend_bwd,
+                                                tile_blend_fwd)
 from tests.test_render import CFG, build_inputs, make_view
 
 # the render packages re-export functions named like these modules
@@ -221,6 +226,124 @@ class TestPlainBlend:
                 T = np.where(kept & ~stop, test_t, T)
                 live &= ~stop
         assert stats['evaluations'] == evals > 0
+
+
+GROUPS = {'xy': slice(0, 2), 'conic': slice(2, 5), 'opacity': slice(5, 6),
+          'colour': slice(6, None)}
+
+
+def close_groups(got, ref, tol=3e-4):
+    """Per-entry gradient rows within ``tol`` of each column group's max."""
+    for name, sl in GROUPS.items():
+        scale = np.abs(ref[:, sl]).max()
+        assert scale > 0, name
+        err = np.abs(got[:, sl] - ref[:, sl]).max()
+        assert err <= tol * scale, f'{name}: {err} > {tol} x {scale}'
+
+
+class TestPlainBackward:
+    """blend_backward_plain (kernel #2's plain version) against the Pallas
+    backward and against autograd of the plain forward."""
+
+    @staticmethod
+    def scene(rng, tile_h, chunk=256, n=300):
+        cfg = CFG_P._replace(tile_h=tile_h, chunk=chunk)
+        g = build_inputs(rng, n)
+        # dense enough that many pixels reach the stop rule
+        g = g._replace(opacities=jnp.asarray(
+            rng.uniform(0.5, 0.99, size=n).astype(np.float32)))
+        pre = jpre.preprocess(g, make_view(), cfg)
+        binned = jbin.build_tile_lists(pre, cfg)
+        geo, col = port_blend_inputs(binned, pre, g.opacities, pre.colors)
+        args = (geo, col, to_t(binned.sort_gauss), to_t(binned.tile_start),
+                to_t(binned.tile_count))
+        cot = (torch.from_numpy(rng.normal(size=(cfg.num_tiles,
+                                                 cfg.pix_per_tile, 3))
+                                .astype(np.float32)),
+               torch.from_numpy(rng.normal(size=(cfg.num_tiles,
+                                                 cfg.pix_per_tile))
+                                .astype(np.float32)))
+        return cfg, g, pre, binned, args, cot
+
+    @pytest.mark.parametrize('tile_h', [16, 8])
+    def test_matches_pallas_backward(self, rng, tile_h):
+        cfg, g, pre, binned, args, (gc, ga) = self.scene(rng, tile_h)
+        pad1 = lambda x: jnp.concatenate([x, jnp.zeros_like(x[:1])], axis=0)
+        do = binned.depth_order
+        feat_s = jtk._build_feat_sorted(
+            binned.sort_gauss, pad1(pre.means2d)[do], pad1(pre.conic)[do],
+            pad1(g.opacities.reshape(-1))[do], pad1(pre.colors)[do])
+        color, alpha = jtk._pallas_forward_tile(
+            feat_s, binned.tile_start, binned.tile_count, cfg, 3)
+        gfeat = jtk._pallas_backward_tile(
+            feat_s, binned.tile_start, binned.tile_count, color, alpha,
+            jnp.asarray(gc.numpy()).transpose(0, 2, 1),
+            jnp.asarray(ga.numpy())[:, None, :], cfg, 3)
+        t_color, t_alpha = tblend.blend_forward_plain(*args, port_cfg(cfg))
+        assert float(t_alpha.max()) > 0.99     # some pixels stop early
+        g_entry = tblend.blend_backward_plain(*args, t_color, t_alpha, gc, ga,
+                                              port_cfg(cfg))
+        assert g_entry.shape == (binned.sort_gauss.shape[0], 9)
+        # rows past the tiles' lists are zero here and unwritten there
+        n = int(np.asarray(binned.tile_count).sum())
+        assert not g_entry[n:].any()
+        close_groups(to_np(g_entry)[:n], np.asarray(gfeat)[:n, :9])
+        # the wrapper takes the plain version for CPU tensors
+        before = tile_blend_bwd.launches
+        w_entry = tile_blend_bwd(*args, t_color, t_alpha, gc, ga,
+                                 port_cfg(cfg))
+        assert tile_blend_bwd.launches == before
+        np.testing.assert_array_equal(to_np(w_entry), to_np(g_entry))
+
+    @pytest.mark.parametrize('batch', [7, 32])
+    def test_matches_autograd_of_plain_forward(self, rng, batch):
+        """Per-entry leaves through the plain forward (its clamps pass the
+        gradient straight through), at a chunk shorter than the lists."""
+        cfg, _, _, _, args, (gc, ga) = self.scene(rng, 16, chunk=64)
+        pcfg = port_cfg(cfg)
+        geo, col, sort_gauss, tile_start, tile_count = args
+        rows = sort_gauss.long()
+        geo_e = geo[rows].clone().requires_grad_(True)
+        col_e = col[rows].clone().requires_grad_(True)
+        ids = torch.arange(rows.shape[0], dtype=torch.int32)
+        color, alpha = tblend.blend_forward_plain(geo_e, col_e, ids,
+                                                  tile_start, tile_count,
+                                                  pcfg, batch=batch)
+        loss = torch.sum(color * gc) + torch.sum(alpha * ga)
+        ref = torch.cat(torch.autograd.grad(loss, (geo_e, col_e)), dim=-1)
+        g_entry = tblend.blend_backward_plain(*args, color.detach(),
+                                              alpha.detach(), gc, ga, pcfg,
+                                              batch=batch)
+        close_groups(to_np(g_entry), to_np(ref), tol=3e-5)
+
+    def test_tile_blend_matches_jax_vjp(self, rng):
+        """TileBlend's gradient of the depth-ordered rows, mapped back to
+        the Gaussians, against jax.vjp of blend_chunks_pallas."""
+        cfg, g, pre, binned, args, (gc, ga) = self.scene(rng, 16)
+        pad1 = lambda x: jnp.concatenate([x, jnp.zeros_like(x[:1])], axis=0)
+        prim = (pad1(pre.means2d), pad1(pre.conic),
+                pad1(g.opacities.reshape(-1)), pad1(pre.colors))
+        _, vjp = jax.vjp(lambda *x: jtk.blend_chunks_pallas(binned, *x, cfg),
+                         *prim)
+        ref = vjp((jnp.asarray(gc.numpy()), jnp.asarray(ga.numpy())))
+        ref = np.concatenate([np.asarray(ref[0]), np.asarray(ref[1]),
+                              np.asarray(ref[2])[:, None],
+                              np.asarray(ref[3])], axis=-1)
+        geo, col = (a.clone().requires_grad_(True) for a in args[:2])
+        for use_kernel in (True, False):
+            pcfg = port_cfg(cfg)._replace(use_kernel=use_kernel)
+            before = (tile_blend_fwd.launches, tile_blend_bwd.launches)
+            color, alpha = TileBlend.apply(geo, col, *args[2:], pcfg)
+            g_geo, g_col = torch.autograd.grad(
+                torch.sum(color * gc) + torch.sum(alpha * ga), (geo, col))
+            assert (tile_blend_fwd.launches,
+                    tile_blend_bwd.launches) == before
+            rows = torch.cat([g_geo, g_col], dim=-1)
+            got = torch.zeros_like(rows)
+            got[binned.depth_order.tolist()] = rows   # rank -> original id
+            # the last row is the zero dummy: the JAX side sums its
+            # interpret-mode rows past the pairs (never written) onto it
+            close_groups(to_np(got)[:-1], ref[:-1])
 
 
 class TestRender:

@@ -270,9 +270,9 @@ def test_fullscale_preset_matches_yaml():
     from sk_gs_tpu.framework.config import make_config
     from train import build_model_cfg
     meta = types.SimpleNamespace(num_frames=48)
-    ref_cfg, ref_rcfg = build_model_cfg(
-        make_config('configs/synthetic_fullscale.yaml', []), meta, (400, 400))
-    cfg, rcfg = synthetic_fullscale()
+    yaml_cfg = make_config('configs/synthetic_fullscale.yaml', [])
+    ref_cfg, ref_rcfg = build_model_cfg(yaml_cfg, meta, (400, 400))
+    cfg, rcfg, train = synthetic_fullscale()
     assert _as_dict(cfg) == _as_dict(ref_cfg)
     ref_r = ref_rcfg._asdict()
     ref_r.pop('use_pallas')
@@ -281,3 +281,21 @@ def test_fullscale_preset_matches_yaml():
     assert got_r == ref_r
     assert (cfg.gauss.capacity, cfg.num_superpoints, rcfg.num_tiles,
             rcfg.pix_per_tile) == (100_352, 512, 625, 256)
+    # the train settings: the sk family's loss terms, optimizer, lr, clip
+    # and seed, and the dataset with train.py's GT pair budget
+    loss = yaml_cfg['loss']
+    assert train.loss == {k: loss[k] for k in ('image', 'ssim')}
+    t = yaml_cfg['train']
+    assert (train.lr, train.optimizer, train.seed) == (
+        t['lr'], t['optimizer'], t['seed'])
+    assert train.clip_norm == float(t.get('clip_norm', 0.0)) == 0.0
+    assert cfg.gauss.lr == train.lr
+    d = yaml_cfg['dataset']
+    ds = train.dataset
+    assert d['kind'] == 'synthetic'
+    assert (ds.num_links, ds.gauss_per_link, ds.num_frames, ds.image_size,
+            ds.background) == (d['num_links'], d['gauss_per_link'],
+                               d['num_frames'], d['image_size'],
+                               d['background'])
+    assert ds.gt_pair_capacity == min(yaml_cfg['raster']['pair_capacity'],
+                                      2 ** 17)
