@@ -13,13 +13,16 @@ Adam moments (``state/opt/mu/...``, ``state/opt/nu/...``,
 ``state/opt/count``) and ``model_to_flat`` writes the port's model back in
 the JAX names.
 
-Carried: the leaves the ``sk`` family reads (``SKGSModel.leaves``), the
-buffers it reads (``AUX_BUFFERS``) and the training state it updates
-(``STAT_BUFFERS``: ``max_radii2d``, ``xyz_grad_accum``, ``denom``,
-``sk_cache``; zeros when the checkpoint has none). Not carried: the leaves
-of the other stage families (``hyper``, ``sp_points``, ``sp_hyper``,
-``joint_pos``, ``sp_deform``, ``canonical``) and their moments, and the
-model fields only they use; they stay in the JAX checkpoint.
+Carried: every leaf of ``SKGSModel.leaves`` (the Gaussian and skeleton
+leaves, ``hyper``, ``sp_points``, ``sp_hyper`` and ``joint_pos`` when the
+arrays have them, the skeleton net, and the warp nets ``sp_deform`` and
+``canonical`` under ``params/sp_deform/...`` and ``params/canonical/...``
+when present) and their Adam moments, the buffers the port reads
+(``AUX_BUFFERS``) and the training state it updates (``STAT_BUFFERS``:
+``max_radii2d``, ``xyz_grad_accum``, ``denom``, ``sk_cache``; zeros when the
+checkpoint has none). Not carried: the model fields only the ``sp`` and
+``sk_init`` families use (``sp_cache``, ``joint_cost``, ``sp_weights``, ...);
+they stay in the JAX checkpoint.
 """
 from __future__ import annotations
 
@@ -30,10 +33,13 @@ import numpy as np
 import torch
 
 from . import resolve_device
-from .models.deform import SkeletonNetConfig, skeleton_net
+from torch import nn
+
+from .models.deform import (DeformNet, DeformNetConfig, SkeletonNetConfig,
+                            skeleton_net)
 from .models.optim import AdamState
-from .models.sk_gs import (AUX_BUFFERS, GAUSS_LEAVES, SK_LEAVES, STAT_BUFFERS,
-                           SKGSConfig, SKGSModel)
+from .models.sk_gs import (AUX_BUFFERS, DEFORM_NETS, GAUSS_LEAVES, SK_LEAVES,
+                           SP_LEAVES, STAT_BUFFERS, SKGSConfig, SKGSModel)
 from .ops.mlp import MLP
 from .render.settings import RasterConfig
 
@@ -74,7 +80,7 @@ def model_from_flat(flat: Mapping[str, np.ndarray], cfg: SKGSConfig,
         return np.asarray(flat[pre + key])
 
     params = {k: _tensor(get('params/' + k), device) for k in GAUSS_LEAVES}
-    for k in SK_LEAVES:
+    for k in SK_LEAVES + SP_LEAVES:
         if pre + 'params/' + k in flat:
             params[k] = _tensor(flat[pre + 'params/' + k], device)
     for k in ('joints', 'global_tr'):
@@ -85,12 +91,19 @@ def model_from_flat(flat: Mapping[str, np.ndarray], cfg: SKGSConfig,
 
     net = skeleton_net_from_flat(flat, cfg.sk_net, pre + 'params/sk_deform/',
                                  device)
+    warp_nets = {}
+    for name in DEFORM_NETS:
+        prefix = f'{pre}params/{name}/'
+        if any(k.startswith(prefix) for k in flat):
+            warp_nets[name] = deform_net_from_flat(flat, cfg.net, prefix,
+                                                   device)
     buffers = {k: _tensor(get(k), device, _BUFFER_DTYPES[k])
                for k in AUX_BUFFERS}
     for k in STAT_BUFFERS:
         if pre + k in flat:
             buffers[k] = _tensor(flat[pre + k], device)
-    return SKGSModel(cfg, rcfg, params, net, buffers, trainable=trainable)
+    return SKGSModel(cfg, rcfg, params, net, buffers, trainable=trainable,
+                     **warp_nets)
 
 
 def adam_from_flat(flat: Mapping[str, np.ndarray],
@@ -129,7 +142,20 @@ def skeleton_net_from_flat(flat: Mapping[str, np.ndarray],
     """The skeleton net whose leaves sit under ``prefix`` (``.../layers/0/w``,
     ``.../heads/2/b``, ...), shapes checked against ``cfg``."""
     device = resolve_device(device)
-    net = skeleton_net(cfg, device)
+    return _load_net(skeleton_net(cfg, device), flat, prefix, device)
+
+
+def deform_net_from_flat(flat: Mapping[str, np.ndarray], cfg: DeformNetConfig,
+                         prefix: str, device='cuda') -> DeformNet:
+    """The warp net whose leaves sit under ``prefix`` (``.../timenet/0/w``,
+    ``.../trunk/3/b``, ``.../warp/w``, ...), shapes checked against
+    ``cfg``."""
+    device = resolve_device(device)
+    return _load_net(DeformNet(cfg, device), flat, prefix, device)
+
+
+def _load_net(net: nn.Module, flat: Mapping[str, np.ndarray], prefix: str,
+              device) -> nn.Module:
     state = {}
     for name, ref in net.state_dict().items():
         key = prefix + name.replace('.', '/')

@@ -1,11 +1,13 @@
 """A random SK-GS model and orbit cameras, made from a seed with numpy.
 
-``random_model_flat`` writes the arrays of a trained ``sk``-stage model in
-the JAX package's flat checkpoint naming (``params/xyz``,
-``params/sk_deform/layers/0/w``, ``alive``, ...), so that it goes through
-``convert.model_from_flat`` as a real checkpoint would. The scene is an
-articulated cloud: joints scattered in a ball, a random tree over the live
-joints, and each live Gaussian placed near one joint.
+``random_model_flat`` writes the arrays of a trained model in the JAX
+package's flat checkpoint naming (``params/xyz``,
+``params/sk_deform/layers/0/w``, ``params/sp_deform/trunk/0/w``, ``alive``,
+...), so that it goes through ``convert.model_from_flat`` as a real
+checkpoint would: every leaf a model carries through the stages, the warp
+nets ``sp_deform`` and ``canonical`` included. The scene is an articulated
+cloud: joints scattered in a ball, a random tree over the live joints, and
+each live Gaussian placed near one joint.
 """
 from __future__ import annotations
 
@@ -16,6 +18,8 @@ import numpy as np
 import torch
 
 from .. import resolve_device
+from ..models.deform import HEAD_STD as WARP_HEAD_STD
+from ..models.deform import DeformNet
 from ..models.gaussian_splatting import num_rest
 from ..models.sk_gs import SKGSConfig
 from ..models.skeleton import MAX_LEVELS, parents_table
@@ -108,7 +112,33 @@ def random_model_flat(cfg: SKGSConfig, seed: int, n_alive: int,
         flat[f'params/sk_deform/heads/{j}/w'] = (
             rng.normal(size=(cin, oc)) * std).astype(f32)
         flat[f'params/sk_deform/heads/{j}/b'] = np.zeros(oc, f32)
+
+    # the superpoint families' leaves and the warp nets
+    flat['params/hyper'] = np.full((n, cfg.hyper_dim), -1e-2, f32)
+    flat['params/sp_points'] = joints.astype(f32)
+    flat['params/sp_hyper'] = np.zeros((m, cfg.hyper_dim), f32)
+    flat['params/joint_pos'] = np.zeros((m, m, 3), f32)
+    for name in ('sp_deform', 'canonical'):
+        flat.update(_warp_net_flat(cfg, rng, f'params/{name}/'))
     return flat
+
+
+def _warp_net_flat(cfg: SKGSConfig, rng: np.random.Generator, prefix: str):
+    """A warp net's leaves, named and shaped as ``DeformNet`` has them, with
+    ``deform_net_init``'s distributions: kaiming-uniform timenet and trunk,
+    zero biases, heads of tiny spread."""
+    out = {}
+    for name, p in DeformNet(cfg.net).named_parameters():
+        head = name.split('.')[0]
+        if name.endswith('.b'):
+            w = np.zeros(p.shape)
+        elif head in WARP_HEAD_STD:
+            w = rng.normal(size=p.shape) * WARP_HEAD_STD[head]
+        else:
+            bound = math.sqrt(6.0 / p.shape[0])
+            w = rng.uniform(-bound, bound, size=p.shape)
+        out[prefix + name.replace('.', '/')] = w.astype(np.float32)
+    return out
 
 
 def orbit_view(angle: float, width: int, height: int, elevation: float = 0.3,

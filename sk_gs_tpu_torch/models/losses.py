@@ -78,6 +78,13 @@ class LossWeights:
         raise NotImplementedError(f'vary={vary}')
 
 
+def masked_mean(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """Mean of x over the elements where the (broadcast) mask is set: the
+    live count, not the capacity, divides (``trainer.py:68-78``)."""
+    mask_b = torch.broadcast_to(mask, x.shape).to(x.dtype)
+    return torch.sum(x * mask_b) / torch.clamp(torch.sum(mask_b), min=1.0)
+
+
 def l1_loss(pred: torch.Tensor, gt: torch.Tensor) -> torch.Tensor:
     return torch.mean(torch.abs(pred[..., :3] - gt[..., :3]))
 

@@ -58,3 +58,20 @@ def adam_update(grads: Dict[str, torch.Tensor], state: AdamState,
         p.sub_(lrs[k] * (m / bc1) / (torch.sqrt(v / bc2) + eps))
     return AdamState(mu=state.mu, nu=state.nu, count=count)
 
+
+
+@torch.no_grad()
+def reset_rows(state: AdamState, name: str, row_mask: torch.Tensor):
+    """Zero both moments of leaf ``name`` at the rows ``row_mask`` [rows]
+    selects, in place (the surgery for replaced, cloned or split rows,
+    ``optim.py:66-90``)."""
+    for moments in (state.mu, state.nu):
+        x = moments[name]
+        x.masked_fill_(row_mask.reshape(-1, *([1] * (x.dim() - 1))), 0.0)
+
+
+@torch.no_grad()
+def reset_leaf(state: AdamState, name: str):
+    """Zero both moments of leaf ``name``, in place (``optim.py:93-95``)."""
+    for moments in (state.mu, state.nu):
+        moments[name].zero_()

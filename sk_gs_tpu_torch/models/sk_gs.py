@@ -1,28 +1,34 @@
 """SK-GS: skeleton-driven dynamic Gaussian splatting (port of ``SKGSConfig``,
-the model state, ``sk_stage`` and ``forward_deltas`` of
-``sk_gs_tpu/models/sk_gs.py``).
+the model state, ``init_model``, ``init_stage``, ``sk_stage`` and
+``forward_deltas`` of ``sk_gs_tpu/models/sk_gs.py``).
 
-Ported: the ``static`` stage (zero deltas) and the ``sk`` family, served by
-running the skeleton net at time t with the per-frame root transform
-interpolated between the two neighbouring train frames, and trained at a
-train frame's own root transform (``time_id``), where ``sk_fix`` detaches
-the skeleton's outputs and the net's output row is returned for the
-``sk_cache``. Not ported yet, and raising ``NotImplementedError``: the
-``init`` and ``sp`` families, the ``test_time_interpolate`` branch over the
-cached skeleton outputs, and ``sk_r_delta`` reposing.
+Ported: the ``static`` stage (zero deltas); the ``init`` family, one warp
+field (``sp_deform``) on all Gaussians, where ``init_fix`` detaches its
+output; and the ``sk`` family, served by running the skeleton net at time t
+with the per-frame root transform interpolated between the two neighbouring
+train frames, and trained at a train frame's own root transform
+(``time_id``), where ``sk_fix`` detaches the skeleton's outputs and the
+net's output row is returned for the ``sk_cache``. Not ported yet, and
+raising ``NotImplementedError``: the ``sp`` family, the
+``test_time_interpolate`` branch over the cached skeleton outputs, and
+``sk_r_delta`` reposing.
 """
 from __future__ import annotations
 
-from typing import Dict, NamedTuple, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 from torch import nn
 
+from .. import resolve_device
 from ..ops import quaternion as quat
 from ..ops import se3
 from ..render.settings import RasterConfig
 from . import skeleton, superpoints
-from .deform import DeformNetConfig, SkeletonNetConfig, skeleton_net_apply
+from .deform import (DeformNet, DeformNetConfig, SkeletonNetConfig,
+                     deform_net_apply, deform_net_init, skeleton_net_apply,
+                     skeleton_net_init)
 from .gaussian_splatting import GaussianConfig, GaussianModel
 
 STAGE_NAMES = ('static', 'init_fix', 'init', 'sp_fix', 'sp', 'sk_init',
@@ -113,6 +119,12 @@ class StageOutputs(NamedTuple):
 GAUSS_LEAVES = ('xyz', 'f_dc', 'f_rest', 'scaling', 'rotation', 'opacity')
 SK_LEAVES = ('joints', 'global_tr', 'sp_W', 'sp_radius', 'sp_weight',
              'sk_feature')
+# Leaves of the superpoint families, carried through every stage as the JAX
+# model carries them (the init family leaves them untouched).
+SP_LEAVES = ('hyper', 'sp_points', 'sp_hyper', 'joint_pos')
+# The warp nets: ``sp_deform`` (the init and sp families) and the
+# ``canonical`` net of the consistency loss.
+DEFORM_NETS = ('sp_deform', 'canonical')
 AUX_BUFFERS = ('alive', 'active_sh_degree', 'sp_alive', 'joint_parents',
                'joint_root', 'train_times')
 # Training state: the densification statistics and the per-frame cache of
@@ -123,13 +135,17 @@ STAT_BUFFERS = ('max_radii2d', 'xyz_grad_accum', 'denom', 'sk_cache')
 class SKGSModel(nn.Module):
     """An SK-GS model on one device: capacity-padded Gaussian leaves
     (``alive`` marks live slots), the skeleton (joints, per-frame root
-    transforms, parents table, LBS matrix), the skeleton net, and the
-    training statistics. Built by ``convert.model_from_flat``. Frozen unless
-    ``trainable``: then every leaf and the net's weights require grad."""
+    transforms, parents table, LBS matrix), the skeleton net, the warp nets
+    ``sp_deform`` and ``canonical`` when the model has them, and the
+    training statistics. Built by ``convert.model_from_flat`` or
+    ``init_model``. Frozen unless ``trainable``: then every leaf and the
+    nets' weights require grad."""
 
     def __init__(self, cfg: SKGSConfig, rcfg: RasterConfig,
                  params: Dict[str, torch.Tensor], sk_deform: nn.Module,
-                 buffers: Dict[str, torch.Tensor], trainable: bool = False):
+                 buffers: Dict[str, torch.Tensor], trainable: bool = False,
+                 sp_deform: Optional[DeformNet] = None,
+                 canonical: Optional[DeformNet] = None):
         super().__init__()
         self.cfg = cfg
         self.rcfg = rcfg
@@ -137,6 +153,9 @@ class SKGSModel(nn.Module):
             {k: nn.Parameter(v, requires_grad=trainable)
              for k, v in params.items()})
         self.sk_deform = sk_deform.requires_grad_(trainable)
+        for name, net in (('sp_deform', sp_deform), ('canonical', canonical)):
+            setattr(self, name,
+                    None if net is None else net.requires_grad_(trainable))
         for name in AUX_BUFFERS:
             self.register_buffer(name, buffers[name])
         xyz = params['xyz']
@@ -154,16 +173,102 @@ class SKGSModel(nn.Module):
         return self.params['xyz'].device
 
     def gauss_view(self) -> GaussianModel:
+        """The Gaussian leaves, ``alive`` and the statistics, as the model's
+        own tensors (in-place edits reach the model)."""
         return GaussianModel(params=dict(self.params), alive=self.alive,
-                             active_sh_degree=self.active_sh_degree)
+                             active_sh_degree=self.active_sh_degree,
+                             max_radii2d=self.max_radii2d,
+                             xyz_grad_accum=self.xyz_grad_accum,
+                             denom=self.denom)
+
+    def nets(self) -> Dict[str, nn.Module]:
+        """The nets the model has, by their JAX leaf names."""
+        nets = {'sk_deform': self.sk_deform, 'sp_deform': self.sp_deform,
+                'canonical': self.canonical}
+        return {k: v for k, v in nets.items() if v is not None}
 
     def leaves(self) -> Dict[str, nn.Parameter]:
         """Every trainable leaf by its JAX name: the params (``xyz``, ...)
-        and the net's weights (``sk_deform/layers/0/w``, ...)."""
+        and the nets' weights (``sk_deform/layers/0/w``,
+        ``sp_deform/trunk/0/w``, ...)."""
         out = dict(self.params.items())
-        for name, p in self.sk_deform.named_parameters():
-            out['sk_deform/' + name.replace('.', '/')] = p
+        for net_name, net in self.nets().items():
+            for name, p in net.named_parameters():
+                out[net_name + '/' + name.replace('.', '/')] = p
         return out
+
+
+def init_model(cfg: SKGSConfig, rcfg: RasterConfig, base: GaussianModel,
+               train_times: np.ndarray, seed: int = 0, device='cuda',
+               trainable: bool = True) -> SKGSModel:
+    """The SK-GS state around a freshly initialised ``GaussianModel``
+    (``sk_gs.py:158-209``): hyper features at -1e-2, random superpoints,
+    ``sp_W`` ones (LBS_method 'W'), zero joints and joint pivots, identity
+    root transforms, the warp nets (``sp_deform``; ``canonical`` when the
+    config uses it) and the skeleton net freshly initialised, every
+    superpoint alive. The random draws come from a CPU generator seeded
+    with ``seed`` and are moved to ``device``, so a CPU and a card model of
+    one seed are equal (the JAX package's random stream is not matched)."""
+    device = resolve_device(device)
+    gen = torch.Generator().manual_seed(seed)
+    n_cap, m, nf = base.capacity, cfg.num_superpoints, cfg.num_frames
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen).to(device)
+
+    params = {k: v.detach().clone().to(device)
+              for k, v in base.params.items()}
+    params['hyper'] = torch.full((n_cap, cfg.hyper_dim), -1e-2,
+                                 device=device)
+    params['sp_points'] = randn(m, 3)
+    params['sp_hyper'] = torch.zeros((m, cfg.hyper_dim), device=device)
+    if cfg.LBS_method == 'W':
+        params['sp_W'] = torch.ones((n_cap, m), device=device)
+    if cfg.LBS_method in ('kernel', 'weighted_kernel'):
+        params['sp_radius'] = randn(m)
+    if cfg.LBS_method == 'weighted_kernel':
+        params['sp_weight'] = torch.zeros(m, device=device)
+    params['joints'] = torch.zeros((m, 3), device=device)
+    params['joint_pos'] = torch.zeros((m, m, 3), device=device)
+    params['global_tr'] = se3.se3_identity((nf,), device=device)
+    sp_deform = deform_net_init(cfg.net, gen).to(device)
+    canonical = (deform_net_init(cfg.net, gen).to(device)
+                 if cfg.use_canonical_net and cfg.canonical_time_id >= 0
+                 else None)
+    sk_deform = skeleton_net_init(cfg.sk_net, gen).to(device)
+    if cfg.sk_feature_dim > 0:
+        params['sk_feature'] = randn(m, cfg.sk_feature_dim)
+    buffers = {
+        'alive': base.alive.to(device),
+        'active_sh_degree': base.active_sh_degree.to(device),
+        'sp_alive': torch.ones(m, dtype=torch.bool, device=device),
+        'joint_parents': torch.zeros((m, skeleton.MAX_LEVELS),
+                                     dtype=torch.int32, device=device),
+        'joint_root': torch.zeros((), dtype=torch.int32, device=device),
+        'train_times': torch.as_tensor(np.asarray(train_times),
+                                       dtype=torch.float32, device=device),
+    }
+    for name in ('max_radii2d', 'xyz_grad_accum', 'denom'):
+        if getattr(base, name) is not None:
+            buffers[name] = getattr(base, name).to(device)
+    return SKGSModel(cfg, rcfg, params, sk_deform, buffers,
+                     trainable=trainable, sp_deform=sp_deform,
+                     canonical=canonical)
+
+
+def init_stage(cfg: SKGSConfig, model: SKGSModel, points: torch.Tensor,
+               t: torch.Tensor, use_canonical: bool = False) -> StageOutputs:
+    """One warp field on all Gaussians (``sk_gs.py:293-302``): the
+    ``sp_deform`` net (or ``canonical``) at (points, t), the points
+    detached. The rotation and scale deltas are zero."""
+    net = model.canonical if use_canonical else model.sp_deform
+    if net is None:
+        raise ValueError('the model has no '
+                         + ('canonical' if use_canonical else 'sp_deform')
+                         + ' net')
+    d_xyz = deform_net_apply(net, cfg.net, points.detach(), t)['d_xyz']
+    zero = torch.zeros((), device=points.device)
+    return StageOutputs(d_xyz, zero, zero, {})
 
 
 def skeleton_net_input(params, joints: torch.Tensor) -> torch.Tensor:
@@ -244,6 +349,11 @@ def forward_deltas(cfg: SKGSConfig, model: SKGSModel, t: torch.Tensor,
     if stage == 'static':
         zero = torch.zeros((), device=model.device)
         return StageOutputs(zero, zero, zero, {})
+    if stage in ('init', 'init_fix'):
+        out = init_stage(cfg, model, model.params['xyz'], t)
+        if stage == 'init_fix':
+            out = out._replace(d_xyz=out.d_xyz.detach())
+        return out
     if stage in SK_STAGES:
         return sk_stage(cfg, model, model.params['xyz'], t, time_id,
                         sk_r_delta, detach=stage == 'sk_fix',

@@ -6,12 +6,13 @@ Gaussians depth-sorted (stable), every Gaussian expanded into the tiles of
 its rect in row-major order, the per-pair tile-ellipse cull, then a stable
 sort by tile id. The JAX package's TPU-only carrier bit-packing and fused
 sort key are replaced by ``searchsorted`` and a stable ``torch.sort``, which
-give the identical order. The ``chunk_*`` fields of the JAX ``BinnedSplats``
-feed only its chunk-schedule kernels and are not built here.
+give the identical order. The ``chunk_*`` fields (and ``tile_nonempty``)
+feed the chunk schedule's kernels and are built, as ``binning.py:169-190``
+builds them, only when ``cfg.schedule == 'chunk'``; they are None otherwise.
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -27,6 +28,53 @@ class BinnedSplats(NamedTuple):
     tile_count: torch.Tensor   # [T] int32 entries per tile
     num_pairs: torch.Tensor    # [] int pairs emitted before the capacity clip
     overflow: torch.Tensor     # [] bool: pair_capacity exceeded
+    # the chunk schedule's metadata, [num_chunks(cfg)] int32 each
+    chunk_tile: Optional[torch.Tensor] = None        # tile of each chunk
+    chunk_start_flag: Optional[torch.Tensor] = None  # 1 at a tile's first
+    chunk_src: Optional[torch.Tensor] = None   # first entry in sort order
+    chunk_valid: Optional[torch.Tensor] = None  # entries in the chunk (<= C)
+    tile_nonempty: Optional[torch.Tensor] = None  # [T] bool
+
+
+def padded_capacity(cfg: RasterConfig) -> int:
+    """Entries of the padded chunk layout: the pair capacity rounded up to
+    whole chunks, plus one chunk of padding for each tile."""
+    cap = ((cfg.pair_capacity + cfg.chunk - 1) // cfg.chunk) * cfg.chunk
+    return cap + cfg.num_tiles * cfg.chunk
+
+
+def num_chunks(cfg: RasterConfig) -> int:
+    return padded_capacity(cfg) // cfg.chunk
+
+
+def chunk_fields(starts_all: torch.Tensor, counts: torch.Tensor,
+                 cfg: RasterConfig):
+    """(chunk_tile, chunk_start_flag, chunk_src, chunk_valid) of every
+    chunk. Each tile's list is padded to whole chunks (empty tiles get
+    none); a chunk's tile is stamped, by scatter-max, at the chunk where the
+    tile's padded list starts, and filled forward by a running max. Stamps
+    at or past ``num_chunks`` are dropped (JAX's ``mode='drop'``); the
+    trailing chunks past the last list keep the last tile and get no valid
+    entries, their ``chunk_src`` clamped into [0, K]."""
+    C, T, K = cfg.chunk, cfg.num_tiles, cfg.pair_capacity
+    nc = num_chunks(cfg)
+    dev = counts.device
+    padded = (counts + C - 1) // C * C
+    offsets = torch.cat([torch.zeros(1, dtype=torch.int64, device=dev),
+                         torch.cumsum(padded, 0)])                  # [T + 1]
+    pos = offsets[:-1] // C
+    keep = pos < nc
+    stamp = torch.zeros(nc, dtype=torch.int64, device=dev)
+    stamp.scatter_reduce_(0, pos[keep],
+                          torch.arange(T, device=dev)[keep], 'amax')
+    chunk_tile = torch.cummax(stamp, 0).values
+    first = offsets[chunk_tile] // C
+    cidx = torch.arange(nc, device=dev)
+    local_off = (cidx - first) * C
+    chunk_src = torch.clamp(starts_all[chunk_tile] + local_off, 0, K)
+    chunk_valid = torch.clamp(counts[chunk_tile] - local_off, 0, C)
+    return (chunk_tile.to(torch.int32), (cidx == first).to(torch.int32),
+            chunk_src.to(torch.int32), chunk_valid.to(torch.int32))
 
 
 def build_tile_lists(pre: PreprocessOut, cfg: RasterConfig) -> BinnedSplats:
@@ -107,6 +155,11 @@ def build_tile_lists(pre: PreprocessOut, cfg: RasterConfig) -> BinnedSplats:
                             torch.full((C,), n, device=dev, dtype=torch.int64)])
     depth_order = torch.cat([order,
                              torch.full((1,), n, device=dev, dtype=order.dtype)])
+    chunked = {}
+    if cfg.chunked:
+        fields = chunk_fields(starts_all, counts, cfg)
+        chunked = dict(zip(('chunk_tile', 'chunk_start_flag', 'chunk_src',
+                            'chunk_valid'), fields), tile_nonempty=counts > 0)
     return BinnedSplats(
         sort_gauss=sort_gauss.to(torch.int32),
         depth_order=depth_order.to(torch.int32),
@@ -114,4 +167,5 @@ def build_tile_lists(pre: PreprocessOut, cfg: RasterConfig) -> BinnedSplats:
         tile_count=counts.to(torch.int32),
         num_pairs=total,
         overflow=total > K,
+        **chunked,
     )

@@ -14,7 +14,7 @@ from .binning import BinnedSplats, build_tile_lists
 from .blend import assemble_image
 from .preprocess import PreprocessOut, preprocess
 from .settings import GaussianInputs, RasterConfig, ViewParams
-from .tile_kernel import TileBlend
+from .tile_kernel import ChunkBlend, TileBlend
 
 
 class BlendInputs(NamedTuple):
@@ -55,9 +55,14 @@ def prepare_blend(g: GaussianInputs, view: ViewParams, cfg: RasterConfig,
 def blend_tiles(binned: BinnedSplats, geo: torch.Tensor, col: torch.Tensor,
                 cfg: RasterConfig):
     """(tile_color [T, P, ch], tile_alpha [T, P]), differentiable in ``geo``
-    and ``col``, through ``TileBlend``: the kernels' wrappers, or the plain
-    versions everywhere when ``cfg.use_kernel`` is off. Unlike the JAX
-    ``blend_tiles`` it takes the depth-ordered rows of ``prepare_blend``."""
+    and ``col``, through ``TileBlend`` or, with ``cfg.schedule == 'chunk'``,
+    ``ChunkBlend``: the kernels' wrappers, or the plain versions everywhere
+    when ``cfg.use_kernel`` is off. Unlike the JAX ``blend_tiles`` it takes
+    the depth-ordered rows of ``prepare_blend``."""
+    if cfg.chunked:
+        return ChunkBlend.apply(geo, col, binned.sort_gauss,
+                                binned.chunk_tile, binned.chunk_start_flag,
+                                binned.chunk_src, binned.chunk_valid, cfg)
     return TileBlend.apply(geo, col, binned.sort_gauss, binned.tile_start,
                            binned.tile_count, cfg)
 

@@ -7,6 +7,7 @@ from typing import NamedTuple, Optional
 import torch
 
 TILE = 16  # pixels per tile in x; the y side is RasterConfig.tile_h
+SCHEDULES = ('tile', 'chunk')
 
 
 class RasterConfig(NamedTuple):
@@ -14,13 +15,26 @@ class RasterConfig(NamedTuple):
     image_height: int
     sh_degree: int = 3
     pair_capacity: int = 2 ** 20  # max (tile, splat) pairs
-    chunk: int = 256              # pad rows after sort_gauss (binning layout)
+    chunk: int = 256              # pad rows after sort_gauss (binning
+    #                               layout); entries per chunk ('chunk')
     scale_modifier: float = 1.0
     near: float = 0.2             # frustum cull on view-space z
     use_kernel: bool = True       # False: the plain PyTorch blend on every
     #                               device (the JAX package's use_pallas)
     tight_culling: bool = True    # opacity-aware rects + per-pair tile cull
     tile_h: int = 16              # pixels per tile in y
+    schedule: str = 'tile'        # the blend's schedule, the JAX package's
+    #                               IMPL['schedule']: 'tile' (kernels #1/#2,
+    #                               one block per tile) or 'chunk' (#3/#4,
+    #                               one block per chunk of a tile's list)
+
+    @property
+    def chunked(self) -> bool:
+        """True for the 'chunk' schedule; any value but the two raises."""
+        if self.schedule not in SCHEDULES:
+            raise ValueError(f'schedule {self.schedule!r} is not one of '
+                             f'{SCHEDULES}')
+        return self.schedule == 'chunk'
 
     @property
     def grid_w(self) -> int:

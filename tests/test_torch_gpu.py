@@ -6,7 +6,8 @@ conftest.py sets up JAX, which these tests do not use):
     python -m pytest tests/test_torch_gpu.py -m gpu -q --noconftest
 
 Elsewhere every test skips (the card is looked for inside the fixture, never
-at import or collection). Tolerance of the forward 1e-4: power and alpha
+at import or collection). The chunk-schedule kernels (#3, #4) are held to the
+same bars as the tile kernels (#1, #2). Tolerance of the forward 1e-4: power and alpha
 round the same on both sides (see csrc/tile_blend_fwd.cu); the
 transmittance products and the colour sums are taken in another order, and
 the 1e-4 transmittance cut bounds what such a reordering can flip. The
@@ -29,10 +30,14 @@ from sk_gs_tpu_torch.models.gaussian_splatting import gaussian_inputs
 from sk_gs_tpu_torch.models.sk_gs import forward_deltas
 from sk_gs_tpu_torch.render import GaussianInputs, prepare_blend
 from sk_gs_tpu_torch.render.blend import (blend_backward_plain,
-                                          blend_forward_plain)
+                                          blend_forward_plain,
+                                          chunk_blend_backward_plain,
+                                          chunk_blend_forward_plain)
 from sk_gs_tpu_torch.render.settings import RasterConfig
-from sk_gs_tpu_torch.render.tile_kernel import (TileBlend, tile_blend_bwd,
-                                                tile_blend_fwd)
+from sk_gs_tpu_torch.render.tile_kernel import (ChunkBlend, TileBlend,
+                                                chunk_blend_bwd,
+                                                chunk_blend_fwd,
+                                                tile_blend_bwd, tile_blend_fwd)
 
 pytestmark = pytest.mark.gpu
 TOL = 1e-4
@@ -205,3 +210,92 @@ def test_render_eval_card_matches_cpu(cuda):
         outs.append(render_eval(model, view, 0.3,
                                 torch.ones(3, device=dev))['image'].cpu())
     assert float((outs[0] - outs[1]).abs().max()) <= TOL
+
+
+def chunk_args(inp):
+    b = inp.binned
+    return (inp.geo, inp.col, b.sort_gauss, b.chunk_tile, b.chunk_start_flag,
+            b.chunk_src, b.chunk_valid)
+
+
+def compare_chunk(inp, cfg):
+    """Kernels #3 and #4 against their plain versions; returns the waits."""
+    args = chunk_args(inp)
+    before = (chunk_blend_fwd.launches, chunk_blend_bwd.launches)
+    color, alpha = chunk_blend_fwd(*args, cfg)
+    torch.cuda.synchronize()
+    p_color, p_alpha = chunk_blend_forward_plain(*args, cfg)
+    assert torch.isfinite(color).all() and torch.isfinite(alpha).all()
+    assert float((color - p_color).abs().max()) <= TOL
+    assert float((alpha - p_alpha).abs().max()) <= TOL
+    empty = ~inp.binned.tile_nonempty
+    assert float(color[empty].abs().sum()) == 0.0 == float(alpha[empty].sum())
+    waits = chunk_blend_fwd.waits()
+    cot = cotangents(color, alpha, seed=4)
+    g_entry = chunk_blend_bwd(*args, color, alpha, *cot, cfg)
+    torch.cuda.synchronize()
+    assert (chunk_blend_fwd.launches, chunk_blend_bwd.launches) == \
+        (before[0] + 1, before[1] + 1)
+    ref = chunk_blend_backward_plain(*args, p_color, p_alpha, *cot, cfg)
+    assert torch.isfinite(g_entry).all()
+    for name, sl in GROUPS.items():
+        scale = float(ref[:, sl].abs().max())
+        assert scale > 0, name
+        assert float((g_entry[:, sl] - ref[:, sl]).abs().max()) \
+            <= BWD_TOL * scale, name
+    # the chunk route renders what the tile route renders, but for the
+    # skip rule (power > 0 against > 1e-4) on a handful of entries
+    t_color, _ = tile_blend_fwd(inp.geo, inp.col, inp.binned.sort_gauss,
+                                inp.binned.tile_start, inp.binned.tile_count,
+                                cfg._replace(schedule='tile'))
+    assert float((t_color - color).abs().mean()) <= 1e-4
+    return waits
+
+
+@pytest.mark.parametrize('chunk,tile_h', [(128, 16), (64, 16), (128, 8)])
+def test_chunk_kernels_match_plain_small(cuda, chunk, tile_h):
+    cfg = RasterConfig(image_width=200, image_height=136, sh_degree=3,
+                       pair_capacity=2 ** 18, chunk=chunk, tile_h=tile_h,
+                       schedule='chunk')
+    g = random_scene(3000, cuda, seed=6)
+    view = orbit_view(0.4, cfg.image_width, cfg.image_height, device=cuda)
+    inp = prepare_blend(g, view, cfg)
+    assert int(inp.binned.tile_count.max()) > chunk   # several chunks a tile
+    compare_chunk(inp, cfg)
+
+
+def test_chunk_kernels_match_plain_full_width(cuda):
+    cfg, rcfg, _ = synthetic_fullscale()
+    rcfg = rcfg._replace(schedule='chunk')
+    model = convert.model_from_flat(random_model_flat(cfg, 0, 80_000), cfg,
+                                    rcfg, device=cuda)
+    view = orbit_view(1.0, rcfg.image_width, rcfg.image_height, device=cuda)
+    with torch.no_grad():
+        d = forward_deltas(cfg, model, torch.tensor(0.41, device=cuda), 'sk')
+        g = gaussian_inputs(model.gauss_view(), cfg.gauss, d.d_xyz,
+                            d.d_rotation, d.d_scaling)
+        inp = prepare_blend(g, view, rcfg, model.active_sh_degree)
+        assert 2 ** 19 <= int(inp.binned.num_pairs) <= 2 ** 20
+        waits = compare_chunk(inp, rcfg)
+    assert 0 <= waits <= int((inp.binned.chunk_valid > 0).sum())
+
+
+def test_chunk_blend_gradients_kernel_vs_plain(cuda):
+    cfg = RasterConfig(image_width=200, image_height=136, sh_degree=3,
+                       pair_capacity=2 ** 18, chunk=64, schedule='chunk')
+    g = random_scene(3000, cuda, seed=2)
+    view = orbit_view(0.9, cfg.image_width, cfg.image_height, device=cuda)
+    inp = prepare_blend(g, view, cfg)
+    grads = []
+    for use_kernel in (True, False):
+        geo = inp.geo.clone().requires_grad_(True)
+        col = inp.col.clone().requires_grad_(True)
+        color, alpha = ChunkBlend.apply(geo, col, *chunk_args(inp)[2:],
+                                        cfg._replace(use_kernel=use_kernel))
+        gc, ga = cotangents(color, alpha, seed=5)
+        grads.append(torch.autograd.grad(
+            torch.sum(color * gc) + torch.sum(alpha * ga), (geo, col)))
+    for got, ref in zip(*grads):
+        scale = float(ref.abs().max())
+        assert scale > 0
+        assert float((got - ref).abs().max()) <= BWD_TOL * scale

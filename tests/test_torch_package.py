@@ -48,7 +48,7 @@ def test_importing_every_module_loads_no_jax():
     assert out.returncode == 0, out.stderr
     res = json.loads(out.stdout.strip().splitlines()[-1])
     for name in ('framework.evaluate', 'framework.trainer', 'data.synthetic',
-                 'models.optim'):
+                 'models.optim', 'ops.knn', 'models.deform'):
         assert 'sk_gs_tpu_torch.' + name in res['modules']
     assert res['bad'] == []
 
@@ -80,9 +80,12 @@ def test_kernel_wrapper_launches_only_on_cuda():
         tile_blend_bwd.launch(geo, col, ints, ints, ints, tiles, alpha, tiles,
                               alpha, cfg)
     assert (tile_blend_fwd.launches, tile_blend_bwd.launches) == before
-    assert [k.name for k in KERNELS] == ['tile_blend_fwd', 'tile_blend_bwd']
-    for kernel, tpu_fn in ((tile_blend_fwd, 'def _fwd_kernel_tile'),
-                           (tile_blend_bwd, 'def _bwd_kernel_tile')):
+    assert [k.name for k in KERNELS] == ['tile_blend_fwd', 'tile_blend_bwd',
+                                         'chunk_blend_fwd', 'chunk_blend_bwd']
+    for kernel, tpu_fn in zip(KERNELS, ('def _fwd_kernel_tile',
+                                        'def _bwd_kernel_tile',
+                                        'def _fwd_kernel(',
+                                        'def _bwd_kernel(')):
         assert kernel.source == f'sk_gs_tpu_torch/csrc/{kernel.name}.cu'
         assert (ROOT / kernel.source).is_file()
         assert kernel.library.source == ROOT / kernel.source

@@ -247,9 +247,14 @@ def test_metrics_match_jax(rng):
 def test_unported_branches_raise(tiny):
     cfg, rcfg, model, tmodel = tiny
     t = torch.tensor(0.3)
-    for stage in ('init', 'init_fix', 'sp', 'sp_fix'):
+    for stage in ('sp', 'sp_fix'):       # the init family is ported
         with pytest.raises(NotImplementedError):
             tsk_gs.forward_deltas(tmodel.cfg, tmodel, t, stage)
+    for stage in ('init', 'init_fix'):
+        ref = jsk_gs.forward_deltas(cfg, model, jnp.asarray(0.3), stage)
+        got = tsk_gs.forward_deltas(tmodel.cfg, tmodel, t, stage)
+        np.testing.assert_allclose(got.d_xyz.detach().numpy(),
+                                   np.asarray(ref.d_xyz), atol=1e-7)
     with pytest.raises(ValueError):
         tsk_gs.forward_deltas(tmodel.cfg, tmodel, t, 'no_such_stage')
     with pytest.raises(NotImplementedError):
@@ -278,14 +283,15 @@ def test_fullscale_preset_matches_yaml():
     ref_r.pop('use_pallas')
     got_r = rcfg._asdict()
     assert got_r.pop('use_kernel') is True
+    assert got_r.pop('schedule') == 'tile'     # the JAX default IMPL
     assert got_r == ref_r
     assert (cfg.gauss.capacity, cfg.num_superpoints, rcfg.num_tiles,
             rcfg.pix_per_tile) == (100_352, 512, 625, 256)
-    # the train settings: the sk family's loss terms, optimizer, lr, clip
-    # and seed, and the dataset with train.py's GT pair budget
-    loss = yaml_cfg['loss']
-    assert train.loss == {k: loss[k] for k in ('image', 'ssim')}
+    # the train settings: the loss weights, optimizer, lr, clip, seed and
+    # initial points, and the dataset with train.py's GT pair budget
+    assert train.loss == yaml_cfg['loss']
     t = yaml_cfg['train']
+    assert train.num_init_points == t['num_init_points'] == 2000
     assert (train.lr, train.optimizer, train.seed) == (
         t['lr'], t['optimizer'], t['seed'])
     assert train.clip_norm == float(t.get('clip_norm', 0.0)) == 0.0

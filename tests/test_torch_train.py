@@ -397,6 +397,8 @@ def test_trainer_refuses_what_is_not_ported(tiny, jax_scene, tmp_path):
                     port_model(tiny, tmp_path, trainable=False),
                     device='cpu')
     tt = SKGSTrainer(cfg, rcfg, scene, meta, model, device='cpu')
-    for step in (1, cfg.stages['sp'][0] + 5):
+    # the superpoint initialisation before the step at init_sampling_step,
+    # and the sp family
+    for step in (cfg.init_sampling_step, cfg.stages['sp'][0] + 5):
         with pytest.raises(NotImplementedError, match='not ported'):
             tt.train_step(step)
