@@ -28,10 +28,13 @@ and training the ``init`` family with adaptive density control on the
    the same requests rendered by the plain path;
 6. reference: a small model rendered on the card and by the plain path on
    the CPU;
-7. kernel_bwd: the backward kernel against its plain version on the first
-   training step's inputs and cotangents, error per column group, CUDA-event
-   times of the kernel, the plain version and the ``index_add_`` that sums
-   its rows onto the Gaussians;
+7. kernel_bwd: the backward kernel (#2) against its plain version on the
+   first training step's inputs and cotangents: the gradient rows of the
+   depth-ordered rows, error per column group, the dummy row's zeros, the
+   difference between two launches (the atomics' order), CUDA-event times
+   of the wrapper (its zeroing and the in-kernel reduction included) and of
+   the plain version, the bytes and bound, the blocks resident per SM, and
+   the longest and mean tile list;
 8. train: one warm-up step, the launch counts set to 0, 10 steps, the
    counts read back; per step the synchronised time and the metrics; the
    loss on the first step's view before and after; the peak memory;
@@ -41,8 +44,7 @@ and training the ``init`` family with adaptive density control on the
    CPU (plain versions), losses, gradients and parameters compared;
 11. kernel_chunk_bwd: the chunk schedule's backward kernel (#4) against its
    plain version on a real ``init`` step's cotangents (the populated start
-   of 13, at its first step, before it trains), error per column group,
-   the chunks that waited, times;
+   of 13, at its first step, before it trains), as 7 reports #2;
 12. grad_path_init: that step's leaf gradients through kernels #3 and #4
    against the plain chunk route on the card;
 13. init_train: the launch counts set to 0, then three starts of the init
@@ -62,7 +64,12 @@ and training the ``init`` family with adaptive density control on the
    ``init`` step's (the flagship start's) stages timed with CUDA events,
    and torch.profiler windows over a few requests and steps (device time
    by kernel, device busy share against the same trainer's unprofiled
-   steps).
+   steps, the pairs of the window's steps, and any ``index_add_`` kernel in
+   a step's window); and for each of those two trainers, its backward
+   kernel's device time on one step's inputs, by torch.profiler, alone
+   (warm, and after a write that evicts L2) and inside that very step, with
+   the step's pairs and tile lists, and on the tile schedule the wrapper's
+   time with every tile's list cut to its first 64, 250 and 1,000 entries.
 
 Then a ``kernels`` line (every ported kernel with its launches on its own
 training path and on each path, error, times and bound), the card's name
@@ -103,7 +110,6 @@ from sk_gs_tpu_torch.render.preprocess import preprocess
 from sk_gs_tpu_torch.render.render import blend_tiles, composite_background
 from sk_gs_tpu_torch.render.tile_kernel import (KERNELS, chunk_blend_bwd,
                                                 chunk_blend_fwd,
-                                                rows_from_entries,
                                                 tile_blend_bwd, tile_blend_fwd)
 
 # published H100 SXM peaks (NVIDIA data sheet): float32 outside the tensor
@@ -123,6 +129,10 @@ BLEND_OPS_PER_EVAL = 17
 BWD_OPS_PER_ADD = 49
 KERNEL_TOL = 1e-4
 BWD_TOL = 3e-4          # of each column group's max magnitude
+# two launches of a backward kernel on the same inputs differ only in the
+# order in which the tiles' atomics land on a row: rounding, far below this
+# (of each column group's max magnitude)
+RERUN_TOL = 1e-5
 GRAD_PATH_TOL = 1e-3    # of each leaf's max magnitude
 SEED = 0
 N_REQUESTS = 10
@@ -394,7 +404,9 @@ def step_blend_inputs(trainer: SKGSTrainer, step: int):
 
 def phase_kernel_bwd(trainer: SKGSTrainer, step: int):
     """The trainer's schedule's backward kernel (#2 or #4) against its plain
-    version on a training step's inputs and real cotangents."""
+    version on a training step's inputs and real cotangents: the gradient
+    rows [R, 6 + ch] of the depth-ordered rows. The time is the wrapper's,
+    its zeroing of the rows and the kernel's own reduction included."""
     rcfg = trainer.rcfg
     inp, color, alpha, g_color, g_alpha = step_blend_inputs(trainer, step)
     b = inp.binned
@@ -402,47 +414,112 @@ def phase_kernel_bwd(trainer: SKGSTrainer, step: int):
     geo, col = args[:2]
     with torch.no_grad():
         bwd_args = (*args, color, alpha, g_color, g_alpha, rcfg)
-        g_entry = kernel.launch(*bwd_args)
-        extra = {'waits': kernel.waits()} if rcfg.chunked else {}
-        p_entry = kernel.plain(*bwd_args)
+        g_rows = kernel.launch(*bwd_args)
+        again = kernel.launch(*bwd_args)
+        p_rows = kernel.plain(*bwd_args)
         torch.cuda.synchronize()
-        errs = {}
+        errs, rerun = {}, {}
         for name, sl in GROUPS.items():
-            scale = float(p_entry[:, sl].abs().max())
-            errs[name] = float((g_entry[:, sl] - p_entry[:, sl]).abs().max()) \
-                / max(scale, 1e-30)
-        finite = bool(torch.isfinite(g_entry).all())
-        max_abs = float((g_entry - p_entry).abs().max())
+            scale = max(float(p_rows[:, sl].abs().max()), 1e-30)
+            errs[name] = float((g_rows[:, sl] - p_rows[:, sl]).abs().max()) \
+                / scale
+            rerun[name] = float((again[:, sl] - g_rows[:, sl]).abs().max()) \
+                / scale
+        finite = bool(torch.isfinite(g_rows).all())
+        dummy_zero = not bool(g_rows[-1].any() or again[-1].any())
+        max_abs = float((g_rows - p_rows).abs().max())
         stats = {}
         fwd.plain(*args, rcfg, stats=stats)
         ms = cuda_ms(lambda: kernel.launch(*bwd_args), iters=20, warmup=3)
         plain_ms = cuda_ms(lambda: kernel.plain(*bwd_args), iters=3, warmup=1)
-        reduce_ms = cuda_ms(lambda: rows_from_entries(
-            g_entry, b.sort_gauss, geo.shape[0]), iters=20, warmup=3)
+        extra = chunk_layout(b) if rcfg.chunked else {}
 
     pairs = int(b.num_pairs)
     T, P, ch = rcfg.num_tiles, rcfg.pix_per_tile, col.shape[1]
     evals, adds = stats['evaluations'], stats['adds']
     ops = evals * BLEND_OPS_PER_EVAL + adds * BWD_OPS_PER_ADD
+    # each input read once (the rows, the live entries' ids, the metadata,
+    # the tiles' colours, alphas and their cotangents), g_rows written once
     nbytes = (4 * (geo.numel() + col.numel() + pairs) + meta_bytes
-              + 4 * (2 * T * P * (ch + 1) + g_entry.numel()))
+              + 4 * (2 * T * P * (ch + 1) + g_rows.numel()))
     row = kernel_row(kernel, max_abs, ms, plain_ms, ops, nbytes)
-    if rcfg.chunked:
-        extra.update(chunk_layout(b))
+    counts = b.tile_count[b.tile_count > 0].float()
     emit({'phase': 'kernel_bwd' if not rcfg.chunked else 'kernel_chunk_bwd',
           'kernel': row['name'], 'step': step,
           'stage': trainer.cfg.stage_at(step), 'tiles': T,
           'pixels_per_tile': P, 'channels': ch, 'pairs': pairs,
-          'entries': int(g_entry.shape[0]), 'evaluations': evals,
+          'rows': int(g_rows.shape[0]), 'evaluations': evals,
           'adds': adds, 'ops': ops, 'bytes': nbytes,
           'err_over_max_by_group': errs, 'max_abs_err': max_abs,
-          'tolerance': BWD_TOL, 'finite': finite, 'ms': ms,
-          'plain_ms': plain_ms, 'index_add_ms': reduce_ms, **extra,
+          'tolerance': BWD_TOL, 'finite': finite,
+          'dummy_row_zero': dummy_zero,
+          'rerun_diff_over_max_by_group': rerun,
+          'rerun_tolerance': RERUN_TOL, 'ms': ms, 'plain_ms': plain_ms,
+          'blocks_per_sm': kernel.blocks_per_sm(rcfg, ch),
+          'sms': torch.cuda.get_device_properties(0).multi_processor_count,
+          'nonempty_tiles': int(counts.numel()),
+          'tile_list_longest': int(counts.max()),
+          'tile_list_mean': float(counts.mean()), **extra,
           'bound_ms': row['bound_ms'], 'bound_by': row['bound_by']})
     if not finite or max(errs.values()) > BWD_TOL:
         raise AssertionError(f'{kernel.name} disagrees with its plain '
                              f'version: {errs} > {BWD_TOL}')
+    if not dummy_zero or max(rerun.values()) > RERUN_TOL:
+        raise AssertionError(f'{kernel.name}: dummy row zero {dummy_zero}, '
+                             f'two launches differ by {rerun}')
     return row
+
+
+def phase_profile_bwd(trainer: SKGSTrainer, step: int, phase: str):
+    """The trainer's backward kernel (#2 or #4) on step ``step``'s inputs,
+    its device time a launch by torch.profiler three ways: alone, 10
+    launches back to back (warm caches, as ``phase_kernel_bwd`` times it);
+    alone, each launch after a write that evicts L2; and inside that very
+    step (the step reads the same inputs: the state is unchanged and the
+    forward is deterministic; its pairs are checked). On the tile schedule
+    also the wrapper by CUDA events with every tile's list cut to its first
+    L entries: where in the lists the time goes."""
+    rcfg = trainer.rcfg
+    inp, color, alpha, g_color, g_alpha = step_blend_inputs(trainer, step)
+    b = inp.binned
+    _, kernel, args, _ = schedule_kernels(inp, rcfg)
+    bwd_args = (*args, color, alpha, g_color, g_alpha, rcfg)
+    symbol = kernel.name + '_kernel<'
+
+    def kernel_ms(fn) -> list:
+        on_dev, _ = profile_window(fn)
+        return [dev_us(e) * 1e-3 / e.count for e in on_dev
+                if symbol in e.key]
+
+    # twice the H100's 50 MB L2
+    flush = torch.empty(25 << 20, dtype=torch.float32, device='cuda')
+    with torch.no_grad():
+        warm = kernel_ms(lambda: [kernel.launch(*bwd_args)
+                                  for _ in range(10)])
+        cold = kernel_ms(lambda: [(flush.fill_(1.0), kernel.launch(*bwd_args))
+                                  for _ in range(10)])
+        clipped = {}
+        for n in ((64, 250, 1000) if not rcfg.chunked else ()):
+            cut = list(bwd_args)
+            cut[4] = torch.clamp(cut[4], max=n)   # tile_count
+            clipped[n] = cuda_ms(lambda: kernel.launch(*cut), iters=20,
+                                 warmup=3)
+    del flush
+    metrics = []
+    in_step = kernel_ms(lambda: metrics.append(trainer.train_step(step)))
+    pairs, step_pairs = int(b.num_pairs), int(metrics[0]['num_pairs'])
+    counts = b.tile_count[b.tile_count > 0].float()
+    emit({'phase': phase, 'kernel': kernel.name, 'step': step,
+          'pairs': pairs, 'step_pairs': step_pairs,
+          'nonempty_tiles': int(counts.numel()),
+          'tile_list_longest': int(counts.max()),
+          'tile_list_mean': float(counts.mean()),
+          'device_ms_warm': warm, 'device_ms_cold_l2': cold,
+          'device_ms_in_step': in_step, 'ms_lists_clipped_to': clipped})
+    if pairs != step_pairs or not len(warm) == len(cold) == len(in_step) == 1:
+        raise AssertionError(f'{phase}: the step read other inputs '
+                             f'({step_pairs} pairs against {pairs}) or the '
+                             f'profiler missed {kernel.name}')
 
 
 def view_loss(trainer: SKGSTrainer, step: int, idx: int) -> float:
@@ -713,8 +790,7 @@ def phase_init_train(cfg, rcfg, train):
           'ms_min': min(ms), 'ms_max': max(ms),
           'ms_by_start': ms_by_start(records, events),
           'max_memory_allocated': peak, 'events': events,
-          'chunk_waits_last_step': {'fwd': chunk_blend_fwd.waits(),
-                                    'bwd': chunk_blend_bwd.waits()}})
+          'chunk_fwd_waits_last_step': chunk_blend_fwd.waits()})
     for r in records:
         if not math.isfinite(r['loss']) or r['overflow']:
             raise AssertionError(f'bad init step: {r}')
@@ -873,18 +949,23 @@ def phase_profile_train(trainer: SKGSTrainer, s0: int,
         timed.append((time.perf_counter() - t0) * 1e3)
     step_ms = sum(timed) / n_win
     w0 = s0 + 3 + n_win
+    metrics = []
     on_dev, wall = profile_window(
-        lambda: [trainer.train_step(w0 + k) for k in range(n_win)])
+        lambda: [metrics.append(trainer.train_step(w0 + k))
+                 for k in range(n_win)])
     busy_ms = sum(dev_us(e) for e in on_dev) * 1e-3
     per_step = busy_ms / n_win
     emit({'phase': phase, 'split_ms': split_ms, 'split_steps': [s0, s0 + 2],
           'timed_steps': [s0 + 3, w0 - 1], 'timed_ms': timed,
           'window_steps': [w0, w0 + n_win - 1],
+          'window_pairs': [int(m['num_pairs']) for m in metrics],
           'n_alive': int(trainer.model.alive.sum()),
           'window_wall_ms_profiled': wall * 1e3,
           'device_ms_per_step': per_step, 'step_ms': step_ms,
           'device_busy_share': per_step / step_ms,
-          'top_device_kernels': top_kernels(on_dev, n_win, 'step')})
+          'top_device_kernels': top_kernels(on_dev, n_win, 'step'),
+          'index_add_kernels': top_kernels(
+              [e for e in on_dev if is_index_add(e.key)], n_win, 'step')})
 
 
 def dev_us(e) -> float:
@@ -907,6 +988,12 @@ def profile_window(fn):
               if e.device_type == torch.autograd.DeviceType.CUDA]
     on_dev.sort(key=dev_us, reverse=True)
     return on_dev, wall
+
+
+def is_index_add(key: str) -> bool:
+    """PyTorch's CUDA index_add_ kernels (indexFuncSmallIndex /
+    indexFuncLargeIndex), by name."""
+    return 'indexfunc' in key.lower() or 'index_add' in key.lower()
 
 
 def top_kernels(on_dev, n, unit: str, k: int = 12):
@@ -1018,10 +1105,13 @@ def main(argv=None) -> int:
     if args.profile:
         phase_profile(model, views, times, bg, served_ms)
         phase_profile_train(trainer, s_next)
+        phase_profile_bwd(trainer, s_next + 9, 'profile_bwd')
         # the flagship start past its first event
-        phase_profile_train(init_trainers['flagship'],
-                            INIT_STARTS[0][2][-1] + 1,
+        s_init = INIT_STARTS[0][2][-1] + 1
+        phase_profile_train(init_trainers['flagship'], s_init,
                             phase='profile_train_init')
+        phase_profile_bwd(init_trainers['flagship'], s_init + 9,
+                          'profile_chunk_bwd')
 
     paths = {'serve': serve_launches, 'train': train_launches,
              'train_init': init_launches}

@@ -3,7 +3,8 @@
 Each source is compiled by ``nvcc`` for ``sm_90a`` into a shared library
 with a plain C interface, loaded with ``ctypes``. Libraries go to
 ``build/torch_kernels/`` at the root of the checkout, named by a hash of the
-source, so a changed source is rebuilt and an unchanged one is reused.
+source and the ``csrc`` headers it includes (``#include "..."``), so a
+changed source or header is rebuilt and an unchanged one is reused.
 Nothing is built when a module is imported: a kernel's wrapper builds its
 library at its first launch, and ``build_all`` builds several in parallel.
 """
@@ -12,6 +13,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -21,6 +23,7 @@ from typing import Dict, List, Optional
 PACKAGE_DIR = Path(__file__).resolve().parent
 REPO_ROOT = PACKAGE_DIR.parent
 BUILD_DIR = REPO_ROOT / 'build' / 'torch_kernels'
+_LOCAL_INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
 # --fmad=false: no multiply-add contraction, so a kernel rounds as its plain
 # PyTorch version does (see csrc/tile_blend_fwd.cu)
 NVCC_FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
@@ -47,10 +50,25 @@ class CudaLibrary:
         self._lib: Optional[ctypes.CDLL] = None
         self.build_info: Dict = {}
 
+    def files(self) -> List[Path]:
+        """The source and, transitively, the headers beside it that it
+        includes with quotes."""
+        found, todo = [], [self.source]
+        while todo:
+            path = todo.pop()
+            if path in found:
+                continue
+            found.append(path)
+            for name in _LOCAL_INCLUDE.findall(path.read_text()):
+                todo.append(path.parent / name)
+        return found
+
     @property
     def lib_path(self) -> Path:
-        digest = hashlib.sha256(self.source.read_bytes()).hexdigest()[:12]
-        return BUILD_DIR / f'lib{self.source.stem}_{digest}.so'
+        h = hashlib.sha256()
+        for path in self.files():
+            h.update(path.read_bytes())
+        return BUILD_DIR / f'lib{self.source.stem}_{h.hexdigest()[:12]}.so'
 
     def start_build(self) -> Optional[subprocess.Popen]:
         """Start nvcc unless the library exists; returns the process."""

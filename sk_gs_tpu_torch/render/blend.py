@@ -1,10 +1,15 @@
 """Plain PyTorch blends, forward and backward, and image assembly.
 
-``blend_forward_plain`` and ``blend_backward_plain`` are the plain versions
-of the CUDA kernels ``csrc/tile_blend_fwd.cu`` and ``csrc/tile_blend_bwd.cu``
-(the ``tile`` schedule); ``chunk_blend_forward_plain`` and
-``chunk_blend_backward_plain`` those of ``csrc/chunk_blend_fwd.cu`` and
-``csrc/chunk_blend_bwd.cu`` (the ``chunk`` schedule). All follow the blend
+``blend_forward_plain`` and ``blend_backward_rows_plain`` are the plain
+versions of the CUDA kernels ``csrc/tile_blend_fwd.cu`` and
+``csrc/tile_blend_bwd.cu`` (the ``tile`` schedule);
+``chunk_blend_forward_plain`` and ``chunk_blend_backward_rows_plain`` those
+of ``csrc/chunk_blend_fwd.cu`` and ``csrc/chunk_blend_bwd.cu`` (the
+``chunk`` schedule). The backward kernels' function is the per-row
+gradient: the per-entry walk (``blend_backward_plain``,
+``chunk_blend_backward_plain``, the JAX kernels' per-entry ``gfeat``), then
+the per-entry rows of the live entries summed onto the depth-ordered rows
+(``rows_from_entries``, ``_blend_bwd``'s segment sum). All follow the blend
 rules of the JAX package's kernels (``sk_gs_tpu/render/tile_kernel.py``):
 
 - power = -0.5 (a dx^2 + c dy^2) - b dx dy; the entry is skipped when
@@ -318,6 +323,59 @@ def chunk_blend_backward_plain(geo: torch.Tensor, col: torch.Tensor,
         sort_gauss, chunk_tile, chunk_start_flag, chunk_src, chunk_valid,
         cfg.chunk, geo.shape[0] - 1), sort_gauss.shape[0], tile_color,
         tile_alpha, g_color, g_alpha, cfg, 0.0)
+
+
+def rows_from_entries(g_entry: torch.Tensor, sort_gauss: torch.Tensor,
+                      n_live: int, n_rows: int) -> torch.Tensor:
+    """Sum the per-entry rows of the live entries, the first ``n_live`` of
+    sort order (the tiles' lists, contiguous from 0), onto the ``n_rows``
+    depth-ordered rows they read (``_blend_bwd``'s segment sum). The
+    padding entries past the lists carry zero rows and are left out, so the
+    dummy row stays zero untouched."""
+    out = torch.zeros((n_rows, g_entry.shape[1]), dtype=g_entry.dtype,
+                      device=g_entry.device)
+    return out.index_add_(0, sort_gauss[:n_live].to(torch.int64),
+                          g_entry[:n_live])
+
+
+def blend_backward_rows_plain(geo: torch.Tensor, col: torch.Tensor,
+                              sort_gauss: torch.Tensor,
+                              tile_start: torch.Tensor,
+                              tile_count: torch.Tensor,
+                              tile_color: torch.Tensor,
+                              tile_alpha: torch.Tensor,
+                              g_color: torch.Tensor, g_alpha: torch.Tensor,
+                              cfg: RasterConfig) -> torch.Tensor:
+    """The tile schedule's backward per depth-ordered row (plain version of
+    ``csrc/tile_blend_bwd.cu``): ``g_rows`` [R, 6 + ch], the gradient of
+    ``geo`` and ``col``. ``blend_backward_plain``'s per-entry rows, summed
+    over the live entries."""
+    g_entry = blend_backward_plain(geo, col, sort_gauss, tile_start,
+                                   tile_count, tile_color, tile_alpha,
+                                   g_color, g_alpha, cfg)
+    return rows_from_entries(g_entry, sort_gauss, int(tile_count.sum()),
+                             geo.shape[0])
+
+
+def chunk_blend_backward_rows_plain(geo: torch.Tensor, col: torch.Tensor,
+                                    sort_gauss: torch.Tensor,
+                                    chunk_tile: torch.Tensor,
+                                    chunk_start_flag: torch.Tensor,
+                                    chunk_src: torch.Tensor,
+                                    chunk_valid: torch.Tensor,
+                                    tile_color: torch.Tensor,
+                                    tile_alpha: torch.Tensor,
+                                    g_color: torch.Tensor,
+                                    g_alpha: torch.Tensor,
+                                    cfg: RasterConfig) -> torch.Tensor:
+    """The chunk schedule's backward per depth-ordered row (plain version of
+    ``csrc/chunk_blend_bwd.cu``): ``chunk_blend_backward_plain``'s per-entry
+    rows summed over the live entries, as many as the chunks hold."""
+    g_entry = chunk_blend_backward_plain(
+        geo, col, sort_gauss, chunk_tile, chunk_start_flag, chunk_src,
+        chunk_valid, tile_color, tile_alpha, g_color, g_alpha, cfg)
+    return rows_from_entries(g_entry, sort_gauss, int(chunk_valid.sum()),
+                             geo.shape[0])
 
 
 def assemble_image(tile_color: torch.Tensor, tile_alpha: torch.Tensor,

@@ -4,15 +4,15 @@ around them.
 - ``tile_blend_fwd`` wraps ``csrc/tile_blend_fwd.cu``, the port of
   ``sk_gs_tpu/render/tile_kernel.py:_fwd_kernel_tile``;
 - ``tile_blend_bwd`` wraps ``csrc/tile_blend_bwd.cu``, the port of
-  ``_bwd_kernel_tile``: per-entry gradient rows;
+  ``_bwd_kernel_tile`` with ``_blend_bwd``'s segment sum: the gradient rows
+  [R, 6 + ch] of the depth-ordered rows;
 - ``chunk_blend_fwd`` and ``chunk_blend_bwd`` wrap ``csrc/chunk_blend_fwd.cu``
   and ``csrc/chunk_blend_bwd.cu``, the ports of the ``chunk`` schedule's
-  ``_fwd_kernel`` and ``_bwd_kernel``;
+  ``_fwd_kernel`` and of ``_bwd_kernel`` with the segment sum;
 - ``TileBlend`` and ``ChunkBlend`` are the ``torch.autograd.Function`` of
   the blend on either schedule (the JAX package's ``_blend_custom`` custom
   VJP): forward through the forward kernel, backward through the backward
-  kernel, then the per-entry rows summed onto the depth-ordered rows by
-  ``sort_gauss`` (``_blend_bwd``'s segment sum).
+  kernel, whose rows are the gradients of ``geo`` and ``col``.
 
 On CUDA tensors a wrapper launches its kernel, or raises; on CPU tensors it
 runs the plain version in ``blend.py``. It never falls back from one to the
@@ -28,8 +28,8 @@ import torch
 
 from ..cuda_build import CudaLibrary
 from .binning import num_chunks
-from .blend import (blend_backward_plain, blend_forward_plain,
-                    chunk_blend_backward_plain, chunk_blend_forward_plain,
+from .blend import (blend_backward_rows_plain, blend_forward_plain,
+                    chunk_blend_backward_rows_plain, chunk_blend_forward_plain,
                     chunk_waves)
 from .settings import RasterConfig
 
@@ -161,7 +161,41 @@ class TileBlendForward(_Kernel):
         return color, alpha
 
 
-class TileBlendBackward(_Kernel):
+def _check_pixel_count(cfg: RasterConfig):
+    if cfg.pix_per_tile % 32:
+        raise ValueError(f'tile of {cfg.pix_per_tile} pixels is not a whole '
+                         'number of warps')
+
+
+class _RowsKernel(_Kernel):
+    """A backward kernel: it adds the gradient rows [R, 6 + ch] of the
+    depth-ordered rows by atomics into ``g_rows``, which the wrapper zeroes
+    (so the sums vary at rounding level from run to run), and its library
+    exports ``<name>_occupancy``."""
+
+    def _g_rows(self, dev, geo, col, cfg: RasterConfig):
+        _check_pixel_count(cfg)
+        return torch.zeros((geo.shape[0], 6 + col.shape[1]),
+                           dtype=torch.float32, device=dev)
+
+    def blocks_per_sm(self, cfg: RasterConfig, ch: int) -> int:
+        """Blocks of the kernel resident on one SM at once for ``cfg``'s
+        tile height and ``ch`` channels (cudaOccupancyMaxActiveBlocksPer
+        Multiprocessor, on the current device)."""
+        self._load()                     # the library and its error strings
+        fn = getattr(self.library.load(), self.name + '_occupancy')
+        fn.argtypes = [ctypes.c_int, ctypes.c_int,
+                       ctypes.POINTER(ctypes.c_int)]
+        fn.restype = ctypes.c_int
+        blocks = ctypes.c_int(0)
+        err = fn(cfg.tile_h, ch, ctypes.byref(blocks))
+        if err != 0:
+            raise RuntimeError(f'{self.name} occupancy query failed: '
+                               f'{self._err(err).decode()} ({err})')
+        return blocks.value
+
+
+class TileBlendBackward(_RowsKernel):
     """Callable wrapper of the backward kernel."""
 
     name = 'tile_blend_bwd'
@@ -169,15 +203,15 @@ class TileBlendBackward(_Kernel):
     source = 'sk_gs_tpu_torch/csrc/tile_blend_bwd.cu'
     n_pointers = 10
     n_ints = 4
-    plain = staticmethod(blend_backward_plain)
+    plain = staticmethod(blend_backward_rows_plain)
 
     def launch(self, geo, col, sort_gauss, tile_start, tile_count,
                tile_color, tile_alpha, g_color, g_alpha,
                cfg: RasterConfig) -> torch.Tensor:
         """The blend inputs as for the forward, its outputs tile_color
         [T, P, ch] and tile_alpha [T, P], and their cotangents. Returns the
-        per-entry gradient rows g_entry [len(sort_gauss), 6 + ch] (see
-        ``blend.blend_backward_plain``)."""
+        gradient rows g_rows [R, 6 + ch] of geo and col (see
+        ``blend.blend_backward_rows_plain``)."""
         dev = geo.device
         if dev.type != 'cuda':
             raise ValueError(f'{self.name} launches on CUDA tensors, got {dev}')
@@ -185,15 +219,11 @@ class TileBlendBackward(_Kernel):
         T, P, ch = cfg.num_tiles, cfg.pix_per_tile, col.shape[1]
         _check_pixel_grads(dev, tile_color, tile_alpha, g_color, g_alpha,
                            (T, P, ch))
-        if P % 32:
-            raise ValueError(f'tile of {P} pixels is not a whole number of '
-                             'warps')
-        g_entry = torch.zeros((sort_gauss.shape[0], 6 + ch),
-                              dtype=torch.float32, device=dev)
+        g_rows = self._g_rows(dev, geo, col, cfg)
         self._run(dev, (geo, col, sort_gauss, tile_start, tile_count,
-                        tile_color, tile_alpha, g_color, g_alpha, g_entry),
+                        tile_color, tile_alpha, g_color, g_alpha, g_rows),
                   (T, cfg.grid_w, cfg.tile_h, ch))
-        return g_entry
+        return g_rows
 
 
 def _check_chunk_inputs(dev, cfg: RasterConfig, **fields):
@@ -208,15 +238,39 @@ def _check_chunk_inputs(dev, cfg: RasterConfig, **fields):
 def ticket_order(chunk_start_flag: torch.Tensor):
     """(wave, order), int32 [num_chunks]: each chunk's place in its tile's
     list of chunks, and the chunks sorted by it (stable), the order in
-    which the chunk kernels hand out their work tickets."""
+    which the chunk forward kernel hands out its work tickets."""
     wave = chunk_waves(chunk_start_flag)
     order = torch.sort(wave, stable=True).indices
     return wave.to(torch.int32), order.to(torch.int32)
 
 
-class _ChunkKernel(_Kernel):
-    """A chunk-schedule kernel: its tickets, waits and per-tile progress
-    counters ([2 + T] int32) of the last launch stay in ``counters``."""
+def _check_chunk_call(name, geo, col, sort_gauss, chunk_fields,
+                      cfg: RasterConfig):
+    """A chunk-schedule kernel's rows, entries and chunk metadata."""
+    dev = geo.device
+    if dev.type != 'cuda':
+        raise ValueError(f'{name} launches on CUDA tensors, got {dev}')
+    _check_rows(geo, col, sort_gauss, cfg)
+    chunk_tile, chunk_start_flag, chunk_src, chunk_valid = chunk_fields
+    _check_chunk_inputs(dev, cfg, chunk_tile=chunk_tile,
+                        chunk_start_flag=chunk_start_flag,
+                        chunk_src=chunk_src, chunk_valid=chunk_valid)
+    if sort_gauss.shape[0] < cfg.pair_capacity + cfg.chunk:
+        raise ValueError('sort_gauss must hold pair_capacity + chunk '
+                         'entries')
+
+
+class ChunkBlendForward(_Kernel):
+    """Callable wrapper of the chunk schedule's forward kernel. Its tickets,
+    waits and per-tile progress counters ([2 + T] int32) of the last launch
+    stay in ``counters``."""
+
+    name = 'chunk_blend_fwd'
+    replaces = 'sk_gs_tpu/render/tile_kernel.py:327'
+    source = 'sk_gs_tpu_torch/csrc/chunk_blend_fwd.cu'
+    n_pointers = 13
+    n_ints = 5
+    plain = staticmethod(chunk_blend_forward_plain)
 
     def __init__(self):
         super().__init__()
@@ -228,36 +282,15 @@ class _ChunkKernel(_Kernel):
         return int(self.counters[1]) if self.counters is not None else 0
 
     def _prepare(self, geo, col, sort_gauss, chunk_fields, cfg):
-        dev = geo.device
-        if dev.type != 'cuda':
-            raise ValueError(f'{self.name} launches on CUDA tensors, got {dev}')
-        _check_rows(geo, col, sort_gauss, cfg)
+        _check_chunk_call(self.name, geo, col, sort_gauss, chunk_fields, cfg)
+        _check_pixel_count(cfg)
         chunk_tile, chunk_start_flag, chunk_src, chunk_valid = chunk_fields
-        _check_chunk_inputs(dev, cfg, chunk_tile=chunk_tile,
-                            chunk_start_flag=chunk_start_flag,
-                            chunk_src=chunk_src, chunk_valid=chunk_valid)
-        if sort_gauss.shape[0] < cfg.pair_capacity + cfg.chunk:
-            raise ValueError('sort_gauss must hold pair_capacity + chunk '
-                             'entries')
-        if cfg.pix_per_tile % 32:
-            raise ValueError(f'tile of {cfg.pix_per_tile} pixels is not a '
-                             'whole number of warps')
+        dev = geo.device
         wave, order = ticket_order(chunk_start_flag)
         self.counters = torch.zeros(2 + cfg.num_tiles, dtype=torch.int32,
                                     device=dev)
         return (chunk_tile, chunk_src, chunk_valid, wave, order,
                 self.counters)
-
-
-class ChunkBlendForward(_ChunkKernel):
-    """Callable wrapper of the chunk schedule's forward kernel."""
-
-    name = 'chunk_blend_fwd'
-    replaces = 'sk_gs_tpu/render/tile_kernel.py:327'
-    source = 'sk_gs_tpu_torch/csrc/chunk_blend_fwd.cu'
-    n_pointers = 13
-    n_ints = 5
-    plain = staticmethod(chunk_blend_forward_plain)
 
     def launch(self, geo, col, sort_gauss, chunk_tile, chunk_start_flag,
                chunk_src, chunk_valid, cfg: RasterConfig
@@ -279,37 +312,35 @@ class ChunkBlendForward(_ChunkKernel):
         return color, alpha
 
 
-class ChunkBlendBackward(_ChunkKernel):
-    """Callable wrapper of the chunk schedule's backward kernel."""
+class ChunkBlendBackward(_RowsKernel):
+    """Callable wrapper of the chunk schedule's backward kernel: one block
+    per tile walks its chunks in order, so it takes no tickets and has no
+    waits."""
 
     name = 'chunk_blend_bwd'
     replaces = 'sk_gs_tpu/render/tile_kernel.py:382'
     source = 'sk_gs_tpu_torch/csrc/chunk_blend_bwd.cu'
-    n_pointers = 17
+    n_pointers = 12
     n_ints = 5
-    plain = staticmethod(chunk_blend_backward_plain)
+    plain = staticmethod(chunk_blend_backward_rows_plain)
 
     def launch(self, geo, col, sort_gauss, chunk_tile, chunk_start_flag,
                chunk_src, chunk_valid, tile_color, tile_alpha, g_color,
                g_alpha, cfg: RasterConfig) -> torch.Tensor:
         """The forward's inputs, its outputs and their cotangents. Returns
-        the per-entry gradient rows g_entry [len(sort_gauss), 6 + ch]."""
-        meta = self._prepare(geo, col, sort_gauss, (
-            chunk_tile, chunk_start_flag, chunk_src, chunk_valid), cfg)
+        the gradient rows g_rows [R, 6 + ch] of geo and col (see
+        ``blend.chunk_blend_backward_rows_plain``)."""
+        fields = (chunk_tile, chunk_start_flag, chunk_src, chunk_valid)
+        _check_chunk_call(self.name, geo, col, sort_gauss, fields, cfg)
         dev = geo.device
         T, P, ch = cfg.num_tiles, cfg.pix_per_tile, col.shape[1]
         _check_pixel_grads(dev, tile_color, tile_alpha, g_color, g_alpha,
                            (T, P, ch))
-        t_run = torch.ones((T, P), dtype=torch.float32, device=dev)
-        s_run = torch.zeros((T, P), dtype=torch.float32, device=dev)
-        done = torch.zeros((T, P), dtype=torch.int32, device=dev)
-        g_entry = torch.zeros((sort_gauss.shape[0], 6 + ch),
-                              dtype=torch.float32, device=dev)
-        self._run(dev, (geo, col, sort_gauss, *meta[:5], tile_color,
-                        tile_alpha, g_color, g_alpha, meta[5], t_run, s_run,
-                        done, g_entry),
-                  (num_chunks(cfg), cfg.chunk, cfg.grid_w, cfg.tile_h, ch))
-        return g_entry
+        g_rows = self._g_rows(dev, geo, col, cfg)
+        self._run(dev, (geo, col, sort_gauss, *fields, tile_color,
+                        tile_alpha, g_color, g_alpha, g_rows),
+                  (T, num_chunks(cfg), cfg.grid_w, cfg.tile_h, ch))
+        return g_rows
 
 
 tile_blend_fwd = TileBlendForward()
@@ -319,24 +350,14 @@ chunk_blend_bwd = ChunkBlendBackward()
 KERNELS = (tile_blend_fwd, tile_blend_bwd, chunk_blend_fwd, chunk_blend_bwd)
 
 
-def rows_from_entries(g_entry: torch.Tensor, sort_gauss: torch.Tensor,
-                      n_rows: int) -> torch.Tensor:
-    """Sum the per-entry rows onto the ``n_rows`` depth-ordered rows they
-    read (``_blend_bwd``'s segment sum; atomics on the card, so the
-    summation order varies from run to run)."""
-    out = torch.zeros((n_rows, g_entry.shape[1]), dtype=g_entry.dtype,
-                      device=g_entry.device)
-    return out.index_add_(0, sort_gauss.to(torch.int64), g_entry)
-
-
 def _blend_function(name: str, fwd_kernel, bwd_kernel, doc: str):
     """The ``torch.autograd.Function`` of a blend schedule (the JAX
     package's ``_blend_custom`` custom VJP), applied as
     ``.apply(geo, col, sort_gauss, *schedule_metadata, cfg)``: forward
     through ``fwd_kernel``, backward through ``bwd_kernel`` (the wrappers:
     the kernels on CUDA tensors, the plain versions on CPU ones; with
-    ``cfg.use_kernel`` off, the plain versions on every device), then the
-    per-entry rows summed onto the depth-ordered rows by ``sort_gauss``."""
+    ``cfg.use_kernel`` off, the plain versions on every device), whose
+    gradient rows [R, 6 + ch] split into those of ``geo`` and ``col``."""
 
     def forward(ctx, geo, col, *args):
         *meta, cfg = args
@@ -350,9 +371,8 @@ def _blend_function(name: str, fwd_kernel, bwd_kernel, doc: str):
         geo, col, *meta, color, alpha = ctx.saved_tensors
         cfg = ctx.cfg
         bwd = bwd_kernel if cfg.use_kernel else bwd_kernel.plain
-        g_entry = bwd(geo, col, *meta, color, alpha, g_color.contiguous(),
-                      g_alpha.contiguous(), cfg)
-        g_rows = rows_from_entries(g_entry, meta[0], geo.shape[0])
+        g_rows = bwd(geo, col, *meta, color, alpha, g_color.contiguous(),
+                     g_alpha.contiguous(), cfg)
         return (g_rows[:, :6], g_rows[:, 6:]) + (None,) * (len(meta) + 1)
 
     return type(name, (torch.autograd.Function,),

@@ -269,12 +269,17 @@ def test_plain_backward_matches_autograd_of_plain_forward(chunk):
         pcfg)
     assert g_entry.shape == (sort_gauss.shape[0], 9)
     close_groups(to_np(g_entry), to_np(ref), tol=3e-5)
-    # the wrapper takes the plain version for CPU tensors
+    # the wrapper takes the plain version for CPU tensors: the per-entry
+    # rows of the chunks' entries summed onto the depth-ordered rows
     before = chunk_blend_bwd.launches
-    w_entry = chunk_blend_bwd(geo, col, sort_gauss, *fields, color.detach(),
-                              alpha.detach(), gc, ga, pcfg)
+    w_rows = chunk_blend_bwd(geo, col, sort_gauss, *fields, color.detach(),
+                             alpha.detach(), gc, ga, pcfg)
     assert chunk_blend_bwd.launches == before
-    np.testing.assert_array_equal(to_np(w_entry), to_np(g_entry))
+    n = int(out.tile_count.sum())
+    ref_rows = torch.zeros((geo.shape[0], 9)).index_add_(
+        0, rows[:n], g_entry[:n])
+    np.testing.assert_array_equal(to_np(w_rows), to_np(ref_rows))
+    assert not w_rows[-1].any()           # the dummy row
 
 
 def test_chunk_wrappers_launch_only_on_cuda():

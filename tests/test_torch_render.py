@@ -288,12 +288,17 @@ class TestPlainBackward:
         n = int(np.asarray(binned.tile_count).sum())
         assert not g_entry[n:].any()
         close_groups(to_np(g_entry)[:n], np.asarray(gfeat)[:n, :9])
-        # the wrapper takes the plain version for CPU tensors
+        # the wrapper takes the plain version for CPU tensors: the per-entry
+        # rows of the tiles' lists summed onto the depth-ordered rows
         before = tile_blend_bwd.launches
-        w_entry = tile_blend_bwd(*args, t_color, t_alpha, gc, ga,
-                                 port_cfg(cfg))
+        w_rows = tile_blend_bwd(*args, t_color, t_alpha, gc, ga,
+                                port_cfg(cfg))
         assert tile_blend_bwd.launches == before
-        np.testing.assert_array_equal(to_np(w_entry), to_np(g_entry))
+        sort_gauss = args[2].long()
+        ref_rows = torch.zeros((args[0].shape[0], 9)).index_add_(
+            0, sort_gauss[:n], g_entry[:n])
+        np.testing.assert_array_equal(to_np(w_rows), to_np(ref_rows))
+        assert not w_rows[-1].any()       # the dummy row
 
     @pytest.mark.parametrize('batch', [7, 32])
     def test_matches_autograd_of_plain_forward(self, rng, batch):
