@@ -16,12 +16,13 @@ and training the ``init`` family with adaptive density control on the
 2. build: every hand-written kernel compiled from ``sk_gs_tpu_torch/csrc``
    (one nvcc each, started together), with ptxas' register and shared
    memory lines;
-3. kernel: the forward kernel against its plain PyTorch version on the
-   inputs of the first request, error and CUDA-event times;
+3. kernel: the forward kernel (#1) against its plain PyTorch version on
+   the inputs of the first request, error, the kernel's device time by
+   torch.profiler, the wrapper's and the plain version's by CUDA events,
+   and the blocks resident per SM;
 4. kernel_chunk: the chunk schedule's forward kernel (#3) against its plain
-   version on the same request binned in chunks, error, the chunks that
-   waited for their predecessor, and CUDA-event times of #3, its plain
-   version and #1 on the same splats;
+   version on the same request binned in chunks, as 3 reports #1, with the
+   chunk layout and #1's device time on the same splats;
 5. slice: the launch counts set to 0, 10 renders served at
    distinct (orbit camera, t), the counts read back; per request the
    synchronised time, the pairs and the overflow flag; PSNR / SSIM against
@@ -31,10 +32,11 @@ and training the ``init`` family with adaptive density control on the
 7. kernel_bwd: the backward kernel (#2) against its plain version on the
    first training step's inputs and cotangents: the gradient rows of the
    depth-ordered rows, error per column group, the dummy row's zeros, the
-   difference between two launches (the atomics' order), CUDA-event times
-   of the wrapper (its zeroing and the in-kernel reduction included) and of
-   the plain version, the bytes and bound, the blocks resident per SM, and
-   the longest and mean tile list;
+   difference between two launches (the atomics' order), the kernel's
+   device time by torch.profiler (the in-kernel reduction included), the
+   wrapper's (its zeroing of the rows included) and the plain version's by
+   CUDA events, the bytes and bound, the blocks resident per SM, and the
+   longest and mean tile list;
 8. train: one warm-up step, the launch counts set to 0, 10 steps, the
    counts read back; per step the synchronised time and the metrics; the
    loss on the first step's view before and after; the peak memory;
@@ -68,8 +70,16 @@ and training the ``init`` family with adaptive density control on the
    a step's window); and for each of those two trainers, its backward
    kernel's device time on one step's inputs, by torch.profiler, alone
    (warm, and after a write that evicts L2) and inside that very step, with
-   the step's pairs and tile lists, and on the tile schedule the wrapper's
-   time with every tile's list cut to its first 64, 250 and 1,000 entries.
+   the step's pairs and tile lists, and on the tile schedule its time with
+   every tile's list cut to its first 64, 250 and 1,000 entries; and
+   profile_fwd / profile_chunk_fwd: each forward kernel's device time by
+   torch.profiler, whole and with the lists cut the same way, its blocks
+   per SM, the lists, the share of their entries with o < 1/255, and the
+   shares of the plain version's evaluations by outcome (skipped by power,
+   alpha below 1/255, added, stopping), for #1
+   on the first request and on the ``sk`` step that profile_bwd takes, for
+   #3 on the first request binned in chunks and on the populated start's
+   first step (before it trains).
 
 Then a ``kernels`` line (every ported kernel with its launches on its own
 training path and on each path, error, times and bound), the card's name
@@ -105,7 +115,8 @@ from sk_gs_tpu_torch.models.losses import LossWeights, l1_loss, ssim_loss
 from sk_gs_tpu_torch.models.sk_gs import forward_deltas, init_model
 from sk_gs_tpu_torch.render import prepare_blend
 from sk_gs_tpu_torch.render.binning import build_tile_lists, num_chunks
-from sk_gs_tpu_torch.render.blend import assemble_image
+from sk_gs_tpu_torch.render.blend import (ALPHA_MIN, OUTCOMES, assemble_image,
+                                          chunk_waves)
 from sk_gs_tpu_torch.render.preprocess import preprocess
 from sk_gs_tpu_torch.render.render import blend_tiles, composite_background
 from sk_gs_tpu_torch.render.tile_kernel import (KERNELS, chunk_blend_bwd,
@@ -116,10 +127,23 @@ from sk_gs_tpu_torch.render.tile_kernel import (KERNELS, chunk_blend_bwd,
 # cores, and HBM3 bandwidth
 PEAK_FP32_FLOPS = 67e12
 PEAK_HBM_BYTES = 3.35e12
-# operations of one (entry, pixel) evaluation of the forward blend, counting
-# only what every evaluation does: dx, dy (2), the quadratic form (9),
-# min(power, 0), exp, o * g, min(0.99, .) and the two skip tests (6). A kept
-# entry does ~10 more; leaving them out keeps the bound a least time.
+# float32 instructions a second (132 SMs x 128 lanes x 1.98 GHz): the rate
+# of the separate multiplies and adds that --fmad=false builds, where the
+# data sheet's 67 TFLOP/s counts one FMA as two operations
+PEAK_FP32_INSTR = 33.5e12
+# operations of the forward blend (#1, #3) on what its evaluations come to
+# (the plain version's ``stats``): every evaluation dx, dy (2), the
+# quadratic form (9) and the skip and pre-test tests (2); a kept one (added
+# or stopping) min(power, 0), exp, o * g, min(0.99, .), the keep test,
+# T (1 - alpha) and the stop test (8); an added one w and the colour sums
+# (1 + 2 ch). exp counted once and only where the entry is kept: a least
+# count, since the pre-test also lets through the evaluations within its
+# margin below the keep threshold.
+FWD_OPS_PER_EVAL = 13
+FWD_OPS_PER_KEPT = 8
+# operations of one (entry, pixel) evaluation that the backward's forward
+# walk does (it has no pre-test): dx, dy (2), the quadratic form (9),
+# min(power, 0), exp, o * g, min(0.99, .) and the two skip tests (6)
 BLEND_OPS_PER_EVAL = 17
 # operations the backward adds for an (entry, pixel) pair that adds to the
 # pixel: 1 - alpha, T (1 - alpha), w, B (2 ch - 1), the running sum (2),
@@ -137,6 +161,8 @@ GRAD_PATH_TOL = 1e-3    # of each leaf's max magnitude
 SEED = 0
 N_REQUESTS = 10
 N_STEPS = 10
+# the profile phases time a kernel with every tile's list cut to these
+LIST_CUTS = (64, 250, 1000)
 # the init family's starts: (name, live slots of a random start or None
 # for the flagship's point cloud, steps). An event follows step 100
 # (densify + prune) and step 3000 (densify + prune + opacity reset); the
@@ -184,12 +210,19 @@ def requests(n: int, width: int, height: int, device):
     return views, times
 
 
-def bound(ops: int, nbytes: int):
-    """(bound_ms, bound_by): the larger of the operations at the fp32 peak
-    and the bytes at the HBM rate."""
-    t_ops, t_bytes = ops / PEAK_FP32_FLOPS, nbytes / PEAK_HBM_BYTES
+def bound(ops: int, nbytes: int, peak: float = PEAK_FP32_FLOPS):
+    """(bound_ms, bound_by): the larger of the operations at the fp32 rate
+    ``peak`` and the bytes at the HBM rate."""
+    t_ops, t_bytes = ops / peak, nbytes / PEAK_HBM_BYTES
     return 1e3 * max(t_ops, t_bytes), ('operations' if t_ops >= t_bytes
                                        else 'bytes')
+
+
+def fwd_ops(stats: dict, ch: int) -> int:
+    """Operations of a forward blend whose evaluations came to ``stats``."""
+    return (FWD_OPS_PER_EVAL * stats['evaluations']
+            + FWD_OPS_PER_KEPT * (stats['adds'] + stats['stops'])
+            + (1 + 2 * ch) * stats['adds'])
 
 
 def schedule_kernels(inp, rcfg):
@@ -223,24 +256,29 @@ def chunk_layout(b) -> dict:
                 b.tile_count.float() / b.chunk_valid.max().clamp(min=1)).max())}
 
 
-def phase_kernel(model, view, t, schedule: str = 'tile'):
-    """The schedule's forward kernel (#1 or #3) against its plain version
-    on the first request's binned inputs; on the chunk schedule also the
-    waits and kernel #1 on the same splats."""
-    cfg, rcfg = model.cfg, model.rcfg._replace(schedule=schedule)
+def request_inputs(model, view, t, rcfg):
+    """The blend inputs of the request (view, t) binned for ``rcfg``."""
+    cfg = model.cfg
     with torch.no_grad():
         d = forward_deltas(cfg, model, torch.tensor(t, device=model.device),
                            'sk')
         g = gaussian_inputs(model.gauss_view(), cfg.gauss, d.d_xyz,
                             d.d_rotation, d.d_scaling)
-        inp = prepare_blend(g, view, rcfg, model.active_sh_degree)
+        return prepare_blend(g, view, rcfg, model.active_sh_degree)
+
+
+def phase_kernel(model, view, t, schedule: str = 'tile'):
+    """The schedule's forward kernel (#1 or #3) against its plain version
+    on the first request's binned inputs; on the chunk schedule also kernel
+    #1 on the same splats."""
+    rcfg = model.rcfg._replace(schedule=schedule)
+    with torch.no_grad():
+        inp = request_inputs(model, view, t, rcfg)
         b = inp.binned
         kernel, _, args, meta_bytes = schedule_kernels(inp, rcfg)
         args = (*args, rcfg)
         color, alpha = kernel.launch(*args)
-        extra = {}
-        if rcfg.chunked:
-            extra = {**chunk_layout(b), 'waits_first_launch': kernel.waits()}
+        extra = chunk_layout(b) if rcfg.chunked else {}
         stats = {}
         p_color, p_alpha = kernel.plain(*args, stats=stats)
         torch.cuda.synchronize()
@@ -249,29 +287,33 @@ def phase_kernel(model, view, t, schedule: str = 'tile'):
         above = int(((color - p_color).abs().amax(-1) > 3e-5).sum()
                     + ((alpha - p_alpha).abs() > 3e-5).sum())
         finite = bool(torch.isfinite(color).all() and torch.isfinite(alpha).all())
-        ms = cuda_ms(lambda: kernel.launch(*args), iters=20, warmup=3)
+        ms = device_ms(kernel, lambda: kernel.launch(*args))
+        wrapper_ms = cuda_ms(lambda: kernel.launch(*args), iters=20, warmup=3)
         plain_ms = cuda_ms(lambda: kernel.plain(*args), iters=3, warmup=1)
         if rcfg.chunked:
-            extra['waits_last_timed_launch'] = kernel.waits()
             tile_args = (*schedule_kernels(inp, model.rcfg)[2], model.rcfg)
-            extra['tile_kernel_ms_same_splats'] = cuda_ms(
-                lambda: tile_blend_fwd.launch(*tile_args), iters=20, warmup=3)
+            extra['tile_kernel_ms_same_splats'] = device_ms(
+                tile_blend_fwd, lambda: tile_blend_fwd.launch(*tile_args))
 
     pairs = int(b.num_pairs)
     T, P, ch = rcfg.num_tiles, rcfg.pix_per_tile, inp.col.shape[1]
     evals = stats['evaluations']
-    ops = evals * BLEND_OPS_PER_EVAL
+    ops = fwd_ops(stats, ch)
     nbytes = (4 * pairs + meta_bytes + 4 * inp.geo.numel()
               + 4 * inp.col.numel() + 4 * T * P * (ch + 1))
     row = kernel_row(kernel, max(err_c, err_a), ms, plain_ms, ops, nbytes)
     emit({'phase': 'kernel' if schedule == 'tile' else 'kernel_chunk',
           'kernel': row['name'], 'chunk': rcfg.chunk, 'tiles': T,
           'pixels_per_tile': P, 'channels': ch, 'pairs': pairs,
-          'evaluations': evals, 'ops': ops, 'bytes': nbytes,
+          'evaluations': evals, 'adds': stats['adds'],
+          'stops': stats['stops'], 'ops': ops, 'bytes': nbytes,
           'max_abs_err_color': err_c, 'max_abs_err_alpha': err_a,
           'values_above_3e-5': above, 'tolerance': KERNEL_TOL,
-          'finite': finite, 'ms': ms, 'plain_ms': plain_ms, **extra,
-          'bound_ms': row['bound_ms'], 'bound_by': row['bound_by']})
+          'finite': finite, 'ms': ms, 'wrapper_ms': wrapper_ms,
+          'plain_ms': plain_ms,
+          'blocks_per_sm': kernel.blocks_per_sm(rcfg, ch), **extra,
+          'bound_ms': row['bound_ms'], 'bound_by': row['bound_by'],
+          'bound_ms_unfused': bound(ops, nbytes, PEAK_FP32_INSTR)[0]})
     if not finite or max(err_c, err_a) > KERNEL_TOL:
         raise AssertionError(f'{kernel.name} disagrees with its plain '
                              f'version: colour {err_c}, alpha {err_a} > '
@@ -405,8 +447,9 @@ def step_blend_inputs(trainer: SKGSTrainer, step: int):
 def phase_kernel_bwd(trainer: SKGSTrainer, step: int):
     """The trainer's schedule's backward kernel (#2 or #4) against its plain
     version on a training step's inputs and real cotangents: the gradient
-    rows [R, 6 + ch] of the depth-ordered rows. The time is the wrapper's,
-    its zeroing of the rows and the kernel's own reduction included."""
+    rows [R, 6 + ch] of the depth-ordered rows. Its time is the kernel's
+    device time (its own reduction included); the wrapper's, its zeroing
+    of the rows included, is given beside it."""
     rcfg = trainer.rcfg
     inp, color, alpha, g_color, g_alpha = step_blend_inputs(trainer, step)
     b = inp.binned
@@ -430,7 +473,9 @@ def phase_kernel_bwd(trainer: SKGSTrainer, step: int):
         max_abs = float((g_rows - p_rows).abs().max())
         stats = {}
         fwd.plain(*args, rcfg, stats=stats)
-        ms = cuda_ms(lambda: kernel.launch(*bwd_args), iters=20, warmup=3)
+        ms = device_ms(kernel, lambda: kernel.launch(*bwd_args))
+        wrapper_ms = cuda_ms(lambda: kernel.launch(*bwd_args), iters=20,
+                             warmup=3)
         plain_ms = cuda_ms(lambda: kernel.plain(*bwd_args), iters=3, warmup=1)
         extra = chunk_layout(b) if rcfg.chunked else {}
 
@@ -454,13 +499,15 @@ def phase_kernel_bwd(trainer: SKGSTrainer, step: int):
           'tolerance': BWD_TOL, 'finite': finite,
           'dummy_row_zero': dummy_zero,
           'rerun_diff_over_max_by_group': rerun,
-          'rerun_tolerance': RERUN_TOL, 'ms': ms, 'plain_ms': plain_ms,
+          'rerun_tolerance': RERUN_TOL, 'ms': ms, 'wrapper_ms': wrapper_ms,
+          'plain_ms': plain_ms,
           'blocks_per_sm': kernel.blocks_per_sm(rcfg, ch),
           'sms': torch.cuda.get_device_properties(0).multi_processor_count,
           'nonempty_tiles': int(counts.numel()),
           'tile_list_longest': int(counts.max()),
           'tile_list_mean': float(counts.mean()), **extra,
-          'bound_ms': row['bound_ms'], 'bound_by': row['bound_by']})
+          'bound_ms': row['bound_ms'], 'bound_by': row['bound_by'],
+          'bound_ms_unfused': bound(ops, nbytes, PEAK_FP32_INSTR)[0]})
     if not finite or max(errs.values()) > BWD_TOL:
         raise AssertionError(f'{kernel.name} disagrees with its plain '
                              f'version: {errs} > {BWD_TOL}')
@@ -472,41 +519,32 @@ def phase_kernel_bwd(trainer: SKGSTrainer, step: int):
 
 def phase_profile_bwd(trainer: SKGSTrainer, step: int, phase: str):
     """The trainer's backward kernel (#2 or #4) on step ``step``'s inputs,
-    its device time a launch by torch.profiler three ways: alone, 10
-    launches back to back (warm caches, as ``phase_kernel_bwd`` times it);
-    alone, each launch after a write that evicts L2; and inside that very
-    step (the step reads the same inputs: the state is unchanged and the
-    forward is deterministic; its pairs are checked). On the tile schedule
-    also the wrapper by CUDA events with every tile's list cut to its first
-    L entries: where in the lists the time goes."""
+    its device time a launch by torch.profiler three ways: alone, launches
+    back to back (warm caches); alone, each launch after a write that
+    evicts L2; and inside that very step (the step reads the same inputs:
+    the state is unchanged and the forward is deterministic; its pairs are
+    checked). On the tile schedule also with every tile's list cut to its
+    first LIST_CUTS entries: where in the lists the time goes."""
     rcfg = trainer.rcfg
     inp, color, alpha, g_color, g_alpha = step_blend_inputs(trainer, step)
     b = inp.binned
     _, kernel, args, _ = schedule_kernels(inp, rcfg)
     bwd_args = (*args, color, alpha, g_color, g_alpha, rcfg)
-    symbol = kernel.name + '_kernel<'
-
-    def kernel_ms(fn) -> list:
-        on_dev, _ = profile_window(fn)
-        return [dev_us(e) * 1e-3 / e.count for e in on_dev
-                if symbol in e.key]
 
     # twice the H100's 50 MB L2
     flush = torch.empty(25 << 20, dtype=torch.float32, device='cuda')
     with torch.no_grad():
-        warm = kernel_ms(lambda: [kernel.launch(*bwd_args)
-                                  for _ in range(10)])
-        cold = kernel_ms(lambda: [(flush.fill_(1.0), kernel.launch(*bwd_args))
-                                  for _ in range(10)])
+        warm = device_ms(kernel, lambda: kernel.launch(*bwd_args))
+        cold = device_ms(kernel, lambda: (flush.fill_(1.0),
+                                          kernel.launch(*bwd_args)))
         clipped = {}
-        for n in ((64, 250, 1000) if not rcfg.chunked else ()):
-            cut = list(bwd_args)
-            cut[4] = torch.clamp(cut[4], max=n)   # tile_count
-            clipped[n] = cuda_ms(lambda: kernel.launch(*cut), iters=20,
-                                 warmup=3)
+        for n in (LIST_CUTS if not rcfg.chunked else ()):
+            cut = clip_lists(bwd_args, rcfg, n)
+            clipped[n] = device_ms(kernel, lambda: kernel.launch(*cut))
     del flush
     metrics = []
-    in_step = kernel_ms(lambda: metrics.append(trainer.train_step(step)))
+    in_step = device_ms(kernel, lambda: metrics.append(
+        trainer.train_step(step)), launches=1)
     pairs, step_pairs = int(b.num_pairs), int(metrics[0]['num_pairs'])
     counts = b.tile_count[b.tile_count > 0].float()
     emit({'phase': phase, 'kernel': kernel.name, 'step': step,
@@ -516,10 +554,68 @@ def phase_profile_bwd(trainer: SKGSTrainer, step: int, phase: str):
           'tile_list_mean': float(counts.mean()),
           'device_ms_warm': warm, 'device_ms_cold_l2': cold,
           'device_ms_in_step': in_step, 'ms_lists_clipped_to': clipped})
-    if pairs != step_pairs or not len(warm) == len(cold) == len(in_step) == 1:
+    if pairs != step_pairs:
         raise AssertionError(f'{phase}: the step read other inputs '
-                             f'({step_pairs} pairs against {pairs}) or the '
-                             f'profiler missed {kernel.name}')
+                             f'({step_pairs} pairs against {pairs})')
+
+
+def clip_lists(args, rcfg, n: int) -> list:
+    """Blend arguments (geo, col, sort_gauss, the schedule's metadata, ...)
+    with every tile's list cut to its first ``n`` entries: tile_count
+    clamped on the tile schedule; on the chunk schedule each chunk's valid
+    count cut at n less the entries of its tile's earlier chunks."""
+    cut = list(args)
+    if rcfg.chunked:
+        room = n - chunk_waves(cut[4]) * rcfg.chunk   # chunk_start_flag
+        cut[6] = torch.clamp(torch.minimum(cut[6].long(), room),
+                             min=0).to(torch.int32)  # chunk_valid
+    else:
+        cut[4] = torch.clamp(cut[4], max=n)             # tile_count
+    return cut
+
+
+def listed_rows(args, rcfg) -> torch.Tensor:
+    """The rows that the entries of the tiles' lists read, from the blend
+    arguments (geo, col, sort_gauss, the schedule's metadata)."""
+    src, valid = (args[5], args[6]) if rcfg.chunked else (args[3], args[4])
+    src, valid = src.long(), valid.long()
+    offs = torch.arange(int(valid.max()), device=src.device)
+    listed = offs[None, :] < valid[:, None]
+    return args[2].long()[(src[:, None] + offs[None, :])[listed]]
+
+
+def fwd_case(kernel, inp, rcfg) -> dict:
+    """A forward kernel (#1 or #3) on one input: its device time a launch,
+    whole and with every tile's list cut to its first LIST_CUTS entries;
+    the lists; the share of their entries with o < 1/255 (never kept); and
+    what becomes of the plain version's evaluations, as shares of them."""
+    b = inp.binned
+    args = schedule_kernels(inp, rcfg)[2]
+    low_o = float((args[0][listed_rows(args, rcfg), 5] < ALPHA_MIN)
+                  .float().mean())
+    stats = {}
+    with torch.no_grad():
+        kernel.plain(*args, rcfg, stats=stats)
+        ms = device_ms(kernel, lambda: kernel.launch(*args, rcfg))
+        clipped = {}
+        for n in LIST_CUTS:
+            cut = clip_lists(args, rcfg, n)
+            clipped[n] = device_ms(kernel, lambda: kernel.launch(*cut, rcfg))
+    counts = b.tile_count[b.tile_count > 0].float()
+    evals = stats['evaluations']
+    return {'pairs': int(b.num_pairs), 'nonempty_tiles': int(counts.numel()),
+            'tile_list_longest': int(counts.max()),
+            'tile_list_mean': float(counts.mean()),
+            'share_entries_o_below_alpha_min': low_o, 'evaluations': evals,
+            'outcome_shares': {k: stats[k] / evals for k in OUTCOMES},
+            'ms': ms, 'ms_lists_clipped_to': clipped}
+
+
+def phase_profile_fwd(phase: str, kernel, rcfg, cases: dict):
+    """A forward kernel on each of ``cases`` (name -> ``fwd_case``): where
+    in the lists its time goes, and what its evaluations come to."""
+    emit({'phase': phase, 'kernel': kernel.name,
+          'blocks_per_sm': kernel.blocks_per_sm(rcfg, 3), 'cases': cases})
 
 
 def view_loss(trainer: SKGSTrainer, step: int, idx: int) -> float:
@@ -756,10 +852,11 @@ def run_init_steps(trainer: SKGSTrainer, start: str, steps):
     return records, events
 
 
-def phase_init_train(cfg, rcfg, train):
+def phase_init_train(cfg, rcfg, train, profile: bool = False):
     """The init family at full width on the chunk schedule. First kernel #4
     and the gradient path on the populated start's first step (before it
-    trains); then, with the counts at 0, the steps of every start."""
+    trains), and with ``profile`` kernel #3's ``fwd_case`` there; then,
+    with the counts at 0, the steps of every start."""
     scene, meta, _ = fullscale_scene(rcfg, train)
     trainers = {}
     for start, n_alive, _ in INIT_STARTS:
@@ -772,6 +869,8 @@ def phase_init_train(cfg, rcfg, train):
     s0 = INIT_STARTS[1][2][0]
     row = phase_kernel_bwd(trainers['populated'], s0)
     phase_grad_path_init(trainers['populated'], s0)
+    fwd_profile = (fwd_case(chunk_blend_fwd, step_blend_inputs(
+        trainers['populated'], s0)[0], rcfg) if profile else None)
 
     for k in KERNELS:
         k.launches = 0
@@ -789,8 +888,7 @@ def phase_init_train(cfg, rcfg, train):
           'ms_mean': sum(ms) / n, 'ms_mean_without_first': sum(ms[1:]) / (n - 1),
           'ms_min': min(ms), 'ms_max': max(ms),
           'ms_by_start': ms_by_start(records, events),
-          'max_memory_allocated': peak, 'events': events,
-          'chunk_fwd_waits_last_step': chunk_blend_fwd.waits()})
+          'max_memory_allocated': peak, 'events': events})
     for r in records:
         if not math.isfinite(r['loss']) or r['overflow']:
             raise AssertionError(f'bad init step: {r}')
@@ -807,7 +905,7 @@ def phase_init_train(cfg, rcfg, train):
             or min(e['n_cloned'] + e['n_split'] for e in events) == 0 \
             or after[('full', 3000)]['n_dropped'] == 0:
         raise AssertionError(f'adaptive control did not run as due: {events}')
-    return launches, trainers, row
+    return launches, trainers, row, fwd_profile
 
 
 def ms_by_start(records, events) -> dict:
@@ -972,6 +1070,22 @@ def dev_us(e) -> float:
     return getattr(e, 'self_device_time_total', 0.0)
 
 
+def device_ms(kernel, fn, launches: int = 20) -> float:
+    """``kernel``'s mean device time a launch, by torch.profiler, over the
+    launches it records of ``launches`` calls of ``fn`` (each launching it
+    once; the profiler may miss a few), after 3 unprofiled calls. Host time
+    between launches does not count, as it does in CUDA events around a
+    wrapper that takes longer on the host than the kernel on the card."""
+    for _ in range(3 if launches > 1 else 0):
+        fn()
+    on_dev, _ = profile_window(lambda: [fn() for _ in range(launches)])
+    found = [e for e in on_dev if kernel.name + '_kernel<' in e.key]
+    if len(found) != 1 or found[0].count < 1:
+        raise AssertionError(f'the profiler saw {kernel.name} as '
+                             f'{[(e.key, e.count) for e in found]}')
+    return dev_us(found[0]) * 1e-3 / found[0].count
+
+
 def profile_window(fn):
     """Device-side events (kernels, copies, sets) of ``fn`` under
     torch.profiler, by device time, and the window's wall time. The
@@ -1098,14 +1212,26 @@ def main(argv=None) -> int:
 
     # the init family on the chunk schedule
     init_rcfg = rcfg._replace(schedule='chunk')
-    init_launches, init_trainers, chunk_bwd_row = phase_init_train(
-        cfg, init_rcfg, train)
+    init_launches, init_trainers, chunk_bwd_row, init_fwd_case = \
+        phase_init_train(cfg, init_rcfg, train, args.profile)
     rows += [chunk_row, chunk_bwd_row]
     phase_train_reference_init(SEED)
     if args.profile:
         phase_profile(model, views, times, bg, served_ms)
         phase_profile_train(trainer, s_next)
-        phase_profile_bwd(trainer, s_next + 9, 'profile_bwd')
+        # kernel #1 on the inputs of the step that profile_bwd then trains
+        s_prof = s_next + 9
+        sk_case = fwd_case(tile_blend_fwd,
+                           step_blend_inputs(trainer, s_prof)[0], rcfg)
+        phase_profile_bwd(trainer, s_prof, 'profile_bwd')
+        phase_profile_fwd('profile_fwd', tile_blend_fwd, rcfg, {
+            'request_0': fwd_case(tile_blend_fwd, request_inputs(
+                model, views[0], times[0], rcfg), rcfg),
+            f'sk_step_{s_prof}': sk_case})
+        phase_profile_fwd('profile_chunk_fwd', chunk_blend_fwd, init_rcfg, {
+            'request_0': fwd_case(chunk_blend_fwd, request_inputs(
+                model, views[0], times[0], init_rcfg), init_rcfg),
+            f'init_populated_step_{INIT_STARTS[1][2][0]}': init_fwd_case})
         # the flagship start past its first event
         s_init = INIT_STARTS[0][2][-1] + 1
         phase_profile_train(init_trainers['flagship'], s_init,

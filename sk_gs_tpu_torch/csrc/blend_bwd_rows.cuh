@@ -42,15 +42,13 @@
 
 #include <cuda_runtime.h>
 
+#include "blend_common.cuh"
+
 namespace blend_bwd {
 
-constexpr int kTile = 16;
-constexpr int kWarp = 32;
+using namespace blend;
+
 constexpr int kBatch = 64;  // entries staged per round (one bit each in a mask)
-constexpr unsigned kFull = 0xffffffffu;
-constexpr float kAlphaMin = 1.0f / 255.0f;
-constexpr float kAlphaMax = 0.99f;
-constexpr float kTEps = 1e-4f;
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
@@ -244,23 +242,6 @@ __device__ __forceinline__ bool walk_entries(
     }
   }
   return true;
-}
-
-// Sets the kernel's dynamic shared memory limit where it exceeds the 48 KB
-// default.
-template <typename Kernel>
-cudaError_t allow_shared(Kernel kernel, size_t smem) {
-  if (smem <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              static_cast<int>(smem));
-}
-
-// Blocks of `threads` threads that can be resident on one SM at once.
-template <typename Kernel>
-cudaError_t blocks_per_sm(Kernel kernel, int threads, size_t smem, int* blocks) {
-  cudaError_t err = allow_shared(kernel, smem);
-  if (err != cudaSuccess) return err;
-  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, kernel, threads, smem);
 }
 
 }  // namespace blend_bwd

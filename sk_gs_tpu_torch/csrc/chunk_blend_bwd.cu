@@ -28,7 +28,8 @@
 // tile, one thread per pixel:
 // - the block finds its tile's first chunk in chunk_tile, which the binning
 //   builds non-decreasing (a running max), by a search in which every
-//   thread probes one point a round (two rounds at 8,817 chunks), and checks
+//   thread probes one point a round (two rounds at 8,817 chunks;
+//   blend_common.cuh, shared with the chunk forward), and checks
 //   chunk_start_flag there; a tile with no flagged chunk that has entries
 //   (an empty tile) exits at once;
 // - it then walks chunk after chunk, entries chunk_src .. chunk_src +
@@ -42,29 +43,11 @@
 #include <cuda_runtime.h>
 
 #include "blend_bwd_rows.cuh"
+#include "blend_common.cuh"
 
 namespace {
 
 using namespace blend_bwd;
-
-// The first c in [0, nc) with chunk_tile[c] >= tile (nc if none), for a
-// non-decreasing chunk_tile. Every thread of the block calls it; each round
-// every thread probes one point of the remaining range, and the count of
-// probes below `tile` (a prefix, chunk_tile being sorted) narrows it.
-__device__ __forceinline__ int first_chunk_of(const int* __restrict__ chunk_tile,
-                                              int nc, int tile) {
-  const int P = blockDim.x;
-  int lo = 0, hi = nc;
-  while (lo < hi) {
-    const int stride = (hi - lo + P - 1) / P;
-    const int c = lo + static_cast<int>(threadIdx.x) * stride;
-    const int below = __syncthreads_count(c < hi && chunk_tile[c] < tile);
-    const int next_lo = below > 0 ? lo + (below - 1) * stride + 1 : lo;
-    hi = min(hi, lo + below * stride);
-    lo = next_lo;
-  }
-  return lo;
-}
 
 template <int CH>
 __global__ void chunk_blend_bwd_kernel(
@@ -78,19 +61,18 @@ __global__ void chunk_blend_bwd_kernel(
   const int ch = CH > 0 ? CH : ch_rt;
   const int tile = blockIdx.x;
   const int first = first_chunk_of(chunk_tile, nc, tile);
-  if (first >= nc || chunk_tile[first] != tile ||
-      chunk_start_flag[first] == 0 || chunk_valid[first] <= 0)
+  if (!tile_has_chunks(chunk_tile, chunk_start_flag, chunk_valid, nc, tile,
+                       first))
     return;  // an empty tile: no chunk of its own
   Pixel<CH> p = load_pixel<CH>(tile, grid_w, tile_h, ch, tile_color,
                                tile_alpha, g_color, g_alpha);
   const Shared s = carve_shared(ch, blockDim.x / kWarp);
   for (int c = first; c < nc; ++c) {
-    if (c > first && (chunk_tile[c] != tile || chunk_start_flag[c] != 0))
+    if (c > first &&
+        !chunk_continues(chunk_tile, chunk_start_flag, chunk_valid, c, tile))
       break;
-    const int n = chunk_valid[c];
-    if (n <= 0) break;
     if (!walk_entries<CH, true>(geo, col, sort_gauss, g_rows, ch, s, p,
-                                chunk_src[c], n))
+                                chunk_src[c], chunk_valid[c]))
       break;
   }
 }

@@ -11,207 +11,114 @@
 // kept when >= 1/255, a pixel stops for good at the first entry with
 // T (1 - alpha) < 1e-4 and does not add it, alpha out = 1 - T.
 //
-// What bounds it: FP32 CUDA-core arithmetic on the pair-pixel evaluations
-// (~17 operations and one expf each), as for the tile kernel, plus the
-// per-chunk hand-over of a tile's state through device memory (P floats of
-// transmittance, P flags and P * ch colours read and written per chunk).
+// What bounds it: FP32 CUDA-core arithmetic on the pair-pixel evaluations,
+// as for the tile kernel (tile_blend_fwd.cu), plus four ints of metadata a
+// chunk; past that, the longest tile's chain of chunks, walked by one block.
 //
-// Design: one block per chunk, one thread per pixel of the chunk's tile.
-// CUDA blocks run in no order, so the carry is made explicit:
-// - a block takes a work ticket from a global atomic counter, not from
-//   blockIdx, and works on chunk order[ticket]. The wrapper builds `order`
-//   on the device in wave order: every tile's first chunk, then every
-//   tile's second chunk, and so on, so a chunk's predecessor in its tile
-//   was handed out about one tile count of tickets earlier and has
-//   usually finished;
-// - each tile's running state (T, stop flag, colour) lives in device
-//   memory ([T, P], [T, P], [T, P, ch]); a tile's non-first chunk waits
-//   until the tile's progress counter says its predecessors have
-//   published (thread 0 spins on it, then a fence), and publishes its own
-//   state with a fence and an atomic store when it is done;
-// - no deadlock: a chunk waits only on chunks of the same tile in earlier
-//   waves, which took earlier tickets, so they have already started (they
-//   are resident) and wait only on still earlier tickets themselves;
-// - chunks with no valid entry (the trailing padding) exit at once; a block
-//   whose tile has stopped at every pixel skips the maths and only
-//   publishes (the gate at tile_kernel.py:369);
-// - the entries of a chunk are contiguous in sort order; the block stages
-//   them (read through sort_gauss from the depth-ordered rows) into shared
-//   memory, one per thread, and every thread walks them in order.
-// The state is read and written with __ldcg / __stcg (L2, not the SM's L1),
-// since another SM may have written it last. Waits are counted.
-//
-// Rounding: built without fast math and with --fmad=false, using expf, as
-// the tile kernel (see tile_blend_fwd.cu).
+// Design: the TPU grid runs the chunks in order and carries a tile's state
+// from one to the next; here a loop inside one block does, as in the chunk
+// backward (chunk_blend_bwd.cu). One block per tile, one thread per pixel:
+// - the block finds its tile's first chunk in chunk_tile (non-decreasing)
+//   by the block-wide search of blend_common.cuh and checks
+//   chunk_start_flag there; a tile with no flagged chunk that has entries
+//   (an empty tile) writes zero colour and zero alpha;
+// - it then walks chunk after chunk, entries chunk_src .. chunk_src +
+//   chunk_valid of each, while the next chunk is of the same tile, is not
+//   flagged and has entries, through the forward body it shares with the
+//   tile kernel (blend_fwd_rows.cuh) with the chunk schedule's skip rule,
+//   T, the stop flag and the colour in registers throughout, and leaves
+//   once every pixel has stopped.
+// Blocks share no state and use no atomics, so two launches on the same
+// inputs write the same bits.
 
 #include <cuda_runtime.h>
 
+#include "blend_common.cuh"
+#include "blend_fwd_rows.cuh"
+
 namespace {
 
-constexpr int kTile = 16;
-constexpr float kAlphaMin = 1.0f / 255.0f;
-constexpr float kAlphaMax = 0.99f;
-constexpr float kTEps = 1e-4f;
+using namespace blend_fwd;
 
-// counters: [0] the ticket, [1] the number of chunks that had to wait,
-// [2 + t] the chunks of tile t published so far
 template <int CH>
 __global__ void chunk_blend_fwd_kernel(
     const float* __restrict__ geo, const float* __restrict__ col,
     const int* __restrict__ sort_gauss, const int* __restrict__ chunk_tile,
+    const int* __restrict__ chunk_start_flag,
     const int* __restrict__ chunk_src, const int* __restrict__ chunk_valid,
-    const int* __restrict__ chunk_wave, const int* __restrict__ order,
-    int* counters, float* t_run, int* done_flag, float* out_color,
-    float* out_alpha, int grid_w, int tile_h, int ch_rt) {
+    float* __restrict__ out_color, float* __restrict__ out_alpha, int nc,
+    int grid_w, int tile_h, int ch_rt) {
   const int ch = CH > 0 ? CH : ch_rt;
-  const int lp = threadIdx.x;
-  const int P = blockDim.x;
-  __shared__ int s_chunk;
-  if (lp == 0) s_chunk = order[atomicAdd(&counters[0], 1)];
-  __syncthreads();
-  const int chunk = s_chunk;
-  const int n = chunk_valid[chunk];
-  if (n <= 0) return;  // padding past the last list: no state, no successor
-  const int tile = chunk_tile[chunk];
-  const int wave = chunk_wave[chunk];
-  const int src = chunk_src[chunk];
-  int* progress = counters + 2 + tile;
-
-  if (lp == 0) {
-    volatile int* pr = progress;
-    if (*pr < wave) {
-      atomicAdd(&counters[1], 1);
-      while (*pr < wave) __nanosleep(64);
-    }
-    __threadfence();
-  }
-  __syncthreads();
-
-  const long long pix = static_cast<long long>(tile) * P + lp;
-  float T = __ldcg(t_run + pix);
-  bool done = __ldcg(done_flag + pix) != 0;
-  if (__syncthreads_count(!done) > 0) {
-    extern __shared__ float smem[];
-    float* s_x = smem;
-    float* s_y = s_x + n;
-    float* s_a = s_y + n;
-    float* s_b = s_a + n;
-    float* s_c = s_b + n;
-    float* s_o = s_c + n;
-    float* s_col = s_o + n;  // [n, ch]
-    for (int j = lp; j < n; j += P) {
-      const int row = sort_gauss[src + j];
-      const float* g = geo + static_cast<long long>(row) * 6;
-      s_x[j] = g[0];
-      s_y[j] = g[1];
-      s_a[j] = g[2];
-      s_b[j] = g[3];
-      s_c[j] = g[4];
-      s_o[j] = g[5];
-      const float* c = col + static_cast<long long>(row) * ch;
-      for (int k = 0; k < ch; ++k) s_col[j * ch + k] = c[k];
-    }
-    __syncthreads();
-
-    if (!done) {
-      const float px = static_cast<float>((tile % grid_w) * kTile + lp % kTile);
-      const float py = static_cast<float>((tile / grid_w) * tile_h + lp / kTile);
-      float* my_color = out_color + pix * ch;
-      float acc[CH > 0 ? CH : 1];
-      if (CH > 0) {
-#pragma unroll
-        for (int k = 0; k < (CH > 0 ? CH : 1); ++k) acc[k] = __ldcg(my_color + k);
-      }
-      for (int j = 0; j < n; ++j) {
-        const float dx = px - s_x[j];
-        const float dy = py - s_y[j];
-        const float power =
-            -0.5f * (s_a[j] * dx * dx + s_c[j] * dy * dy) - s_b[j] * dx * dy;
-        if (power > 0.0f) continue;
-        const float alpha = fminf(kAlphaMax, s_o[j] * expf(fminf(power, 0.0f)));
-        if (alpha < kAlphaMin) continue;
-        const float test_T = T * (1.0f - alpha);
-        if (test_T < kTEps) {
-          done = true;
-          break;
-        }
-        const float w = alpha * T;
-        if (CH > 0) {
-#pragma unroll
-          for (int k = 0; k < (CH > 0 ? CH : 1); ++k) acc[k] += w * s_col[j * ch + k];
-        } else {
-          for (int k = 0; k < ch; ++k)
-            __stcg(my_color + k, __ldcg(my_color + k) + w * s_col[j * ch + k]);
-        }
-        T = test_T;
-      }
-      if (CH > 0) {
-#pragma unroll
-        for (int k = 0; k < (CH > 0 ? CH : 1); ++k) __stcg(my_color + k, acc[k]);
-      }
-      __stcg(t_run + pix, T);
-      __stcg(done_flag + pix, done ? 1 : 0);
-      __stcg(out_alpha + pix, 1.0f - T);
+  const int tile = blockIdx.x;
+  Pixel<CH> p = start_pixel<CH>(tile, grid_w, tile_h, ch, out_color);
+  const int first = first_chunk_of(chunk_tile, nc, tile);
+  if (tile_has_chunks(chunk_tile, chunk_start_flag, chunk_valid, nc, tile,
+                      first)) {
+    const Shared s = carve_shared(blockDim.x, ch);
+    for (int c = first; c < nc; ++c) {
+      if (c > first &&
+          !chunk_continues(chunk_tile, chunk_start_flag, chunk_valid, c, tile))
+        break;
+      if (!walk_entries<CH, true>(geo, col, sort_gauss, ch, s, p,
+                                  chunk_src[c], chunk_valid[c]))
+        break;
     }
   }
-
-  // publish: every thread's stores before the tile's progress count
-  __threadfence();
-  __syncthreads();
-  if (lp == 0) atomicExch(progress, wave + 1);
+  finish_pixel(p, tile, out_alpha);
 }
 
 template <int CH>
 cudaError_t launch(const float* geo, const float* col, const int* sort_gauss,
-                   const int* chunk_tile, const int* chunk_src,
-                   const int* chunk_valid, const int* chunk_wave,
-                   const int* order, int* counters, float* t_run,
-                   int* done_flag, float* out_color, float* out_alpha,
-                   int num_chunks, int chunk, int grid_w, int tile_h, int ch,
+                   const int* chunk_tile, const int* chunk_start_flag,
+                   const int* chunk_src, const int* chunk_valid,
+                   float* out_color, float* out_alpha, int num_tiles,
+                   int num_chunks, int grid_w, int tile_h, int ch,
                    cudaStream_t stream) {
   const int threads = kTile * tile_h;
-  const size_t smem = static_cast<size_t>(chunk) * (6 + ch) * sizeof(float);
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        chunk_blend_fwd_kernel<CH>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (err != cudaSuccess) return err;
-  }
-  chunk_blend_fwd_kernel<CH><<<num_chunks, threads, smem, stream>>>(
-      geo, col, sort_gauss, chunk_tile, chunk_src, chunk_valid, chunk_wave,
-      order, counters, t_run, done_flag, out_color, out_alpha, grid_w, tile_h,
-      ch);
+  const size_t smem = shared_bytes(threads, ch);
+  cudaError_t err = allow_shared(chunk_blend_fwd_kernel<CH>, smem);
+  if (err != cudaSuccess) return err;
+  chunk_blend_fwd_kernel<CH><<<num_tiles, threads, smem, stream>>>(
+      geo, col, sort_gauss, chunk_tile, chunk_start_flag, chunk_src,
+      chunk_valid, out_color, out_alpha, num_chunks, grid_w, tile_h, ch);
   return cudaGetLastError();
 }
 
 }  // namespace
 
 // geo [R, 6] and col [R, ch] float32 in depth-rank order; sort_gauss int32
-// row ids; chunk_tile / chunk_src / chunk_valid / chunk_wave / order
-// [num_chunks] int32 (order: a permutation of the chunks, a tile's chunks in
-// increasing wave); counters [2 + num_tiles] int32 zeroed; t_run [T, P]
-// float32 set to 1, done_flag [T, P] int32 zeroed, out_color [T, P, ch] and
-// out_alpha [T, P] float32 zeroed, P = 16 * tile_h. Launches on `stream` and
-// returns cudaGetLastError() (0 = ok).
+// row ids; chunk_tile (non-decreasing) / chunk_start_flag / chunk_src /
+// chunk_valid [num_chunks] int32, the binning's chunk layout; out_color
+// [num_tiles, P, ch] and out_alpha [num_tiles, P] float32, every value
+// written by the kernel. P = 16 * tile_h, a multiple of 32. Launches on
+// `stream` and returns cudaGetLastError() (0 = ok).
 extern "C" int chunk_blend_fwd(const float* geo, const float* col,
                                const int* sort_gauss, const int* chunk_tile,
+                               const int* chunk_start_flag,
                                const int* chunk_src, const int* chunk_valid,
-                               const int* chunk_wave, const int* order,
-                               int* counters, float* t_run, int* done_flag,
                                float* out_color, float* out_alpha,
-                               int num_chunks, int chunk, int grid_w,
+                               int num_tiles, int num_chunks, int grid_w,
                                int tile_h, int ch, void* stream) {
-  if (num_chunks == 0) return 0;
+  if (num_tiles == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err =
-      ch == 3 ? launch<3>(geo, col, sort_gauss, chunk_tile, chunk_src,
-                          chunk_valid, chunk_wave, order, counters, t_run,
-                          done_flag, out_color, out_alpha, num_chunks, chunk,
-                          grid_w, tile_h, ch, s)
-              : launch<0>(geo, col, sort_gauss, chunk_tile, chunk_src,
-                          chunk_valid, chunk_wave, order, counters, t_run,
-                          done_flag, out_color, out_alpha, num_chunks, chunk,
-                          grid_w, tile_h, ch, s);
+      ch == 3 ? launch<3>(geo, col, sort_gauss, chunk_tile, chunk_start_flag,
+                          chunk_src, chunk_valid, out_color, out_alpha,
+                          num_tiles, num_chunks, grid_w, tile_h, ch, s)
+              : launch<0>(geo, col, sort_gauss, chunk_tile, chunk_start_flag,
+                          chunk_src, chunk_valid, out_color, out_alpha,
+                          num_tiles, num_chunks, grid_w, tile_h, ch, s);
+  return static_cast<int>(err);
+}
+
+// Blocks of chunk_blend_fwd's kernel resident on one SM at this tile height
+// and channel count, into *blocks; returns the CUDA error (0 = ok).
+extern "C" int chunk_blend_fwd_occupancy(int tile_h, int ch, int* blocks) {
+  const int threads = kTile * tile_h;
+  const size_t smem = shared_bytes(threads, ch);
+  cudaError_t err =
+      ch == 3 ? blocks_per_sm(chunk_blend_fwd_kernel<3>, threads, smem, blocks)
+              : blocks_per_sm(chunk_blend_fwd_kernel<0>, threads, smem, blocks);
   return static_cast<int>(err);
 }
 

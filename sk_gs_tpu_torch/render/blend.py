@@ -45,6 +45,9 @@ ALPHA_MIN = 1.0 / 255.0
 ALPHA_MAX = 0.99
 T_EPS = 1e-4
 POWER_SKIP_EPS = 1e-4
+# what becomes of an (entry, pixel) evaluation that the walk reaches (see
+# blend_forward_plain's ``stats``)
+OUTCOMES = ('skipped_power', 'below_alpha_min', 'adds', 'stops')
 
 
 def tile_pixel_coords(cfg: RasterConfig, device) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -71,17 +74,19 @@ class _ClampMaxStraight(torch.autograd.Function):
 def _entry_alpha(g: torch.Tensor, px: torch.Tensor, py: torch.Tensor,
                  valid: torch.Tensor, skip_eps: float):
     """Per-(tile, entry, pixel) terms of a batch of entries ``g`` [S, B, 6]
-    for S tiles whose pixels are px, py [S, P]: (dx, dy, alpha_raw, alpha,
-    keep), alpha zero where not kept."""
+    for S tiles whose pixels are px, py [S, P]: (dx, dy, near, alpha_raw,
+    alpha, keep), ``near`` where power <= skip_eps, alpha zero where not
+    kept."""
     x, y, a, b, c, o = (g[..., i:i + 1] for i in range(6))       # [S, B, 1]
     dx = px[:, None, :] - x                                      # [S, B, P]
     dy = py[:, None, :] - y
     power = -0.5 * (a * dx * dx + c * dy * dy) - b * dx * dy
     alpha_raw = o * torch.exp(_ClampMaxStraight.apply(power, 0.0))
     alpha = _ClampMaxStraight.apply(alpha_raw, ALPHA_MAX)
-    keep = (power <= skip_eps) & (alpha >= ALPHA_MIN) & valid[..., None]
+    near = power <= skip_eps
+    keep = near & (alpha >= ALPHA_MIN) & valid[..., None]
     alpha = torch.where(keep, alpha, torch.zeros_like(alpha))
-    return dx, dy, alpha_raw, alpha, keep
+    return dx, dy, near, alpha_raw, alpha, keep
 
 
 def _walk(alpha: torch.Tensor, trans: torch.Tensor, done: torch.Tensor):
@@ -181,27 +186,26 @@ def _forward(geo, col, batches, cfg: RasterConfig, skip_eps: float,
     trans = torch.ones((T, P), device=dev)
     done = torch.zeros((T, P), dtype=torch.bool, device=dev)
     color = torch.zeros((T, P, ch), device=dev)
-    evals = torch.zeros((), dtype=torch.int64, device=dev)
-    adds = torch.zeros((), dtype=torch.int64, device=dev)
+    counts = torch.zeros(len(OUTCOMES), dtype=torch.int64, device=dev)
     for tiles, valid, _, rows in batches:
-        alpha = _entry_alpha(geo[rows], px[tiles], py[tiles], valid,
-                             skip_eps)[3]
+        _, _, near, _, alpha, keep = _entry_alpha(geo[rows], px[tiles],
+                                                  py[tiles], valid, skip_eps)
         live = ~done[tiles]
         p_excl, contrib, w, trans_n, done_n = _walk(alpha, trans[tiles],
                                                        done[tiles])
         if stats is not None:
             # entries a live pixel reaches: no stop before them
-            evals += (live[:, None, :] & valid[..., None]
-                      & (p_excl >= T_EPS)).sum()
-            adds += (contrib & (alpha > 0)).sum()
+            reach = live[:, None, :] & valid[..., None] & (p_excl >= T_EPS)
+            counts += torch.stack([(reach & m).sum() for m in (
+                ~near, near & ~keep, keep & contrib, keep & ~contrib)])
         color[tiles] += torch.einsum('sbp,sbc->spc', w, col[rows])
         trans[tiles] = trans_n
         done[tiles] = done_n
         if bool(done.all()):
             break
     if stats is not None:
-        stats['evaluations'] = int(evals)
-        stats['adds'] = int(adds)
+        stats.update(zip(OUTCOMES, counts.tolist()))
+        stats['evaluations'] = int(counts.sum())
     return color, 1.0 - trans
 
 
@@ -220,9 +224,9 @@ def _backward(geo, col, batches, n_entries: int, tile_color, tile_alpha,
     d_tot = torch.sum(g_color * tile_color, dim=-1)
     for tiles, valid, idx, rows in batches:
         g = geo[rows]
-        dx, dy, alpha_raw, alpha, keep = _entry_alpha(g, px[tiles],
-                                                      py[tiles], valid,
-                                                      skip_eps)
+        dx, dy, _, alpha_raw, alpha, keep = _entry_alpha(g, px[tiles],
+                                                         py[tiles], valid,
+                                                         skip_eps)
         p_excl, contrib, w, trans_n, done_n = _walk(alpha, trans[tiles],
                                                        done[tiles])
         rows_g, s_n = _entry_grads(g, dx, dy, alpha_raw, alpha, keep, p_excl,
@@ -250,8 +254,10 @@ def blend_forward_plain(geo: torch.Tensor, col: torch.Tensor,
     [T, P, ch] and tile_alpha [T, P]. When ``stats`` is a dict, its
     'evaluations' entry receives the number of (entry, pixel) evaluations
     the sequential walk performs (entries a pixel meets before it stops,
-    the stopping entry included), and 'adds' the number of those that add
-    to the pixel (kept, before the stop).
+    the stopping entry included), and the ``OUTCOMES`` entries split them:
+    'skipped_power' (power above the skip rule), 'below_alpha_min' (alpha
+    < 1/255), 'adds' (kept, added to the pixel) and 'stops' (kept, the
+    entry at which the pixel stops).
     """
     return _forward(geo, col, _tile_batches(sort_gauss, tile_start,
                                             tile_count, batch,

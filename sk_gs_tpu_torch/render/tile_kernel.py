@@ -29,8 +29,7 @@ import torch
 from ..cuda_build import CudaLibrary
 from .binning import num_chunks
 from .blend import (blend_backward_rows_plain, blend_forward_plain,
-                    chunk_blend_backward_rows_plain, chunk_blend_forward_plain,
-                    chunk_waves)
+                    chunk_blend_backward_rows_plain, chunk_blend_forward_plain)
 from .settings import RasterConfig
 
 
@@ -86,7 +85,8 @@ def _check_pixel_grads(dev, tile_color, tile_alpha, g_color, g_alpha,
 class _Kernel:
     """A kernel's library, its C entry point and its launch count. Called,
     it runs ``plain`` (the plain version, same arguments) when the first
-    tensor lies on the CPU and ``launch`` otherwise."""
+    tensor lies on the CPU and ``launch`` otherwise. Its library also
+    exports ``<name>_occupancy``."""
 
     name = ''
     route = 'cuda'
@@ -132,6 +132,28 @@ class _Kernel:
                                f'{self._err(err).decode()} ({err})')
         self.launches += 1
 
+    def blocks_per_sm(self, cfg: RasterConfig, ch: int) -> int:
+        """Blocks of the kernel resident on one SM at once for ``cfg``'s
+        tile height and ``ch`` channels (cudaOccupancyMaxActiveBlocksPer
+        Multiprocessor, on the current device)."""
+        self._load()                     # the library and its error strings
+        fn = getattr(self.library.load(), self.name + '_occupancy')
+        fn.argtypes = [ctypes.c_int, ctypes.c_int,
+                       ctypes.POINTER(ctypes.c_int)]
+        fn.restype = ctypes.c_int
+        blocks = ctypes.c_int(0)
+        err = fn(cfg.tile_h, ch, ctypes.byref(blocks))
+        if err != 0:
+            raise RuntimeError(f'{self.name} occupancy query failed: '
+                               f'{self._err(err).decode()} ({err})')
+        return blocks.value
+
+
+def _check_pixel_count(cfg: RasterConfig):
+    if cfg.pix_per_tile % 32:
+        raise ValueError(f'tile of {cfg.pix_per_tile} pixels is not a whole '
+                         'number of warps')
+
 
 class TileBlendForward(_Kernel):
     """Callable wrapper of the forward kernel."""
@@ -153,6 +175,7 @@ class TileBlendForward(_Kernel):
         if dev.type != 'cuda':
             raise ValueError(f'{self.name} launches on CUDA tensors, got {dev}')
         _check_blend_inputs(geo, col, sort_gauss, tile_start, tile_count, cfg)
+        _check_pixel_count(cfg)
         T, P, ch = cfg.num_tiles, cfg.pix_per_tile, col.shape[1]
         color = torch.empty((T, P, ch), dtype=torch.float32, device=dev)
         alpha = torch.empty((T, P), dtype=torch.float32, device=dev)
@@ -161,38 +184,15 @@ class TileBlendForward(_Kernel):
         return color, alpha
 
 
-def _check_pixel_count(cfg: RasterConfig):
-    if cfg.pix_per_tile % 32:
-        raise ValueError(f'tile of {cfg.pix_per_tile} pixels is not a whole '
-                         'number of warps')
-
-
 class _RowsKernel(_Kernel):
     """A backward kernel: it adds the gradient rows [R, 6 + ch] of the
     depth-ordered rows by atomics into ``g_rows``, which the wrapper zeroes
-    (so the sums vary at rounding level from run to run), and its library
-    exports ``<name>_occupancy``."""
+    (so the sums vary at rounding level from run to run)."""
 
     def _g_rows(self, dev, geo, col, cfg: RasterConfig):
         _check_pixel_count(cfg)
         return torch.zeros((geo.shape[0], 6 + col.shape[1]),
                            dtype=torch.float32, device=dev)
-
-    def blocks_per_sm(self, cfg: RasterConfig, ch: int) -> int:
-        """Blocks of the kernel resident on one SM at once for ``cfg``'s
-        tile height and ``ch`` channels (cudaOccupancyMaxActiveBlocksPer
-        Multiprocessor, on the current device)."""
-        self._load()                     # the library and its error strings
-        fn = getattr(self.library.load(), self.name + '_occupancy')
-        fn.argtypes = [ctypes.c_int, ctypes.c_int,
-                       ctypes.POINTER(ctypes.c_int)]
-        fn.restype = ctypes.c_int
-        blocks = ctypes.c_int(0)
-        err = fn(cfg.tile_h, ch, ctypes.byref(blocks))
-        if err != 0:
-            raise RuntimeError(f'{self.name} occupancy query failed: '
-                               f'{self._err(err).decode()} ({err})')
-        return blocks.value
 
 
 class TileBlendBackward(_RowsKernel):
@@ -235,15 +235,6 @@ def _check_chunk_inputs(dev, cfg: RasterConfig, **fields):
             raise ValueError(f'{name} must be [{nc}], got {list(t.shape)}')
 
 
-def ticket_order(chunk_start_flag: torch.Tensor):
-    """(wave, order), int32 [num_chunks]: each chunk's place in its tile's
-    list of chunks, and the chunks sorted by it (stable), the order in
-    which the chunk forward kernel hands out its work tickets."""
-    wave = chunk_waves(chunk_start_flag)
-    order = torch.sort(wave, stable=True).indices
-    return wave.to(torch.int32), order.to(torch.int32)
-
-
 def _check_chunk_call(name, geo, col, sort_gauss, chunk_fields,
                       cfg: RasterConfig):
     """A chunk-schedule kernel's rows, entries and chunk metadata."""
@@ -261,36 +252,15 @@ def _check_chunk_call(name, geo, col, sort_gauss, chunk_fields,
 
 
 class ChunkBlendForward(_Kernel):
-    """Callable wrapper of the chunk schedule's forward kernel. Its tickets,
-    waits and per-tile progress counters ([2 + T] int32) of the last launch
-    stay in ``counters``."""
+    """Callable wrapper of the chunk schedule's forward kernel: one block
+    per tile walks its chunks in order."""
 
     name = 'chunk_blend_fwd'
     replaces = 'sk_gs_tpu/render/tile_kernel.py:327'
     source = 'sk_gs_tpu_torch/csrc/chunk_blend_fwd.cu'
-    n_pointers = 13
+    n_pointers = 9
     n_ints = 5
     plain = staticmethod(chunk_blend_forward_plain)
-
-    def __init__(self):
-        super().__init__()
-        self.counters = None
-
-    def waits(self) -> int:
-        """Chunks of the last launch that found their predecessor not yet
-        published and had to wait (reading it synchronises)."""
-        return int(self.counters[1]) if self.counters is not None else 0
-
-    def _prepare(self, geo, col, sort_gauss, chunk_fields, cfg):
-        _check_chunk_call(self.name, geo, col, sort_gauss, chunk_fields, cfg)
-        _check_pixel_count(cfg)
-        chunk_tile, chunk_start_flag, chunk_src, chunk_valid = chunk_fields
-        dev = geo.device
-        wave, order = ticket_order(chunk_start_flag)
-        self.counters = torch.zeros(2 + cfg.num_tiles, dtype=torch.int32,
-                                    device=dev)
-        return (chunk_tile, chunk_src, chunk_valid, wave, order,
-                self.counters)
 
     def launch(self, geo, col, sort_gauss, chunk_tile, chunk_start_flag,
                chunk_src, chunk_valid, cfg: RasterConfig
@@ -298,24 +268,21 @@ class ChunkBlendForward(_Kernel):
         """geo, col and sort_gauss as for ``TileBlendForward``, and the
         binning's chunk metadata. Returns tile_color [T, P, ch] and
         tile_alpha [T, P]."""
-        meta = self._prepare(geo, col, sort_gauss, (
-            chunk_tile, chunk_start_flag, chunk_src, chunk_valid), cfg)
+        fields = (chunk_tile, chunk_start_flag, chunk_src, chunk_valid)
+        _check_chunk_call(self.name, geo, col, sort_gauss, fields, cfg)
+        _check_pixel_count(cfg)
         dev = geo.device
         T, P, ch = cfg.num_tiles, cfg.pix_per_tile, col.shape[1]
-        t_run = torch.ones((T, P), dtype=torch.float32, device=dev)
-        done = torch.zeros((T, P), dtype=torch.int32, device=dev)
-        color = torch.zeros((T, P, ch), dtype=torch.float32, device=dev)
-        alpha = torch.zeros((T, P), dtype=torch.float32, device=dev)
-        self._run(dev, (geo, col, sort_gauss, *meta, t_run, done, color,
-                        alpha),
-                  (num_chunks(cfg), cfg.chunk, cfg.grid_w, cfg.tile_h, ch))
+        color = torch.empty((T, P, ch), dtype=torch.float32, device=dev)
+        alpha = torch.empty((T, P), dtype=torch.float32, device=dev)
+        self._run(dev, (geo, col, sort_gauss, *fields, color, alpha),
+                  (T, num_chunks(cfg), cfg.grid_w, cfg.tile_h, ch))
         return color, alpha
 
 
 class ChunkBlendBackward(_RowsKernel):
     """Callable wrapper of the chunk schedule's backward kernel: one block
-    per tile walks its chunks in order, so it takes no tickets and has no
-    waits."""
+    per tile walks its chunks in order."""
 
     name = 'chunk_blend_bwd'
     replaces = 'sk_gs_tpu/render/tile_kernel.py:382'

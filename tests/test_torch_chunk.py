@@ -28,7 +28,7 @@ from sk_gs_tpu.render import render_reference
 from sk_gs_tpu_torch.render.render import render as trender
 from sk_gs_tpu_torch.render.tile_kernel import (KERNELS, ChunkBlend,
                                                 chunk_blend_bwd,
-                                                chunk_blend_fwd, ticket_order)
+                                                chunk_blend_fwd)
 from tests.test_render import CFG, build_inputs, make_view
 from tests.test_torch_render import (close_groups, port_blend_inputs,
                                      port_cfg, port_inputs, port_pre,
@@ -106,20 +106,6 @@ def test_chunk_fields_only_on_the_chunk_schedule():
                               port_cfg(cfg)._replace(schedule='chunks'))
 
 
-def test_ticket_order_is_wave_order():
-    _, _, out = binned_pair(left_scene(), chunk_cfg(16))
-    wave, order = ticket_order(out.chunk_start_flag)
-    wave, order = to_np(wave), to_np(order)
-    assert sorted(order) == list(range(order.size))
-    # every chunk after its tile's first comes after its predecessor
-    pos = np.empty_like(order)
-    pos[order] = np.arange(order.size)
-    later = np.flatnonzero(wave > 0)
-    assert later.size > 0 and (pos[later] > pos[later - 1]).all()
-    assert (np.diff(wave[order]) >= 0).all()
-    assert (wave[to_np(out.chunk_start_flag) == 1] == 0).all()
-
-
 def test_plain_forward_matches_pallas_chunk_schedule():
     cfg = chunk_cfg(256)             # one chunk holds each tile's list
     g = left_scene()
@@ -144,6 +130,43 @@ def test_plain_forward_matches_pallas_chunk_schedule():
     assert chunk_blend_fwd.launches == before
     np.testing.assert_array_equal(to_np(w_color), to_np(t_color))
     np.testing.assert_array_equal(to_np(w_alpha), to_np(t_alpha))
+
+
+@pytest.mark.parametrize('chunk', [16, 64, 256])
+def test_chunk_walk_is_the_tile_walk_with_chunk_skip(chunk):
+    """What kernel #3's per-tile loop computes: the chunk plain forward
+    (wave by wave over the chunk layout) equals the tile schedule's walk of
+    each tile's whole list with the chunk schedule's skip rule (power > 0),
+    whatever the chunk."""
+    cfg = chunk_cfg(chunk)
+    g = left_scene(seed=4, dense=True)
+    pre, ref, out = binned_pair(g, cfg)
+    assert int(to_np(out.tile_count).max()) > min(chunk, 200)
+    geo, col = port_blend_inputs(ref, pre, g.opacities, pre.colors)
+    pcfg = port_chunk_cfg(cfg)
+    c_color, c_alpha = tblend.chunk_blend_forward_plain(
+        geo, col, *chunk_args(out), pcfg)
+    t_color, t_alpha = tblend._forward(geo, col, tblend._tile_batches(
+        out.sort_gauss, out.tile_start, out.tile_count, 32,
+        geo.shape[0] - 1), pcfg, 0.0, None)
+    assert float(t_alpha.max()) > 0.99             # some pixels stop
+    np.testing.assert_allclose(to_np(c_color), to_np(t_color), atol=1e-6)
+    np.testing.assert_allclose(to_np(c_alpha), to_np(t_alpha), atol=1e-6)
+
+
+def test_outcome_counts_add_up():
+    """The chunk plain forward's stats: every evaluation has one outcome,
+    and a pixel stops at most once."""
+    cfg = chunk_cfg(16)
+    g = left_scene(seed=1, dense=True)
+    pre, ref, out = binned_pair(g, cfg)
+    geo, col = port_blend_inputs(ref, pre, g.opacities, pre.colors)
+    stats = {}
+    tblend.chunk_blend_forward_plain(geo, col, *chunk_args(out),
+                                     port_chunk_cfg(cfg), stats=stats)
+    assert sum(stats[k] for k in tblend.OUTCOMES) == stats['evaluations']
+    assert stats['adds'] > 0 and stats['below_alpha_min'] > 0
+    assert 0 < stats['stops'] <= cfg.num_tiles * cfg.pix_per_tile
 
 
 @pytest.mark.parametrize('dense', [False, True])
@@ -194,7 +217,7 @@ def test_a_bad_chunk_field_shows(field):
     i = CHUNK_FIELDS.index(field) + 1
     bad = args[i].clone()
     # the second chunk of a tile that spans several
-    wave, _ = ticket_order(out.chunk_start_flag)
+    wave = tblend.chunk_waves(out.chunk_start_flag)
     c = int(torch.nonzero((wave == 1) & (out.chunk_valid > 8))[0, 0])
     bad[c] = {'chunk_tile': lambda v: v + 1,
               'chunk_start_flag': lambda v: 1 - v,
@@ -295,6 +318,5 @@ def test_chunk_wrappers_launch_only_on_cuda():
         chunk_blend_bwd.launch(geo, col, *chunk_args(out), tiles, alpha,
                                tiles, alpha, cfg)
     assert (chunk_blend_fwd.launches, chunk_blend_bwd.launches) == before
-    assert chunk_blend_fwd.waits() == 0
     assert [k.name for k in KERNELS[2:]] == ['chunk_blend_fwd',
                                              'chunk_blend_bwd']

@@ -19,6 +19,8 @@ inputs differ only in the order in which the tiles' atomics land on a row:
 within 1e-5 of each column group's max.
 """
 import math
+import re
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -32,7 +34,7 @@ from sk_gs_tpu_torch.models.gaussian_splatting import gaussian_inputs
 from sk_gs_tpu_torch.models.sk_gs import forward_deltas
 from sk_gs_tpu_torch.render import GaussianInputs, prepare_blend
 from sk_gs_tpu_torch.render.binning import chunk_fields, num_chunks
-from sk_gs_tpu_torch.render.blend import (blend_forward_plain,
+from sk_gs_tpu_torch.render.blend import (ALPHA_MIN, blend_forward_plain,
                                           chunk_blend_forward_plain)
 from sk_gs_tpu_torch.render.settings import RasterConfig
 from sk_gs_tpu_torch.render.tile_kernel import (ChunkBlend, TileBlend,
@@ -263,7 +265,7 @@ def chunk_args(inp):
 
 
 def compare_chunk(inp, cfg):
-    """Kernels #3 and #4 against their plain versions; returns the waits."""
+    """Kernels #3 and #4 against their plain versions."""
     args = chunk_args(inp)
     before = (chunk_blend_fwd.launches, chunk_blend_bwd.launches)
     color, alpha = chunk_blend_fwd(*args, cfg)
@@ -274,7 +276,6 @@ def compare_chunk(inp, cfg):
     assert float((alpha - p_alpha).abs().max()) <= TOL
     empty = ~inp.binned.tile_nonempty
     assert float(color[empty].abs().sum()) == 0.0 == float(alpha[empty].sum())
-    waits = chunk_blend_fwd.waits()
     assert chunk_blend_fwd.launches == before[0] + 1
     compare_rows(chunk_blend_bwd, (*args, color, alpha,
                                    *cotangents(color, alpha, seed=4), cfg))
@@ -285,7 +286,6 @@ def compare_chunk(inp, cfg):
                                 inp.binned.tile_start, inp.binned.tile_count,
                                 cfg._replace(schedule='tile'))
     assert float((t_color - color).abs().mean()) <= 1e-4
-    return waits
 
 
 @pytest.mark.parametrize('chunk,tile_h', [(128, 16), (64, 16), (128, 8)])
@@ -324,8 +324,7 @@ def test_chunk_kernels_match_plain_full_width(cuda):
                             d.d_rotation, d.d_scaling)
         inp = prepare_blend(g, view, rcfg, model.active_sh_degree)
         assert 2 ** 19 <= int(inp.binned.num_pairs) <= 2 ** 20
-        waits = compare_chunk(inp, rcfg)
-    assert 0 <= waits <= int((inp.binned.chunk_valid > 0).sum())
+        compare_chunk(inp, rcfg)
 
 
 def test_chunk_blend_gradients_kernel_vs_plain(cuda):
@@ -347,3 +346,201 @@ def test_chunk_blend_gradients_kernel_vs_plain(cuda):
         scale = float(ref.abs().max())
         assert scale > 0
         assert float((got - ref).abs().max()) <= BWD_TOL * scale
+
+
+def long_list_scene(device, ch, seed=8):
+    """A 64 x 48 image (12 tiles) whose tile 0 holds a list of 2,500
+    entries of low opacity, so its pixels stay open deep into it, tile 5
+    300 and tile 7 40; the other tiles are empty. A tenth of the entries
+    have o < 1/255 and can never be kept. Each entry reads its own row, the
+    dummy row (zeros) last. Returns cfg, the rows, and the metadata of both
+    schedules."""
+    cfg = RasterConfig(image_width=64, image_height=48, pair_capacity=2 ** 13,
+                       chunk=128, schedule='chunk')
+    rng = np.random.default_rng(seed)
+    counts = np.zeros(cfg.num_tiles, np.int64)
+    counts[[0, 5, 7]] = (2500, 300, 40)
+    tiles = np.repeat(np.arange(cfg.num_tiles), counts)
+    n = tiles.size
+    x = (tiles % cfg.grid_w) * 16 + rng.uniform(-4, 20, n)
+    y = (tiles // cfg.grid_w) * 16 + rng.uniform(-4, 20, n)
+    sig = rng.uniform(1.0, 4.0, (n, 2))
+    a, c = 0.5 / sig[:, 0] ** 2, 0.5 / sig[:, 1] ** 2
+    b = rng.uniform(-0.4, 0.4, n) * np.sqrt(a * c)
+    o = rng.uniform(0.002, 0.06, n)
+    low = rng.uniform(size=n) < 0.1
+    o[low] = rng.uniform(0.0, 0.99 / 255, int(low.sum()))
+    geo = np.zeros((n + 1, 6), np.float32)
+    geo[:n] = np.stack([x, y, a, b, c, o], -1)
+    col = np.zeros((n + 1, ch), np.float32)
+    col[:n] = rng.uniform(0, 1, (n, ch))
+    sort_gauss = np.full(cfg.pair_capacity + cfg.chunk, n, np.int32)
+    sort_gauss[:n] = np.arange(n)
+    starts = np.concatenate([[0], np.cumsum(counts)])
+    t = lambda v, dt=torch.int32: torch.tensor(v, dtype=dt, device=device)
+    fields = chunk_fields(t(starts, torch.int64), t(counts, torch.int64), cfg)
+    return (cfg, t(geo, torch.float32), t(col, torch.float32), t(sort_gauss),
+            (t(starts[:-1]), t(counts)), fields, counts == 0)
+
+
+@pytest.mark.parametrize('ch', [3, 5])
+def test_forward_kernels_long_list(cuda, ch):
+    """Kernels #1 and #3 on a tile list over 2,000 entries with entries of
+    o < 1/255: within TOL of their plain versions, empty tiles exactly 0,
+    two launches equal bit for bit (the forwards use no atomics), and at
+    least one block resident per SM.
+    Every pixel's keep and stop decisions are the plain version's: one
+    decision taken otherwise, a kept entry j added or not, moves the
+    pixel's final transmittance by the factor 1 - alpha_j <= 1 - 1/255,
+    while the product's order moves it by far less than a tenth of that;
+    so the pixel's alpha must agree within half of (1 - alpha) / 255."""
+    cfg, geo, col, sort_gauss, tile_meta, fields, empty = \
+        long_list_scene(cuda, ch)
+    for kernel, meta, c in ((tile_blend_fwd, tile_meta,
+                             cfg._replace(schedule='tile')),
+                            (chunk_blend_fwd, fields, cfg)):
+        args = (geo, col, sort_gauss, *meta, c)
+        before = kernel.launches
+        color, alpha = kernel(*args)
+        again_color, again_alpha = kernel(*args)
+        torch.cuda.synchronize()
+        assert kernel.launches == before + 2, kernel.name
+        p_color, p_alpha = kernel.plain(*args)
+        assert color.shape == p_color.shape == (cfg.num_tiles, 256, ch)
+        assert float((color - p_color).abs().max()) <= TOL, kernel.name
+        assert float((alpha - p_alpha).abs().max()) <= TOL, kernel.name
+        assert torch.equal(color, again_color), kernel.name
+        assert torch.equal(alpha, again_alpha), kernel.name
+        flips = (alpha - p_alpha).abs() >= 0.5 * (1.0 - p_alpha) * ALPHA_MIN
+        assert int(flips.sum()) == 0, kernel.name
+        e = torch.from_numpy(empty).to(cuda)
+        assert float(color[e].abs().max()) == 0.0 == float(alpha[e].abs().max())
+        # tile 0's pixels stay open deep into its list, and some stop
+        assert 0.0 < float(alpha[0].min()) and float(alpha[0].max()) > 0.99
+        assert kernel.blocks_per_sm(c, ch) >= 1, kernel.name
+
+
+FWD_HEADER = (Path(__file__).resolve().parents[1] / 'sk_gs_tpu_torch'
+              / 'csrc' / 'blend_fwd_rows.cuh')
+# the opacity ranges of the pre-test's two cases (o < 1/255: a positive
+# cut; o >= 1/255: a negative one) and the common range
+CUT_O_RANGES = [(1e-6, 1 / 255), (1 / 255, 0.02), (0.02, 1.0)]
+
+
+def cut_margin() -> float:
+    """The pre-test's margin, ``kCutMargin`` of the forward kernels'
+    header."""
+    m = re.search(r'constexpr float kCutMargin = ([0-9.e+-]+)f;',
+                  FWD_HEADER.read_text())
+    assert m
+    return float(m.group(1))
+
+
+def card_cut(o):
+    """The header's cut, logf((1/255) / o) - kCutMargin, by the card's own
+    float32 division, logf and subtraction."""
+    return torch.log(torch.full_like(o, ALPHA_MIN) / o) - cut_margin()
+
+
+def nudge(p, k):
+    """p moved by k[i] floats (up for k > 0, down for k < 0), |k| <= 8."""
+    for step in range(8):
+        p = torch.where(k > step, torch.nextafter(p, torch.full_like(
+            p, math.inf)), p)
+        p = torch.where(k < -step, torch.nextafter(p, torch.full_like(
+            p, -math.inf)), p)
+    return p
+
+
+@pytest.mark.parametrize('o_lo,o_hi', CUT_O_RANGES)
+def test_pretest_cut_on_the_card(cuda, o_lo, o_hi):
+    """The forward kernels' pre-test with the card's rounding: at the 16
+    float32 powers just below cut = logf((1/255) / o) - kCutMargin, and at
+    random ones below it, alpha = o expf(min(power, 0)) computed by the
+    card's CUDA float32 ops stays below 1/255, so a skip drops nothing the
+    exact path keeps."""
+    rng = np.random.default_rng(7)
+    o = torch.tensor(np.concatenate([rng.uniform(o_lo, o_hi, 4000),
+                                     [o_lo, o_hi]]), dtype=torch.float32,
+                     device=cuda)
+    cut = card_cut(o)
+    p = cut
+    for _ in range(16):
+        p = torch.nextafter(p, torch.full_like(p, -math.inf))
+        assert bool((p < cut).all())
+        alpha = o * torch.exp(torch.clamp(p, max=0.0))
+        assert bool((alpha < ALPHA_MIN).all())
+    p = cut - torch.tensor(rng.uniform(0, 2, o.shape[0]), dtype=torch.float32,
+                           device=cuda)
+    alpha = o * torch.exp(torch.clamp(p, max=0.0))
+    assert bool((p < cut).all()) and bool((alpha < ALPHA_MIN).all())
+
+
+def cut_scene(device, ch, seed=9):
+    """A 400 x 400 image (625 tiles) whose every tile lists ch entries:
+    entry k with the one-hot colour e_k, b = c = 0, a = -2 p, centred one
+    pixel left of the tile's first column, so that its power at the
+    tile's first-column pixels is exactly the float32 p (4 p and below
+    elsewhere). Half the entries put p within 8 floats of the card's cut,
+    half within 8 floats of the keep threshold ln((1/255) / o). A pixel's
+    colour k is then above 0 exactly where it kept entry k (no pixel
+    stops). Returns cfg, the rows, both schedules' metadata, and each
+    entry's power and opacity."""
+    cfg = RasterConfig(image_width=400, image_height=400,
+                       pair_capacity=2 ** 14, chunk=8, schedule='chunk')
+    T = cfg.num_tiles
+    n = T * ch
+    rng = np.random.default_rng(seed)
+    t = lambda v, dt: torch.tensor(v, dtype=dt, device=device)
+    tiles = np.repeat(np.arange(T), ch)
+    o = t(rng.uniform(0.005, 0.9, n), torch.float32)
+    threshold = torch.log(ALPHA_MIN / o.double()).float()
+    p = torch.where(t(rng.uniform(size=n) < 0.5, torch.bool), card_cut(o),
+                    threshold)
+    p = nudge(p, t(rng.integers(-8, 9, n), torch.int64))
+    geo = torch.zeros((n + 1, 6), dtype=torch.float32, device=device)
+    geo[:n, 0] = t((tiles % cfg.grid_w) * 16 - 1, torch.float32)
+    geo[:n, 1] = t((tiles // cfg.grid_w) * cfg.tile_h + 7.5, torch.float32)
+    geo[:n, 2] = -2.0 * p
+    geo[:n, 5] = o
+    col = torch.zeros((n + 1, ch), dtype=torch.float32, device=device)
+    col[torch.arange(n), torch.arange(n) % ch] = 1.0
+    sort_gauss = torch.full((cfg.pair_capacity + cfg.chunk,), n,
+                            dtype=torch.int32, device=device)
+    sort_gauss[:n] = torch.arange(n, dtype=torch.int32, device=device)
+    starts = torch.arange(T + 1, device=device) * ch
+    counts = torch.full((T,), ch, dtype=torch.int64, device=device)
+    fields = chunk_fields(starts, counts, cfg)
+    tile_meta = (starts[:-1].to(torch.int32), counts.to(torch.int32))
+    return cfg, geo, col, sort_gauss, tile_meta, fields, p, o
+
+
+@pytest.mark.parametrize('ch', [3, 16])
+def test_forward_keep_decisions_at_the_cut(cuda, ch):
+    """Kernels #1 and #3 at powers on either side of the pre-test's cut and
+    of the keep threshold (``cut_scene``): each (entry, pixel) keep
+    decision is the plain version's, and both count the same kept entries.
+    At the first-column pixels the plain version keeps exactly where the
+    card's o expf(min(p, 0)) >= 1/255, some kept and some not on both
+    sides of the threshold, and some entries lie below the cut."""
+    cfg, geo, col, sort_gauss, tile_meta, fields, p, o = cut_scene(cuda, ch)
+    want = (o * torch.exp(torch.clamp(p, max=0.0)) >= ALPHA_MIN)
+    want = want.reshape(cfg.num_tiles, ch)
+    assert 0 < int(want.sum()) < want.numel()
+    assert bool((p < card_cut(o)).any())
+    first_col = torch.arange(cfg.pix_per_tile, device=cuda) % 16 == 0
+    for kernel, meta, c in ((tile_blend_fwd, tile_meta,
+                             cfg._replace(schedule='tile')),
+                            (chunk_blend_fwd, fields, cfg)):
+        args = (geo, col, sort_gauss, *meta, c)
+        before = kernel.launches
+        color, alpha = kernel(*args)
+        torch.cuda.synchronize()
+        assert kernel.launches == before + 1, kernel.name
+        p_color, _ = kernel.plain(*args)
+        kept, p_kept = color > 0, p_color > 0
+        assert int(kept.sum()) == int(p_kept.sum()), kernel.name
+        assert torch.equal(kept, p_kept), kernel.name
+        assert torch.equal(p_kept[:, first_col],
+                           want[:, None, :].expand(-1, 16, -1)), kernel.name
+        assert float(alpha.max()) < 0.5, kernel.name      # no pixel stops

@@ -11,7 +11,9 @@ group's max magnitude, the bar of its gradient test
 mode, as tests/test_tile_kernel.py runs them, with a chunk that holds each
 tile's list where the stop rule matters (see test_torch_slice.py).
 """
+import re
 from importlib import import_module
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -210,6 +212,7 @@ class TestPlainBlend:
         ts, tc = np.asarray(binned.tile_start), np.asarray(binned.tile_count)
         px, py = (to_np(v) for v in tblend.tile_pixel_coords(cfg, 'cpu'))
         evals = 0
+        outcomes = dict.fromkeys(tblend.OUTCOMES, 0)
         for t in range(cfg.num_tiles):
             T = np.ones(cfg.pix_per_tile, np.float32)
             live = np.ones(cfg.pix_per_tile, bool)
@@ -219,13 +222,78 @@ class TestPlainBlend:
                 power = -0.5 * (a * dx * dx + c * dy * dy) - b * dx * dy
                 alpha = np.minimum(np.float32(0.99),
                                    o * np.exp(np.minimum(power, 0.0)))
-                kept = live & (power <= tblend.POWER_SKIP_EPS) \
-                    & (alpha >= tblend.ALPHA_MIN)
+                near = power <= tblend.POWER_SKIP_EPS
+                kept = live & near & (alpha >= tblend.ALPHA_MIN)
                 test_t = T * (1.0 - alpha)
                 stop = kept & (test_t < tblend.T_EPS)
+                for name, m in (('skipped_power', live & ~near),
+                                ('below_alpha_min', live & near & ~kept),
+                                ('adds', kept & ~stop), ('stops', stop)):
+                    outcomes[name] += int(m.sum())
                 T = np.where(kept & ~stop, test_t, T)
                 live &= ~stop
         assert stats['evaluations'] == evals > 0
+        assert {k: stats[k] for k in tblend.OUTCOMES} == outcomes
+
+    def test_outcome_counts_add_up(self):
+        """Every evaluation of the plain forward has one outcome, and a
+        pixel stops at most once."""
+        cfg, _, _, _, args, _ = TestPlainBackward.scene(
+            np.random.default_rng(0), 16, n=600)
+        stats = {}
+        _, alpha = tblend.blend_forward_plain(*args, port_cfg(cfg),
+                                              stats=stats)
+        assert float(alpha.max()) > 0.99          # some pixels stop
+        assert sum(stats[k] for k in tblend.OUTCOMES) == stats['evaluations']
+        assert stats['adds'] > 0 and stats['below_alpha_min'] > 0
+        assert 0 < stats['stops'] <= cfg.num_tiles * cfg.pix_per_tile
+
+
+FWD_HEADER = (Path(tblend.__file__).resolve().parents[1] / 'csrc'
+              / 'blend_fwd_rows.cuh')
+
+
+def header_float(name: str) -> float:
+    """The value of a ``constexpr float`` of the forward kernels' header,
+    written as ``<number>f``."""
+    m = re.search(rf'constexpr float {name} = ([0-9.e+-]+)f;',
+                  FWD_HEADER.read_text())
+    assert m, name
+    return float(m.group(1))
+
+
+@pytest.mark.parametrize('o_lo,o_hi', [(1e-6, 1 / 255), (1 / 255, 0.02),
+                                       (0.02, 1.0)])
+def test_pretest_cut_proves_alpha_below_min(o_lo, o_hi):
+    """The forward kernels' pre-test (csrc/blend_fwd_rows.cuh): an
+    evaluation with power < cut = logf((1/255) / o) - kCutMargin is
+    skipped without expf, which is exact only if o exp(min(power, 0)) <
+    1/255 then.
+    A copy of the header's formula in float32, at powers just below the
+    cut: the float32 product stays below 1/255, and the exact one keeps at
+    least half the margin below it, more than the header's bound on CUDA's
+    rounding (1.1e-6). Below 1/255 the cut is positive, and every power
+    gives an alpha below 1/255 there."""
+    f32 = np.float32
+    a_min = f32(1 / 255)
+    margin = f32(header_float('kCutMargin'))
+    assert 0 < margin <= 1e-4
+    rng = np.random.default_rng(7)
+    o = rng.uniform(o_lo, o_hi, size=4000).astype(f32)
+    o = np.concatenate([o, np.asarray([o_lo, o_hi], f32)])
+    cut = (np.log(a_min / o) - margin).astype(f32)
+    assert cut.dtype == f32
+    assert (cut < 0).all() if o_lo >= a_min else (cut > 0).any()
+    powers = [cut]
+    for _ in range(16):                  # the 16 floats just below the cut
+        powers.append(np.nextafter(powers[-1], f32(-np.inf)))
+    powers.append((cut - rng.uniform(0, 2, size=cut.shape)).astype(f32))
+    for p in powers[1:]:
+        assert (p < cut).all()
+        x = np.minimum(p, f32(0))
+        assert (o * np.exp(x) < a_min).all()                  # in float32
+        exact = o.astype(np.float64) * np.exp(x.astype(np.float64))
+        assert (exact < float(a_min) * np.exp(-0.5 * float(margin))).all()
 
 
 GROUPS = {'xy': slice(0, 2), 'conic': slice(2, 5), 'opacity': slice(5, 6),
