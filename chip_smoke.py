@@ -3,14 +3,15 @@
 
     python3 chip_smoke.py [--profile]
 
-Drives the port's three paths at full width (the ``synthetic_fullscale``
+Drives the port's four paths at full width (the ``synthetic_fullscale``
 preset: 100,352 Gaussian slots, 512 joints, 400 x 400, random weights from
 seed 0) through the entry points a user calls, and checks them: serving
 through ``framework.evaluate`` (80,000 alive); training the ``sk`` stage
 through ``framework.trainer.SKGSTrainer.train_step`` on the preset's
 synthetic scene, made on the card (the ``tile`` schedule, kernels #1/#2);
-and training the ``init`` family with adaptive density control on the
-``chunk`` schedule (kernels #3/#4). Phases, one JSON line each:
+training the ``init`` family with adaptive density control on the
+``chunk`` schedule (kernels #3/#4); and training the ``sp`` family with its
+stage events on the ``tile`` schedule. Phases, one JSON line each:
 
 1. device: the card, the device count and its power limit;
 2. build: every hand-written kernel compiled from ``sk_gs_tpu_torch/csrc``
@@ -62,7 +63,34 @@ and training the ``init`` family with adaptive density control on the
    memory;
 14. train_reference_init: a small init-family model trained 2 steps across
    a densify event on the card and on the CPU, compared as in 10;
-15. with ``--profile`` only: one request's, one ``sk`` step's and one
+15. sp_events: the populated init start (80,000 alive) across steps
+   7499-7501: the superpoint initialisation before step 7500 (512 distinct
+   live FPS picks, the first the first live row, the replaced leaves and
+   their zero moments), its FPS on the card held against the CPU on the
+   same trajectories; then the restart from the flagship's point cloud
+   before step 10,000 (2,000 alive, one-hot ``sp_W`` times log 36) and
+   steps 10,000-10,003 into ``sp_fix``; per step and per event the
+   synchronised time and the counts;
+16. sp_train: a random sp-stage model (80,000 alive, 512 superpoints) on
+   a fresh trainer (its smooth-loss KNN all zeros until the rebuild before
+   step 14,000, as the flagship's), a warm-up step, the launch counts set
+   to 0, steps 13,999-14,001, 19,999-20,002 and 29,999-30,001, the counts
+   read back (kernels #1 and #2 once a step); per step the synchronised
+   time, whether the KNN was all zeros, the sp losses, pairs, overflow and
+   non-finite gradients; per event (KNN rebuild, canonical replacement,
+   joint tree, superpoint prune / split and merge, densify / prune) its
+   counts and synchronised host time; the peak memory; the smooth loss's
+   forward and backward alone on the rebuilt and on an all-zero KNN;
+17. grad_path_sp: one sp step's leaf gradients through kernels #1/#2
+   against the plain route on the card;
+18. train_reference_sp: a small sp-stage model trained on the card and on
+   the CPU, 2 steps on the all-zero smooth-loss KNN (sp_fix into sp) and 2
+   steps after its rebuild across the joint tree and the superpoint prune
+   / split, compared as in 10, with ``alive``, ``sp_alive`` and
+   ``joint_parents`` equal; the ``sp_W`` gradient's bar adds the float32
+   rounding of its smooth-loss term, measured against float64 on each
+   side;
+19. with ``--profile`` only: one request's, one ``sk`` step's and one
    ``init`` step's (the flagship start's) stages timed with CUDA events,
    and torch.profiler windows over a few requests and steps (device time
    by kernel, device busy share against the same trainer's unprofiled
@@ -79,7 +107,11 @@ and training the ``init`` family with adaptive density control on the
    alpha below 1/255, added, stopping), for #1
    on the first request and on the ``sk`` step that profile_bwd takes, for
    #3 on the first request binned in chunks and on the populated start's
-   first step (before it trains).
+   first step (before it trains); and profile_train_sp: the sp trainer's
+   split and window as above, with its own pieces (LBS weights, the
+   sp_stage pass, the smooth loss forward and backward, the joint costs,
+   the cache and joint-cost writes) timed alone, and the smooth loss's
+   backward scatter named on its own line.
 
 Then a ``kernels`` line (every ported kernel with its launches on its own
 training path and on each path, error, times and bound), the card's name
@@ -108,11 +140,17 @@ from sk_gs_tpu_torch.framework.evaluate import evaluate, render_eval
 from sk_gs_tpu_torch.framework.presets import (flagship_point_cloud,
                                                synthetic_fullscale)
 from sk_gs_tpu_torch.framework.random_model import orbit_view, random_model_flat
-from sk_gs_tpu_torch.framework.trainer import SKGSTrainer
+from sk_gs_tpu_torch.framework.trainer import (FAMILY, SKGSTrainer,
+                                               smooth_loss)
 from sk_gs_tpu_torch.models.gaussian_splatting import (gaussian_inputs,
                                                        init_from_pcd)
 from sk_gs_tpu_torch.models.losses import LossWeights, l1_loss, ssim_loss
-from sk_gs_tpu_torch.models.sk_gs import forward_deltas, init_model
+from sk_gs_tpu_torch.models.sk_gs import (forward_deltas, init_model,
+                                          lbs_weights)
+from sk_gs_tpu_torch.models.sk_gs_ops import sample_trajectories
+from sk_gs_tpu_torch.models.skeleton import joint_cost_matrix
+from sk_gs_tpu_torch.models.superpoints import select_rows
+from sk_gs_tpu_torch.ops.knn import furthest_point_sampling
 from sk_gs_tpu_torch.render import prepare_blend
 from sk_gs_tpu_torch.render.binning import build_tile_lists, num_chunks
 from sk_gs_tpu_torch.render.blend import (ALPHA_MIN, OUTCOMES, assemble_image,
@@ -173,6 +211,27 @@ INIT_STARTS = (('flagship', None, (1, 2, 3, 99, 100, 101)),
                ('full', 99_000, (2998, 2999, 3000, 3001)))
 GROUPS = {'xy': slice(0, 2), 'conic': slice(2, 5), 'opacity': slice(5, 6),
           'colour': slice(6, None)}
+# the sp family's runs on the flagship schedule: the populated init start
+# across the superpoint initialisation (before 7,500) and then across the
+# restart from the point cloud (before 10,000) into sp_fix; a random
+# sp-stage model on the all-zero smooth-loss KNN (13,999), across its first
+# rebuild and a densify (14,000), then across the canonical replacement,
+# the KNN rebuild, the joint tree, the superpoint prune / split and densify
+# (20,000) and the merge (30,000)
+SP_EVENT_STEPS = ((7499, 7500, 7501), (10000, 10001, 10002, 10003))
+SP_TRAIN_STEPS = (13999, 14000, 14001, 19999, 20000, 20001, 20002, 29999,
+                  30000, 30001)
+# train_reference_sp's pairs of steps: on the all-zero smooth-loss KNN
+# across sp_fix into sp, and after its rebuild across the sp events
+SP_REFERENCE_STEPS = {'zero_knn': (13000, 13001),
+                      'rebuilt_knn': (20000, 20001)}
+# the trainer's event methods, timed where they run
+EVENT_HOOKS = ('_init_superpoints', '_reinit_from_pcd', '_canonical_replace',
+               'update_gs_knn', '_update_joint', '_sp_prune_split',
+               '_sp_merge', '_densify_prune', '_reset_opacity')
+# the FPS's running minimum distances, card against CPU, where a pick breaks
+# a near-tie another way
+FPS_RTOL = 1e-6
 
 
 def emit(obj):
@@ -405,7 +464,8 @@ def fullscale_trainer(cfg, rcfg, train, model=None) -> SKGSTrainer:
                                         trainable=True)
     return SKGSTrainer(cfg, rcfg, scene, meta, model, LossWeights(train.loss),
                        seed=train.seed, clip_norm=train.clip_norm,
-                       optimizer=train.optimizer, device='cuda')
+                       optimizer=train.optimizer, skeleton_initialized=True,
+                       device='cuda')
 
 
 def first_view(trainer: SKGSTrainer, step: int) -> int:
@@ -682,18 +742,20 @@ def leaf_grads(trainer: SKGSTrainer, step: int, idx: int):
     update)."""
     trainer.loss_w.set_step(step)
     m2d_off = trainer.zero_grads()
-    losses = trainer._losses(trainer.cfg.stage_at(step), idx, m2d_off)[0]
+    losses = trainer._losses(trainer.cfg.stage_at(step), idx, m2d_off,
+                             step)[0]
     sum(losses.values()).backward()
     return {k: p.grad.detach().clone()
             for k, p in trainer.model.leaves().items() if p.grad is not None}
 
 
-def close_leaves(got, ref, tol, scale_of=None):
+def close_leaves(got, ref, tol, scale_of=None, tol_of=None):
     """Worst error over the leaf's max magnitude, per leaf; raises when the
-    non-finite entries differ or a leaf is off by more than ``tol``.
-    ``scale_of`` maps a leaf to another leaf whose max magnitude is its
-    scale instead (a leaf whose gradient is zero but for rounding)."""
-    scale_of = scale_of or {}
+    non-finite entries differ or a leaf is off by more than ``tol`` (or its
+    own in ``tol_of``). ``scale_of`` maps a leaf to another leaf whose max
+    magnitude is its scale instead (a leaf whose gradient is zero but for
+    rounding)."""
+    scale_of, tol_of = scale_of or {}, tol_of or {}
     worst = {}
     for name, r in ref.items():
         g = got[name].to(r.device)
@@ -705,9 +767,10 @@ def close_leaves(got, ref, tol, scale_of=None):
             if bool(fin.any()) else 0.0
         err = float((g[fin] - r[fin]).abs().max()) if bool(fin.any()) else 0.0
         worst[name] = err / scale if scale > 0 else err
-    bad = {k: v for k, v in worst.items() if v > tol}
+    bad = {k: v for k, v in worst.items() if v > tol_of.get(k, tol)}
     if bad:
-        raise AssertionError(f'gradients differ beyond {tol}: {bad}')
+        raise AssertionError(f'gradients differ beyond {tol} '
+                             f'({tol_of}): {bad}')
     return worst
 
 
@@ -780,7 +843,8 @@ def phase_train_reference(seed: int):
         model = convert.model_from_flat(flat, cfg, rcfg, device=dev,
                                         trainable=True)
         tr = SKGSTrainer(cfg, rcfg, scene, meta, model,
-                         LossWeights(train.loss), device=dev)
+                         LossWeights(train.loss), skeleton_initialized=True,
+                         device=dev)
         losses, grads = [], []
         for step in (s0, s0 + 1):
             losses.append(float(tr.train_step(step)['loss']))
@@ -1007,6 +1071,491 @@ def phase_train_reference_init(seed: int):
         raise AssertionError('card and CPU init training differ')
 
 
+# ---------------------------------------------------------------- sp family
+
+
+def time_events(trainer: SKGSTrainer) -> list:
+    """Wrap the trainer's event methods: each event that runs appends its
+    name, its synchronised host time and its result to the returned log
+    (the caller tags the step). The KNN rebuild counts when it ran."""
+    log = []
+    for name in EVENT_HOOKS:
+        fn = getattr(trainer, name)
+
+        def timed(*args, _fn=fn, _name=name, **kw):
+            knn = trainer.gs_knn_index
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = _fn(*args, **kw)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            if _name != 'update_gs_knn' or trainer.gs_knn_index is not knn:
+                log.append({'event': _name.strip('_'), 'ms': ms,
+                            'result': out})
+            return out
+        setattr(trainer, name, timed)
+    return log
+
+
+def run_sp_steps(trainer: SKGSTrainer, steps, log: list, phase: str):
+    """Steps ``steps``: a record per step (synchronised time, the sp
+    losses, pairs, overflow, non-finite gradients) and the events each ran
+    before and after it, with their counts."""
+    records = []
+    for step in steps:
+        n_log = len(log)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = trainer.train_step(step)
+        torch.cuda.synchronize()
+        rec = {'step': step, 'stage': trainer.cfg.stage_at(step),
+               'ms': (time.perf_counter() - t0) * 1e3,
+               'n_alive': int(trainer.model.alive.sum()),
+               'n_sp_alive': int(trainer.model.sp_alive.sum()),
+               'zero_knn': not bool(trainer.gs_knn_index.any())}
+        rec.update({k: float(v) for k, v in m.items() if k != 'overflow'})
+        rec['overflow'] = bool(m['overflow'])
+        rec['counts'] = {k: int(v) for k, v in trainer.last_event.items()}
+        rec['events'] = [{'event': e['event'], 'ms': e['ms']}
+                         for e in log[n_log:]]
+        for e in log[n_log:]:
+            e['step'] = step
+        records.append(rec)
+        emit({'phase': phase + '_step', **rec})
+    for r in records:
+        if not math.isfinite(r['loss']) or r['overflow']:
+            raise AssertionError(f'bad {phase} step: {r}')
+    return records
+
+
+def phase_sp_events(cfg, rcfg, train):
+    """The sp family's stage events at full width on the tile schedule.
+    The populated init start (80,000 alive, random warp nets) takes steps
+    7499-7501: the superpoint initialisation runs before step 7500, its FPS
+    checked, and held (card against CPU) on the same trajectories; then
+    the restart from the flagship's point cloud before step 10,000, and
+    steps 10,000-10,003 into sp_fix."""
+    scene, meta, _ = fullscale_scene(rcfg, train)
+    model = populated_model(cfg, rcfg, 80_000)
+    trainer = SKGSTrainer(cfg, rcfg, scene, meta, model,
+                          LossWeights(train.loss), seed=train.seed,
+                          pcd=flagship_point_cloud(train), device='cuda')
+    checks = {}
+
+    def init_checked(_fn=trainer._init_superpoints):
+        idx = _fn()
+        ops = trainer.opt_state
+        replaced = ('xyz', 'f_dc', 'f_rest', 'scaling', 'rotation',
+                    'opacity', 'hyper', 'sp_points', 'sp_hyper')
+        p = model.params
+        checks['init'] = {
+            'n_alive': int(model.alive.sum()),
+            'sp_alive_all': bool(model.sp_alive.all()),
+            'hyper_1e-2': bool((p['hyper'][:512] == 1e-2).all()
+                               and not p['hyper'][512:].any()),
+            'sp_hyper_1e-2': bool((p['sp_hyper'] == 1e-2).all()),
+            'moments_zero': all(not ops.mu[k].any() and not ops.nu[k].any()
+                                for k in replaced),
+            'sh_degree': int(model.active_sh_degree)}
+        return idx
+
+    def reinit_checked(_fn=trainer._reinit_from_pcd):
+        _fn()
+        w = model.params['sp_W']
+        one = torch.log(torch.tensor(36.0, device=w.device))
+        checks['reinit'] = {
+            'n_alive': int(model.alive.sum()),
+            'sp_W_one_hot_log36': bool(((w == 0) | (w == one)).all()
+                                       and ((w == one).sum(-1) == 1).all())}
+    trainer._init_superpoints = init_checked
+    trainer._reinit_from_pcd = reinit_checked
+    log = time_events(trainer)
+
+    records = run_sp_steps(trainer, SP_EVENT_STEPS[0][:1], log, 'sp_events')
+    traj = sample_trajectories(cfg, model)
+    alive = model.alive.clone()
+    t0 = time.perf_counter()
+    card, card_d = furthest_point_sampling(traj, cfg.num_superpoints, alive,
+                                           return_dists=True)
+    torch.cuda.synchronize()
+    card_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    cpu, cpu_d = furthest_point_sampling(traj.cpu(), cfg.num_superpoints,
+                                         alive.cpu(), return_dists=True)
+    cpu_ms = (time.perf_counter() - t0) * 1e3
+    records += run_sp_steps(trainer, SP_EVENT_STEPS[0][1:], log, 'sp_events')
+    records += run_sp_steps(trainer, SP_EVENT_STEPS[1], log, 'sp_events')
+
+    picks = next(e['result'] for e in log if e['event'] == 'init_superpoints')
+    card, card_d = card.cpu(), card_d.cpu()
+    differ = int((card != cpu).sum())
+    fin = torch.isfinite(cpu_d)
+    d_err = float(((card_d[fin] - cpu_d[fin]).abs()
+                   / cpu_d[fin].abs().clamp(min=1e-30)).max())
+    fps = {'n_picks': int(picks.numel()),
+           'distinct': int(torch.unique(picks).numel()),
+           'all_alive': bool(alive[picks].all()),
+           'first_is_first_alive': int(picks[0]) == int(torch.argmax(
+               alive.to(torch.int32))),
+           'event_equals_card_fps': bool(torch.equal(picks.cpu(), card)),
+           'picks_differing_card_vs_cpu': differ,
+           'dist_rel_err_card_vs_cpu': d_err, 'dist_tolerance': FPS_RTOL,
+           'card_fps_ms': card_ms, 'cpu_fps_ms': cpu_ms,
+           'trajectory_width': int(traj.shape[1])}
+    events = [{k: v for k, v in e.items() if k != 'result'} for e in log]
+    emit({'phase': 'sp_events', 'fps': fps, 'checks': checks,
+          'events': events, 'steps': [r['step'] for r in records],
+          'ms_by_step': [r['ms'] for r in records],
+          'ms_sp_fix_steps_on_the_zero_knn': [
+              r['ms'] for r in records
+              if r['stage'] == 'sp_fix' and r['zero_knn']],
+          'max_memory_allocated': torch.cuda.max_memory_allocated()})
+    init, reinit = checks['init'], checks['reinit']
+    if (fps['distinct'] != 512 or not fps['all_alive']
+            or not fps['first_is_first_alive']
+            or not fps['event_equals_card_fps'] or d_err > FPS_RTOL
+            or init['n_alive'] != 512 or not init['sp_alive_all']
+            or not init['hyper_1e-2'] or not init['sp_hyper_1e-2']
+            or not init['moments_zero'] or init['sh_degree'] != 0
+            or reinit['n_alive'] != 2000
+            or not reinit['sp_W_one_hot_log36']):
+        raise AssertionError(f'sp events: {fps} {checks}')
+
+
+def phase_sp_train(cfg, rcfg, train):
+    """The sp family at full width: a random sp-stage model (80,000 alive,
+    all 512 superpoints live), one trainer on the tile schedule, built
+    fresh so that its smooth-loss KNN is all zeros, as the flagship's is
+    until step 14,000; a warm-up step (13,998), then with the launch counts
+    at 0 steps 13,999-14,001 (the KNN's first rebuild before 14,000, a
+    densify after it), 19,999-20,002 (the canonical replacement and the KNN
+    rebuild before 20,000; the joint tree, the superpoint prune / split and
+    densify / prune after it) and 29,999-30,001 (the merge after 30,000).
+    Then the smooth loss's forward and backward alone on the last step's
+    weights, on the rebuilt KNN and on an all-zero one."""
+    scene, meta, _ = fullscale_scene(rcfg, train)
+    model = convert.model_from_flat(
+        random_model_flat(cfg, SEED, 80_000, sp_stage=True), cfg, rcfg,
+        device='cuda', trainable=True)
+    trainer = SKGSTrainer(cfg, rcfg, scene, meta, model,
+                          LossWeights(train.loss), seed=train.seed,
+                          sp_initialized=True, reinit_done=True,
+                          device='cuda')
+    trainer.train_step(SP_TRAIN_STEPS[0] - 1)
+    log = time_events(trainer)
+    torch.cuda.synchronize()
+    for k in KERNELS:
+        k.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    records = run_sp_steps(trainer, SP_TRAIN_STEPS, log, 'sp_train')
+    launches = {k.name: k.launches for k in KERNELS}
+    peak = torch.cuda.max_memory_allocated()
+    events = [{k: v for k, v in e.items() if k != 'result'} for e in log]
+    ms = [r['ms'] for r in records]
+    quiet = [r['ms'] for r in records if not r['events']
+             and not r['zero_knn']]
+    smooth = smooth_loss_case(trainer, SP_TRAIN_STEPS[-1])
+    knn = trainer.gs_knn_index
+    zero = torch.zeros_like(knn)
+    smooth_ms = {'rebuilt_knn': cuda_ms(lambda: smooth(knn), 5, 1),
+                 'zero_knn': cuda_ms(lambda: smooth(zero), 5, 1)}
+    emit({'phase': 'sp_train', 'steps': len(records), 'launches': launches,
+          'ms_mean': sum(ms) / len(ms), 'ms_min': min(ms), 'ms_max': max(ms),
+          'ms_steps_on_the_zero_knn': [r['ms'] for r in records
+                                       if r['zero_knn']],
+          'ms_mean_steps_without_events_on_a_rebuilt_knn':
+              sum(quiet) / max(len(quiet), 1),
+          'smooth_fwd_bwd_ms': smooth_ms,
+          'max_memory_allocated': peak, 'events': events})
+    n = len(records)
+    expected = {k.name: n if k in (tile_blend_fwd, tile_blend_bwd) else 0
+                for k in KERNELS}
+    if launches != expected:
+        raise AssertionError(f'launches {launches} in {n} sp steps, '
+                             f'expected {expected}')
+    if [r['step'] for r in records if r['zero_knn']] != [13999]:
+        raise AssertionError('the smooth-loss KNN is not all zeros exactly '
+                             'until its first rebuild before step 14,000')
+    ran = {(e['event'], e['step']) for e in events}
+    due = {('update_gs_knn', 14000), ('densify_prune', 14000),
+           ('canonical_replace', 20000), ('update_gs_knn', 20000),
+           ('update_joint', 20000), ('sp_prune_split', 20000),
+           ('densify_prune', 20000), ('update_gs_knn', 30000),
+           ('update_joint', 30000), ('sp_merge', 30000),
+           ('densify_prune', 30000)}
+    if ran != due:
+        raise AssertionError(f'sp events ran {sorted(ran)}, due '
+                             f'{sorted(due)}')
+    return launches, trainer
+
+
+def smooth_loss_case(trainer: SKGSTrainer, step: int):
+    """The smooth loss's forward and backward alone, on the LBS weights of
+    ``step``'s view, over a given KNN index (a closure to time)."""
+    model = trainer.model
+    idx = first_view(trainer, step)
+    with torch.no_grad():
+        d = forward_deltas(trainer.cfg, model, trainer.scene.times[idx], 'sp')
+    w0 = d.aux['knn_w'].detach()
+
+    def run(index):
+        w = w0.clone().requires_grad_(True)
+        smooth_loss(w, index, model.alive).backward()
+    return run
+
+
+def phase_grad_path_sp(trainer: SKGSTrainer, step: int):
+    """One sp step's leaf gradients through kernels #1 and #2 and through
+    the plain route on the card, same model, KNN and sample."""
+    plain = SKGSTrainer(trainer.cfg, trainer.rcfg._replace(use_kernel=False),
+                        trainer.scene, trainer.meta, trainer.model,
+                        trainer.loss_w, opt_state=trainer.opt_state,
+                        gs_knn_index=trainer.gs_knn_index,
+                        sp_initialized=True, reinit_done=True, device='cuda')
+    idx = first_view(trainer, step)
+    got = leaf_grads(trainer, step, idx)
+    ref = leaf_grads(plain, step, idx)
+    trainer.zero_grads()
+    worst = close_leaves(got, ref, GRAD_PATH_TOL)
+    zero = sorted(k for k, v in ref.items() if not v.any())
+    emit({'phase': 'grad_path_sp', 'step': step,
+          'stage': trainer.cfg.stage_at(step), 'view': idx,
+          'leaves': len(ref), 'tolerance': GRAD_PATH_TOL,
+          'worst_err_over_max': max(worst.values()),
+          'leaves_with_zero_gradient': zero,
+          'err_over_max_by_leaf': worst})
+    if not {'sp_W', 'xyz', 'joint_pos', 'sp_deform/warp/w'} <= set(ref) \
+            or not ref['sp_W'].any():
+        raise AssertionError('the sp leaves got no gradient')
+
+
+def smooth_rounding(trainer: SKGSTrainer, d, step: int) -> float:
+    """The float32 rounding of the smooth loss's ``sp_W`` gradient on the
+    trainer's device: max |g32 - g64| of the step's weighted smooth loss
+    through the LBS softmax (LBS_method 'W'), on the step's own
+    superpoints, KNN and live rows. On the all-zero KNN, row 0 of that
+    gradient is one sum of ~20 K terms a live Gaussian."""
+    model = trainer.model
+    grads = []
+    for dtype in (torch.float32, torch.float64):
+        sp_w = model.params['sp_W'].detach().to(dtype).requires_grad_(True)
+        w = torch.softmax(select_rows(sp_w, d.aux['knn_i']), dim=-1)
+        (trainer.loss_weight('smooth', step) * smooth_loss(
+            w, trainer.gs_knn_index, model.alive)).backward()
+        grads.append(sp_w.grad.to(torch.float64))
+    return float((grads[0] - grads[1]).abs().max())
+
+
+def sp_w_diagnosis(card, cpu, g_card, g_cpu) -> dict:
+    """Where the card's ``sp_W`` gradient differs most from the CPU's, and
+    why: the live rows whose discrete choices differ between the two (their
+    LBS superpoints, or the sign of a smooth-loss difference w_i - w_j at a
+    tie, which moves rows i and j), and at the worst row the gradient
+    reaching its LBS weights, dL/dw: the difference between the two sides
+    there, carried through the softmax (times the row's largest weight),
+    over the leaf's max, is what that difference alone accounts for."""
+    _, w_c, i_c, knn, alive = card
+    _, w_p, i_p, _, _ = cpu
+    gw_c, gw_p = w_c.grad.cpu(), w_p.grad.cpu()
+    w_c, w_p = w_c.detach().cpu(), w_p.detach().cpu()
+    err = (g_card - g_cpu).abs().amax(-1)
+    top = float(g_cpu.abs().max())
+    row = int(err.argmax())
+    lbs = (i_c != i_p).any(-1) & alive
+    sign = lambda w: torch.sign(w[:, None] - w[knn])
+    flip = (sign(w_c) != sign(w_p)).any(-1) & alive[:, None]
+    kink = flip.any(-1)
+    kink[knn[flip]] = True
+    d_gw = float((gw_c[row] - gw_p[row]).abs().max())
+    return {'worst_row': row, 'worst_row_err_over_max': float(err[row]) / top,
+            'worst_row_weights_differ': float((w_c[row] - w_p[row]).abs()
+                                              .max()),
+            'worst_row_dL_dw_rel_diff': d_gw / max(
+                float(gw_p[row].abs().max()), 1e-30),
+            'worst_row_dL_dw_diff_through_softmax_over_max':
+                d_gw * float(w_p[row].max()) / top,
+            'worst_row_lbs_differs': bool(lbs[row]),
+            'worst_row_smooth_sign_differs': bool(kink[row]),
+            'lbs_rows_differing': int(lbs.sum()),
+            'smooth_sign_rows_differing': int(kink.sum())}
+
+
+def phase_train_reference_sp(seed: int):
+    """A small sp-stage model trained on the card (kernels #1/#2) and on
+    the CPU (plain versions), two steps from each pair of
+    ``SP_REFERENCE_STEPS``, each pair from the same fresh start (its
+    smooth-loss KNN all zeros until a rebuild): 13,000-13,001 on the zero
+    KNN, across sp_fix into sp (densify after 13,000, opacity reset after
+    13,001); 20,000-20,001 after the rebuild before 20,000, across the
+    canonical replacement, the joint tree, the superpoint prune / split
+    (every eighth superpoint dead and a split threshold of 0, so that it
+    splits) and densify / prune. Compared as train_reference compares, with
+    ``alive``, ``sp_alive``, ``joint_parents`` and the events equal; the
+    ``sp_W`` gradient's bar is 3e-4 of its max plus the float32 rounding of
+    its smooth-loss term measured on each side against float64 in the same
+    step (``smooth_rounding``): on the zero KNN row 0 sums every live
+    Gaussian's terms, in another order on the card's atomics than on the
+    CPU."""
+    cfg, rcfg, train = synthetic_fullscale()
+    cfg = cfg._replace(gauss=cfg.gauss._replace(capacity=4096),
+                       num_superpoints=64, num_frames=6,
+                       net=cfg.net._replace(depth=4, width=64),
+                       sk_net=cfg.sk_net._replace(width=64, depth=4,
+                                                  skips=(2,)),
+                       sp_split_threshold=0.0)
+    if cfg.LBS_method != 'W':
+        raise AssertionError('smooth_rounding reads LBS_method W')
+    rcfg = rcfg._replace(image_width=96, image_height=80,
+                         pair_capacity=2 ** 16)
+    flat = random_model_flat(cfg, seed + 1, n_alive=3000,
+                             log_scale_mean=-3.0, sp_stage=True)
+    flat['sp_alive'][::8] = False
+    report = {'phase': 'train_reference_sp', 'image': [80, 96]}
+    failed = []
+    for pair, steps in SP_REFERENCE_STEPS.items():
+        runs = {}
+        for dev in ('cuda', 'cpu'):
+            scene, meta, _ = make_synthetic_scene(
+                seed=seed, num_links=3, gauss_per_link=60, num_frames=6,
+                h=80, w=96, pair_capacity=2 ** 15, device=dev)
+            model = convert.model_from_flat(flat, cfg, rcfg, device=dev,
+                                            trainable=True)
+            tr = SKGSTrainer(cfg, rcfg, scene, meta, model,
+                             LossWeights(train.loss), seed=seed,
+                             sp_initialized=True, reinit_done=True,
+                             device=dev)
+            rounding = []
+
+            def spy(d, t, step, _tr=tr, _fn=tr.sp_losses, _out=rounding):
+                d.aux['knn_w'].retain_grad()     # dL/dw, after the backward
+                _out.append((smooth_rounding(_tr, d, step), d.aux['knn_w'],
+                             d.aux['knn_i'].cpu(), _tr.gs_knn_index.cpu(),
+                             _tr.model.alive.cpu()))
+                return _fn(d, t, step)
+            tr.sp_losses = spy
+            losses, grads, events, zero = [], [], [], []
+            for step in steps:
+                losses.append(float(tr.train_step(step)['loss']))
+                grads.append({k: p.grad.detach().cpu().clone()
+                              for k, p in model.leaves().items()})
+                events.append({k: int(v) for k, v in tr.last_event.items()})
+                zero.append(not bool(tr.gs_knn_index.any()))
+            runs[dev] = (losses, grads, convert.model_to_flat(model),
+                         tr.lr_trees(steps[-1]), events, rounding, zero,
+                         torch.sort(tr.gs_knn_index.cpu(), -1).values)
+        (l_c, g_c, f_c, lrs, ev_c, s_c, z_c, k_c), \
+            (l_p, g_p, f_p, _, ev_p, s_p, z_p, k_p) = runs['cuda'], runs['cpu']
+        r_c, r_p = [x[0] for x in s_c], [x[0] for x in s_p]
+        where = [sp_w_diagnosis(a, b, gc['sp_W'], gp['sp_W'])
+                 for a, b, gc, gp in zip(s_c, s_p, g_c, g_p)]
+        loss_err = max(abs(a - b) / abs(b) for a, b in zip(l_c, l_p))
+        live = torch.from_numpy(f_p['alive'])
+        knn_differ = int(((k_c != k_p).any(-1) & live).sum())
+        sp_w_max = [float(g['sp_W'].abs().max()) for g in g_p]
+        sp_w_tol = [3e-4 + (a + b) / m for a, b, m in zip(r_c, r_p, sp_w_max)]
+        worst, ok = [], True
+        for a, b, tol_w in zip(g_c, g_p, sp_w_tol):
+            try:
+                worst.append(close_leaves(a, b, 3e-4, tol_of={'sp_W': tol_w}))
+            except AssertionError as e:
+                worst.append(str(e))
+                ok = False
+        param_worst, worst_leaf = params_over_tol(f_c, f_p, g_p, lrs, 2)
+        same = {k: bool(np.array_equal(f_c[k], f_p[k]))
+                for k in ('alive', 'sp_alive', 'joint_parents', 'joint_root')}
+        others = [max((v for k, v in w.items() if k != 'sp_W'), default=0.0)
+                  if isinstance(w, dict) else None for w in worst]
+        report[pair] = {
+            'steps': list(steps), 'zero_knn': z_c,
+            'knn_live_rows_differing': knn_differ,
+            'loss_cuda': l_c, 'loss_cpu': l_p, 'loss_rel_err': loss_err,
+            'events_cuda': ev_c, 'events_cpu': ev_p, 'equal': same,
+            'sp_W_err_over_max': [w['sp_W'] if isinstance(w, dict) else w
+                                  for w in worst],
+            'sp_W_smooth_rounding_cuda_over_max': [
+                a / m for a, m in zip(r_c, sp_w_max)],
+            'sp_W_smooth_rounding_cpu_over_max': [
+                a / m for a, m in zip(r_p, sp_w_max)],
+            'sp_W_tolerance': sp_w_tol, 'sp_W_where': where,
+            'other_leaves_worst_err_over_max': others, 'tolerance': 3e-4,
+            'param_worst_over_tol': param_worst,
+            'param_worst_leaf': worst_leaf}
+        if not ok or loss_err > 2e-4 or param_worst > 1.0 \
+                or not all(same.values()) or ev_c != ev_p or z_c != z_p:
+            failed.append(pair)
+    emit(report)
+    zero, rebuilt = report['zero_knn'], report['rebuilt_knn']
+    if failed or zero['zero_knn'] != [True, True] \
+            or rebuilt['zero_knn'] != [False, False] \
+            or 'joint_root' not in rebuilt['events_cuda'][0] \
+            or not rebuilt['events_cuda'][0].get('n_split_sp'):
+        raise AssertionError(f'card and CPU sp training differ: {failed}')
+
+
+def phase_profile_train_sp(trainer: SKGSTrainer, s0: int):
+    """Where an sp step's time goes: phase_profile_train's split and
+    window, and beside it the step's own pieces timed alone on the same
+    state by CUDA events (the LBS weights, the sp_stage pass, the smooth
+    loss forward and backward, on the rebuilt KNN and on the all-zero one
+    that the steps before the first rebuild take, the joint costs, the
+    cache and joint-cost writes), and the smooth loss's backward alone
+    under torch.profiler on both, whose scatter (the sum over the
+    [N, 20, K] gather) is named on its own line."""
+    phase_profile_train(trainer, s0, phase='profile_train_sp')
+    cfg, model = trainer.cfg, trainer.model
+    params = model.params
+    idx = first_view(trainer, s0 + 9)
+    t = trainer.scene.times[idx]
+    tid = trainer.scene.time_ids[idx]
+    with torch.no_grad():
+        d = forward_deltas(cfg, model, t, 'sp')
+    smooth_fwd_bwd = smooth_loss_case(trainer, s0 + 9)
+    knn = trainer.gs_knn_index
+    zero = torch.zeros_like(knn)
+
+    def joint_fwd_bwd():
+        jp = params['joint_pos'].detach().clone().requires_grad_(True)
+        cost = joint_cost_matrix(jp, d.aux['spT'], model.sp_alive)
+        torch.where(torch.isfinite(cost), cost, 0.0).mean().backward()
+
+    def writes():
+        model.sp_cache[tid] = d.aux['cache_row']
+        model.joint_cost.mul_(0.9).add_(0.1 * model.joint_cost)
+
+    with torch.no_grad():
+        pieces = {
+            'lbs_weights': lambda: lbs_weights(cfg, params, model.sp_alive,
+                                               params['xyz']),
+            'sp_stage': lambda: forward_deltas(cfg, model, t, 'sp'),
+            'cache_joint_cost_writes': writes}
+        piece_ms = {k: cuda_ms(fn, iters=5, warmup=1)
+                    for k, fn in pieces.items()}
+    piece_ms['smooth_fwd_bwd'] = cuda_ms(lambda: smooth_fwd_bwd(knn),
+                                         iters=5, warmup=1)
+    piece_ms['smooth_fwd_bwd_zero_knn'] = cuda_ms(
+        lambda: smooth_fwd_bwd(zero), iters=5, warmup=1)
+    piece_ms['joint_cost_fwd_bwd'] = cuda_ms(joint_fwd_bwd, iters=5,
+                                             warmup=1)
+    smooth = {}
+    for name, index in (('rebuilt_knn', knn), ('zero_knn', zero)):
+        on_dev, _ = profile_window(
+            lambda: [smooth_fwd_bwd(index) for _ in range(3)])
+        smooth[name] = {
+            'kernels': top_kernels(on_dev, 3, 'call', k=6),
+            'backward_scatter': top_kernels(
+                [e for e in on_dev if is_scatter(e.key)], 3, 'call')}
+    emit({'phase': 'profile_train_sp_pieces', 'step_state': s0 + 9,
+          'ms': piece_ms, 'smooth_loss': smooth})
+
+
+def is_scatter(key: str) -> bool:
+    """PyTorch's CUDA kernels of an advanced-index backward (the
+    accumulating index_put / scatter of a gather's gradient), by name."""
+    k = key.lower()
+    return any(s in k for s in ('index_put', 'indexing_backward', 'scatter',
+                                'index_add', 'indexfunc'))
+
+
 def phase_profile_train(trainer: SKGSTrainer, s0: int,
                         phase: str = 'profile_train'):
     """Where a training step's time goes: forward (deltas to loss),
@@ -1029,7 +1578,7 @@ def phase_profile_train(trainer: SKGSTrainer, s0: int,
         ev[1].record()
         total.backward()
         ev[2].record()
-        trainer._update(idx, lrs, total, fwd, m2d_off)
+        trainer._update(FAMILY[stage], idx, lrs, total, fwd, m2d_off)
         ev[3].record()
         torch.cuda.synchronize()
         for key, a, b in (('forward', 0, 1), ('backward', 1, 2),
@@ -1063,7 +1612,9 @@ def phase_profile_train(trainer: SKGSTrainer, s0: int,
           'device_busy_share': per_step / step_ms,
           'top_device_kernels': top_kernels(on_dev, n_win, 'step'),
           'index_add_kernels': top_kernels(
-              [e for e in on_dev if is_index_add(e.key)], n_win, 'step')})
+              [e for e in on_dev if is_index_add(e.key)], n_win, 'step'),
+          'blend_kernels': top_kernels(
+              [e for e in on_dev if '_blend_' in e.key], n_win, 'step')})
 
 
 def dev_us(e) -> float:
@@ -1216,6 +1767,13 @@ def main(argv=None) -> int:
         phase_init_train(cfg, init_rcfg, train, args.profile)
     rows += [chunk_row, chunk_bwd_row]
     phase_train_reference_init(SEED)
+
+    # the sp family on the tile schedule
+    phase_sp_events(cfg, rcfg, train)
+    sp_launches, sp_trainer = phase_sp_train(cfg, rcfg, train)
+    s_sp = SP_TRAIN_STEPS[-1] + 1
+    phase_grad_path_sp(sp_trainer, s_sp)
+    phase_train_reference_sp(SEED)
     if args.profile:
         phase_profile(model, views, times, bg, served_ms)
         phase_profile_train(trainer, s_next)
@@ -1238,9 +1796,10 @@ def main(argv=None) -> int:
                             phase='profile_train_init')
         phase_profile_bwd(init_trainers['flagship'], s_init + 9,
                           'profile_chunk_bwd')
+        phase_profile_train_sp(sp_trainer, s_sp + 1)
 
     paths = {'serve': serve_launches, 'train': train_launches,
-             'train_init': init_launches}
+             'train_init': init_launches, 'train_sp': sp_launches}
     for row in rows:
         own = 'train_init' if row['name'].startswith('chunk') else 'train'
         row['launches'] = paths[own][row['name']]

@@ -11,7 +11,10 @@ net's leaves map one to one: ``params/sk_deform/layers/3/w`` ->
 ``sk_deform.layers.3.w``. ``adam_from_flat`` reads a trainer checkpoint's
 Adam moments (``state/opt/mu/...``, ``state/opt/nu/...``,
 ``state/opt/count``) and ``model_to_flat`` writes the port's model back in
-the JAX names.
+the JAX names. ``trainer_flags_from_flat`` reads a trainer checkpoint's
+stage flags and the smooth loss's KNN (``state/flags/...``) as the JAX
+trainer's ``restore`` does, so that a run taken inside the ``sp`` stages
+resumes in the port.
 
 Carried: every leaf of ``SKGSModel.leaves`` (the Gaussian and skeleton
 leaves, ``hyper``, ``sp_points``, ``sp_hyper`` and ``joint_pos`` when the
@@ -19,10 +22,11 @@ arrays have them, the skeleton net, and the warp nets ``sp_deform`` and
 ``canonical`` under ``params/sp_deform/...`` and ``params/canonical/...``
 when present) and their Adam moments, the buffers the port reads
 (``AUX_BUFFERS``) and the training state it updates (``STAT_BUFFERS``:
-``max_radii2d``, ``xyz_grad_accum``, ``denom``, ``sk_cache``; zeros when the
-checkpoint has none). Not carried: the model fields only the ``sp`` and
-``sk_init`` families use (``sp_cache``, ``joint_cost``, ``sp_weights``, ...);
-they stay in the JAX checkpoint.
+``max_radii2d``, ``xyz_grad_accum``, ``denom``, ``sk_cache``, ``sp_cache``,
+``joint_cost``, ``p2sp``; zeros when the checkpoint has none). Not
+carried: ``joint_depth`` (the port reads none) and the frozen LBS of the
+sk stages, ``sp_weights`` / ``sp_knn``, which the skeleton initialisation
+writes; they stay in the JAX checkpoint.
 """
 from __future__ import annotations
 
@@ -35,17 +39,22 @@ import torch
 from . import resolve_device
 from torch import nn
 
+from .framework.trainer import SKGSTrainer
 from .models.deform import (DeformNet, DeformNetConfig, SkeletonNetConfig,
                             skeleton_net)
 from .models.optim import AdamState
 from .models.sk_gs import (AUX_BUFFERS, DEFORM_NETS, GAUSS_LEAVES, SK_LEAVES,
                            SP_LEAVES, STAT_BUFFERS, SKGSConfig, SKGSModel)
+from .ops.knn import live_knn_index
 from .ops.mlp import MLP
 from .render.settings import RasterConfig
 
 _BUFFER_DTYPES = {'alive': torch.bool, 'active_sh_degree': torch.int32,
                   'sp_alive': torch.bool, 'joint_parents': torch.int32,
-                  'joint_root': torch.int32, 'train_times': torch.float32}
+                  'joint_root': torch.int32, 'train_times': torch.float32,
+                  'p2sp': torch.int32}
+# the trainer's stage flags in a JAX ``ckpt_state()``
+TRAINER_FLAGS = ('sp_initialized', 'reinit_done', 'skeleton_initialized')
 
 
 def _tensor(arr, device, dtype=torch.float32) -> torch.Tensor:
@@ -101,7 +110,8 @@ def model_from_flat(flat: Mapping[str, np.ndarray], cfg: SKGSConfig,
                for k in AUX_BUFFERS}
     for k in STAT_BUFFERS:
         if pre + k in flat:
-            buffers[k] = _tensor(flat[pre + k], device)
+            buffers[k] = _tensor(flat[pre + k], device,
+                                 _BUFFER_DTYPES.get(k, torch.float32))
     return SKGSModel(cfg, rcfg, params, net, buffers, trainable=trainable,
                      **warp_nets)
 
@@ -123,6 +133,41 @@ def adam_from_flat(flat: Mapping[str, np.ndarray],
             moments[moment][name] = _tensor(flat[key], p.device)
     return AdamState(mu=moments['mu'], nu=moments['nu'],
                      count=int(np.asarray(flat['state/opt/count'])))
+
+
+def trainer_flags_from_flat(flat: Mapping[str, np.ndarray], cfg: SKGSConfig,
+                            step: int, device='cuda') -> Dict:
+    """``SKGSTrainer`` keyword arguments to resume a JAX trainer checkpoint
+    taken after step ``step``, read as the JAX trainer's ``restore`` reads
+    it (``trainer.py:1338-1372``): each of ``sp_initialized``,
+    ``reinit_done`` and ``skeleton_initialized`` in ``state/flags`` or set
+    by the schedule at ``step`` (a checkpoint without flags is an older
+    one), and the smooth loss's KNN ``gs_knn_index``, rebuilt on ``device``
+    from the checkpoint's Gaussians when it is all zeros or missing and
+    ``step`` lies in ``sp_fix`` or ``sp``."""
+    if model_prefix(flat) != 'state/model/':
+        raise KeyError('no trainer checkpoint (arrays under "state/model/")')
+    device = resolve_device(device)
+    stage = cfg.stage_at(max(step, 1))
+    saved = {k: bool(np.asarray(flat.get('state/flags/' + k, False)))
+             for k in TRAINER_FLAGS}
+    out = {
+        'skeleton_initialized': saved['skeleton_initialized']
+        or stage in ('sk_init', 'sk_fix', 'sk'),
+        'sp_initialized': saved['sp_initialized']
+        or step >= cfg.init_sampling_step,
+        'reinit_done': saved['reinit_done']
+        or 0 < cfg.stages['sp_fix'][0] <= step}
+    index = flat.get('state/flags/gs_knn_index')
+    if stage in ('sp_fix', 'sp') and (index is None or not np.any(index)):
+        xyz = _tensor(flat['state/model/params/xyz'], device)
+        alive = _tensor(flat['state/model/alive'], device, torch.bool)
+        out['gs_knn_index'] = live_knn_index(xyz, alive,
+                                             SKGSTrainer.gs_knn_num)
+    elif index is not None:
+        out['gs_knn_index'] = torch.as_tensor(np.asarray(index),
+                                              dtype=torch.int64)
+    return out
 
 
 def model_to_flat(model: SKGSModel) -> Dict[str, np.ndarray]:

@@ -18,10 +18,12 @@ import numpy as np
 import torch
 
 from .. import resolve_device
+from ..convert import deform_net_from_flat
 from ..models.deform import HEAD_STD as WARP_HEAD_STD
 from ..models.deform import DeformNet
 from ..models.gaussian_splatting import num_rest
 from ..models.sk_gs import SKGSConfig
+from ..models.sk_gs_ops import compute_sp_transforms_all_frames
 from ..models.skeleton import MAX_LEVELS, parents_table
 from ..ops.transforms import look_at, perspective_opencv
 from ..render.settings import ViewParams
@@ -43,12 +45,20 @@ def _unit_quats(rng: np.random.Generator, n: int) -> np.ndarray:
 
 
 def random_model_flat(cfg: SKGSConfig, seed: int, n_alive: int,
-                      log_scale_mean: float = -3.4) -> Dict[str, np.ndarray]:
+                      log_scale_mean: float = -3.4,
+                      sp_stage: bool = False) -> Dict[str, np.ndarray]:
     """Flat ``{path: ndarray}`` of a random model with ``cfg``'s widths:
     ``n_alive`` of ``cfg.gauss.capacity`` slots live, a random tree over the
     live joints, ``cfg.num_frames`` train times in [0, 1]. The Gaussians'
     log-scales centre on ``log_scale_mean`` (-3.4 puts ~0.72M pairs in a
-    400 x 400 view of 80,000 of them)."""
+    400 x 400 view of 80,000 of them).
+
+    ``sp_stage`` gives a model inside the ``sp`` stages: every superpoint
+    live at the joints (the Gaussians sit around them), the hyper features
+    of the restart (-1e-2, the superpoints' 1e-2), pivots ``joint_pos``
+    [M, M, 3] at the pair midpoints plus noise, a positive ``joint_cost``,
+    and ``sp_cache`` filled by ``compute_sp_transforms_all_frames`` from the
+    random ``sp_deform`` net (run on the CPU)."""
     rng = np.random.default_rng(seed)
     f32 = np.float32
     n, m, nf = cfg.gauss.capacity, cfg.num_superpoints, cfg.num_frames
@@ -59,6 +69,8 @@ def random_model_flat(cfg: SKGSConfig, seed: int, n_alive: int,
 
     sp_alive = rng.uniform(size=m) < JOINT_ALIVE_FRAC
     sp_alive[0] = True
+    if sp_stage:
+        sp_alive[:] = True
     live_j = np.flatnonzero(sp_alive)
     joints = rng.normal(size=(m, 3)) * 0.45
     # random recursive tree over the live joints; dead joints hang off the root
@@ -120,6 +132,17 @@ def random_model_flat(cfg: SKGSConfig, seed: int, n_alive: int,
     flat['params/joint_pos'] = np.zeros((m, m, 3), f32)
     for name in ('sp_deform', 'canonical'):
         flat.update(_warp_net_flat(cfg, rng, f'params/{name}/'))
+    if sp_stage:
+        flat['params/sp_hyper'] = np.full((m, cfg.hyper_dim), 1e-2, f32)
+        mid = 0.5 * (joints[:, None] + joints[None, :])
+        flat['params/joint_pos'] = (mid + rng.normal(size=(m, m, 3))
+                                    * 0.02).astype(f32)
+        flat['joint_cost'] = rng.uniform(0.05, 0.5, (m, m)).astype(f32)
+        net = deform_net_from_flat(flat, cfg.net, 'params/sp_deform/',
+                                   device='cpu')
+        flat['sp_cache'] = compute_sp_transforms_all_frames(
+            cfg, net, torch.from_numpy(flat['params/sp_points']),
+            torch.from_numpy(flat['train_times'])).numpy()
     return flat
 
 

@@ -1,43 +1,59 @@
-"""SK-GS training, the ``static``, ``init`` and ``sk`` families (port of
-the parts of ``sk_gs_tpu/framework/trainer.py:SKGSTrainer`` that the stages
-``static``, ``init_fix``, ``init``, ``sk_fix`` and ``sk`` run).
+"""SK-GS training, the ``static``, ``init``, ``sp`` and ``sk`` families (port
+of the parts of ``sk_gs_tpu/framework/trainer.py:SKGSTrainer`` that the
+stages ``static``, ``init_fix``, ``init``, ``sp_fix``, ``sp``, ``sk_fix``
+and ``sk`` run).
 
 One step (``train_step``, ``trainer.py:1376-1436``) runs the stage events
-due before it, samples a view with the step-keyed sampler, runs the step
-body (``_core``, single device, one view: ``trainer.py:595-984``), and
-then the adaptive density control due after it. The body: the stage's
-deltas (none for ``static``; the ``sp_deform`` warp net for the ``init``
-family, detached in ``init_fix``; the skeleton warp at the view's own train
-frame for the ``sk`` family), activations (the ``init`` family renders
-every Gaussian at the live mean of the log-scales), a render whose blend
-goes through ``TileBlend`` or ``ChunkBlend`` (the hand-written kernels on
-the card) by ``RasterConfig.schedule``, l1 (or mse) and SSIM image losses,
-the canonical-net consistency ``c_net`` (``init`` family), ``backward``,
-non-finite gradient entries zeroed and counted (``n_bad_grad``), Adam with
-per-leaf learning rates, the densification statistics, and, for the ``sk``
-family, the skeleton net's output row written into ``sk_cache``.
+due before it, rebuilds the smooth loss's Gaussian KNN on its interval
+(``sp`` steps), samples a view with the step-keyed sampler, runs the step
+body (``_core``, single device, one view: ``trainer.py:595-984``), updates
+the joint tree on its interval (``sp`` steps), and then runs the adaptive
+control due after it. The body: the stage's deltas (none for ``static``;
+the ``sp_deform`` warp net for the ``init`` family, detached in
+``init_fix``; the superpoint LBS warp for the ``sp`` family, its deltas
+detached in ``sp_fix``; the skeleton warp at the view's own train frame for
+the ``sk`` family), activations (the ``init`` family renders every
+Gaussian at the live mean of the log-scales), a render whose blend goes
+through ``TileBlend`` or ``ChunkBlend`` (the hand-written kernels on the
+card) by ``RasterConfig.schedule``, l1 (or mse) and SSIM image losses; for
+the ``sp`` family the LBS weights' sparsity and smoothness, the joint
+costs and the guided skeleton losses; the canonical-net consistency
+``c_net`` (``init`` and ``sp``), ``backward``, non-finite gradient entries
+zeroed and counted (``n_bad_grad``), Adam with per-leaf learning rates, the
+densification statistics, and the per-frame cache row (``sp_cache`` or
+``sk_cache``), the ``p2sp`` assignment ('largest') and the joint cost's
+running mean.
 
-Adaptive control (``maybe_adaptive_control``, ``trainer.py:1165-1185``):
+Stage events (``maybe_stage_events``, ``trainer.py:1061-1155``): the
+superpoint initialisation before ``init_sampling_step``, the restart from
+the point cloud ``pcd`` before ``stages['sp_fix'][0]`` (skipped without
+one, as in the JAX trainer), and the canonical-net replacement before each
+of ``canonical_replace_steps``; each fires once, when its flag is unset.
+A trainer built at a later step takes the flags (``convert.
+trainer_flags_from_flat`` reads them from a JAX checkpoint).
+
+Adaptive control (``maybe_adaptive_control``, ``trainer.py:1165-1214``):
 the ``static`` and ``init`` stages densify and prune every
 ``init_densify_prune_interval`` steps and reset the opacity every
 ``init_opacity_reset_interval`` steps, before ``init_sampling_step``; the
-split noise comes from a CPU ``torch.Generator`` seeded with ``seed`` (so
-the card and the CPU draw the same numbers; the JAX key stream is not
-matched). The ``sk`` family has none (``trainer.py:1188-1189``) and the
-skeleton is assumed initialised, as in a run restored inside the sk stages.
+``sp`` family prunes / splits and merges superpoints (``sp`` only),
+densifies and prunes, and resets the opacity, on the stage-relative
+intervals. The split noise comes from a CPU ``torch.Generator`` seeded
+with ``seed`` (so the card and the CPU draw the same numbers; the JAX key
+stream is not matched). The ``sk`` family has none
+(``trainer.py:1188-1189``).
 
-Not ported, and raising ``NotImplementedError``: the ``sp`` and ``sk_init``
-families and the superpoint initialisation at ``init_sampling_step`` when
-the schedule has sp stages; the ``elastic``, ``acc``, ``arap`` and
-``arap_p`` losses (zero in the default weights); the time noise of nets
-that are not ``is_blender``; ``batch_views > 1``, a device mesh,
-backgrounds composited per step, optimizers other than Adam. The trainer
-takes no point cloud, so the re-initialisation from it at the start of
-``sp_fix`` is not run (as in a JAX trainer given ``pcd=None``).
+Not ported, and raising ``NotImplementedError``: the skeleton
+initialisation (an ``sk``-family step needs ``skeleton_initialized``) and
+the ``sk_init`` family; the ``elastic``, ``acc``, ``arap`` and ``arap_p``
+losses and the ``sp`` extras ``re_pos``, ``jp_dist``, ``sp_arap_t`` and
+``sp_arap_ct`` (zero in the default weights); the time noise of nets that
+are not ``is_blender``; ``batch_views > 1``, a device mesh, backgrounds
+composited per step, optimizers other than Adam.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -48,23 +64,47 @@ from ..data.sampler import UniformSampler
 from ..models.gaussian_splatting import (densify_and_prune, expon_lr,
                                          gaussian_inputs, ndc_grad_norm,
                                          reset_opacity)
+from ..models import sk_gs_ops
+from ..models.deform import skeleton_net_apply
 from ..models.losses import (LossWeights, l1_loss, masked_mean, mse_loss,
                              psnr, ssim_loss)
 from ..models.optim import AdamState, adam_init, adam_update
-from ..models.sk_gs import (DEFORM_NETS, SKGSConfig, SKGSModel,
-                            forward_deltas, init_stage)
+from ..models.sk_gs import (DEFORM_NETS, SK_STAGES, SKGSConfig, SKGSModel,
+                            forward_deltas, init_stage, skeleton_net_input,
+                            sk_rot_activation, sp_stage)
+from ..models.skeleton import (joint_cost_matrix, kinematic_transforms,
+                               update_joint)
+from ..ops import se3
+from ..ops.knn import live_knn_index
 from ..render.render import composite_background, render
 from ..render.settings import GaussianInputs, RasterConfig
 
 FAMILY = {'static': 'static', 'init_fix': 'init', 'init': 'init',
-          'sk_fix': 'sk', 'sk': 'sk'}
+          'sp_fix': 'sp', 'sp': 'sp', 'sk_fix': 'sk', 'sk': 'sk'}
 # the JAX trainer's default loss weights (trainer.py:247-251)
 DEFAULT_LOSS = {'image': {'method': 'l1', 'lambda': 0.8}, 'ssim': 0.2,
                 'sparse': 0.1, 'smooth': 0.1, 'joint': 1.0,
                 'joint_all': 1.0, 'c_net': 1.0, 'cmp_p': 1.0, 'cmp_t': 0.01,
                 'cmp_r': 0.01, 'cmp_s': 0.01}
-# losses of the init family the port does not compute
+# losses of the init and sp families the port does not compute
 UNPORTED_INIT_LOSSES = ('elastic', 'acc', 'arap', 'arap_p')
+UNPORTED_SP_LOSSES = ('elastic', 'acc', 'arap', 're_pos', 'jp_dist',
+                      'sp_arap_t', 'sp_arap_ct')
+# losses gated to 0 before joint_update_interval[1] (trainer.py:1395-1401)
+JOINT_LOSSES = ('joint', 'joint_all', 'jp_dist')
+
+
+def smooth_loss(w: torch.Tensor, index: torch.Tensor, alive: torch.Tensor
+                ) -> torch.Tensor:
+    """The mean of |w_i - w_j| over each live row i of the LBS weights
+    ``w`` [N, K] and its neighbours j in ``index`` [N, k] (the ``smooth``
+    loss). The neighbours' rows are gathered by ``index_select``, whose
+    backward is one ``index_add_``; an advanced index's backward sorts the
+    indices and sums equal ones one after another, which on the all-zero
+    index before the first rebuild is one serial sum of N k rows."""
+    n, k = index.shape
+    nb = w.index_select(0, index.reshape(-1)).view(n, k, w.shape[-1])
+    return masked_mean(torch.abs(w[:, None] - nb), alive[:, None, None])
 
 
 def check_interval_v2(step: int, interval: int, start: int, end: int,
@@ -81,21 +121,38 @@ def check_interval_v2(step: int, interval: int, start: int, end: int,
 
 class SKGSTrainer:
     """Host-side loop over ``train_step(step)`` for the ``static``,
-    ``init`` and ``sk`` families.
+    ``init``, ``sp`` and ``sk`` families.
 
     ``model`` must be trainable (``convert.model_from_flat(...,
     trainable=True)`` or ``sk_gs.init_model``); it and ``scene`` are moved
     to ``device`` (CUDA unless asked otherwise). ``opt_state`` resumes Adam
-    (``convert.adam_from_flat``); fresh moments otherwise. ``last_event``
-    holds the counts of the last adaptive-control event.
+    (``convert.adam_from_flat``); fresh moments otherwise. ``pcd`` =
+    (points, colours) is the point cloud of the restart before ``sp_fix``.
+    The flags ``sp_initialized``, ``reinit_done`` and
+    ``skeleton_initialized`` mean what the JAX trainer's do: a trainer
+    built inside or past a stage event's step passes them set.
+    ``gs_knn_index`` [N, gs_knn_num] is the smooth loss's Gaussian KNN
+    (zeros until the first rebuild, as in the JAX trainer), rebuilt on
+    ``sp`` steps every ``gs_knn_update_interval`` = (every, after) steps
+    and at step 1. ``last_event`` holds the counts of the events after the
+    last step.
     """
+
+    # the smooth loss's KNN: neighbours of a Gaussian, and the rebuild
+    # interval (the JAX trainer's defaults, trainer.py:195-196)
+    gs_knn_num = 20
+    gs_knn_update_interval = (1000, 3000)
 
     def __init__(self, cfg: SKGSConfig, rcfg: RasterConfig, scene: Scene,
                  meta: SceneMeta, model: SKGSModel,
                  loss_weights: Optional[LossWeights] = None, sampler=None,
                  seed: int = 0, clip_norm: float = 0.0,
                  batch_views: int = 1, optimizer: str = 'adam', mesh=None,
-                 opt_state: Optional[AdamState] = None, device='cuda'):
+                 opt_state: Optional[AdamState] = None,
+                 pcd: Optional[Tuple[np.ndarray, np.ndarray]] = None,
+                 gs_knn_index: Optional[torch.Tensor] = None,
+                 sp_initialized: bool = False, reinit_done: bool = False,
+                 skeleton_initialized: bool = False, device='cuda'):
         if batch_views != 1:
             raise NotImplementedError('batch_views > 1 is not ported yet')
         if mesh is not None:
@@ -130,6 +187,16 @@ class SKGSTrainer:
         self.bg = torch.as_tensor(bg, dtype=torch.float32).to(self.device)
         self.step = 0
         self.last_event: Dict[str, torch.Tensor] = {}
+        self.pcd = pcd
+        self.sp_initialized = sp_initialized
+        self.reinit_done = reinit_done
+        self.skeleton_initialized = skeleton_initialized
+        n = self.model.alive.shape[0]
+        self.gs_knn_index = (
+            torch.zeros((n, self.gs_knn_num), dtype=torch.int64,
+                        device=self.device)
+            if gs_knn_index is None else
+            torch.as_tensor(gs_knn_index, dtype=torch.int64).to(self.device))
 
     # ------------------------------------------------------------ lr
 
@@ -191,54 +258,132 @@ class SKGSTrainer:
         if stage not in FAMILY:
             raise NotImplementedError(
                 f'stage {stage!r} is not ported yet: the trainer runs the '
-                f'stages {tuple(FAMILY)} (the sp and sk_init families are '
-                'missing)')
+                f'stages {tuple(FAMILY)} (the sk_init family is missing)')
         family = FAMILY[stage]
-        if family == 'init':
+        unported = {'init': UNPORTED_INIT_LOSSES,
+                    'sp': UNPORTED_SP_LOSSES}.get(family)
+        if unported:
             if not self.cfg.net.is_blender:
                 raise NotImplementedError(
                     'the time noise of nets that are not is_blender '
                     '(smooth_scale) is not ported yet')
-            bad = [n for n in UNPORTED_INIT_LOSSES
-                   if self.loss_w.ever_nonzero(n)]
+            bad = [n for n in unported if self.loss_w.ever_nonzero(n)]
             if bad:
-                raise NotImplementedError(f'the init-family losses {bad} '
+                raise NotImplementedError(f'the {family}-family losses {bad} '
                                           'are not ported yet')
         return family
 
     def maybe_stage_events(self, step: int):
         """The stage events due before step ``step`` (``trainer.py:
-        1061-1124``) that the ported families meet: the superpoint
-        initialisation at ``init_sampling_step`` is not ported."""
-        stages = self.cfg.stages
+        1061-1108``), each once: the superpoint initialisation at
+        ``init_sampling_step``, the restart from the point cloud at
+        ``stages['sp_fix'][0]`` (the last ``init`` step; none without
+        ``pcd``), the canonical-net replacement at each of
+        ``canonical_replace_steps`` after ``sp_fix`` starts. An sk-family
+        step raises until the skeleton is initialised: ``init_skeleton`` is
+        not ported (ROADMAP.md item 1.4)."""
+        cfg = self.cfg
+        stages = cfg.stages
         has_sp = stages['sp_fix'][2] > 0 or stages['sp'][2] > 0
-        if step == self.cfg.init_sampling_step and has_sp:
+        if (not self.sp_initialized and step == cfg.init_sampling_step
+                and has_sp):
+            self._init_superpoints()
+            self.sp_initialized = True
+        if (not self.reinit_done and step == stages['sp_fix'][0] and has_sp
+                and stages['sp_fix'][0] > 0 and self.pcd is not None):
+            self._reinit_from_pcd()
+            self.reinit_done = True
+        if (cfg.use_canonical_net and self.model.canonical is not None
+                and step > stages['sp_fix'][0]
+                and step in cfg.canonical_replace_steps):
+            self._canonical_replace()
+        if cfg.stage_at(step) in SK_STAGES and not self.skeleton_initialized:
             raise NotImplementedError(
-                f'step {step}: the superpoint initialisation at '
-                'init_sampling_step (init_superpoints) is not ported yet')
+                f'step {step}: the skeleton initialisation before the first '
+                'sk-family step (init_skeleton) is not ported yet (ROADMAP.md '
+                'item 1.4); a model whose skeleton is already initialised '
+                'trains with skeleton_initialized=True')
+
+    def _init_superpoints(self) -> torch.Tensor:
+        """The FPS picks [M] of the superpoint initialisation."""
+        return sk_gs_ops.init_superpoints(self.cfg, self.model,
+                                          self.opt_state)
+
+    def _reinit_from_pcd(self):
+        sk_gs_ops.reinit_gaussians_at_sp_fix(self.cfg, self.model,
+                                             self.opt_state, *self.pcd)
+
+    @torch.no_grad()
+    def _canonical_replace(self):
+        """Move the Gaussians and the superpoints to the canonical frame and
+        make ``sp_deform`` a copy of the ``canonical`` net (its own storage:
+        the in-place Adam must not move both)."""
+        cfg, model = self.cfg, self.model
+        params = model.params
+        tc = model.train_times[cfg.canonical_time_id]
+        out_c = sp_stage(cfg, model, params['xyz'], tc)
+        new_sp = se3.se3_act(out_c.aux['spT'], params['sp_points'][..., :3])
+        params['xyz'].add_(out_c.d_xyz)
+        params['sp_points'].copy_(new_sp)
+        canonical = dict(model.canonical.named_parameters())
+        for name, p in model.sp_deform.named_parameters():
+            p.copy_(canonical[name])
+
+    def update_gs_knn(self, step: int):
+        """Rebuild the smooth loss's KNN over the live Gaussians (dead rows
+        pushed 1e12 away) at step 1 and every ``gs_knn_update_interval``
+        steps (``trainer.py:1297-1309``)."""
+        if not check_interval_v2(step, *self.gs_knn_update_interval, -1) \
+                and step != 1:
+            return
+        self.gs_knn_index = live_knn_index(self.model.params['xyz'],
+                                           self.model.alive, self.gs_knn_num)
+
+    def _update_joint(self) -> torch.Tensor:
+        """The joint tree from the joint cost's running mean (MST on the
+        host); returns the root."""
+        m = self.model
+        parents, _, root = update_joint(
+            m.joint_cost, m.params['sp_points'][..., :3].detach(), m.sp_alive,
+            self.cfg.sk_knn_num)
+        m.joint_parents.copy_(parents)
+        m.joint_root.copy_(root)
+        return root
 
     def train_step(self, step: int) -> Dict[str, torch.Tensor]:
         """Run training step ``step`` (1-based). Metrics stay 0-d tensors
         on the device (reading one synchronises)."""
+        cfg = self.cfg
         self.maybe_stage_events(step)
-        stage = self.cfg.stage_at(step)
+        stage = cfg.stage_at(step)
         family = self.family(stage)
         self.loss_w.set_step(step)
         self.update_sh_degree(step)
+        if stage == 'sp':
+            self.update_gs_knn(step)
         idx = self.sampler.sample(step)
         metrics = self._step(stage, idx, self.lr_trees(step), step)
-        self.last_event = self.maybe_adaptive_control(step, family)
+        event = {}
+        if stage == 'sp' and check_interval_v2(
+                step, *cfg.joint_update_interval, close='[)'):
+            event['joint_root'] = self._update_joint()
+        event.update(self.maybe_adaptive_control(step, family))
+        self.last_event = event
         self.step = step
         return metrics
 
-    def c_net_weight(self, step: int) -> float:
-        """The consistency weight, 0 after the last canonical replacement
-        (+ 5 steps, ``trainer.py:1406-1408``)."""
+    def loss_weight(self, name: str, step: int) -> float:
+        """The weight of loss ``name`` at ``step``, with the JAX trainer's
+        gates (``trainer.py:1395-1408``): the joint losses are 0 before
+        ``joint_update_interval[1]``, the consistency loss after the last
+        canonical replacement + 5 steps."""
         cfg = self.cfg
-        if cfg.canonical_replace_steps and \
+        if name in JOINT_LOSSES and step < cfg.joint_update_interval[1]:
+            return 0.0
+        if name == 'c_net' and cfg.canonical_replace_steps and \
                 step > max(cfg.canonical_replace_steps) + 5:
             return 0.0
-        return self.loss_w.w('c_net')
+        return self.loss_w.w(name)
 
     def _losses(self, stage: str, idx: int, m2d_off: torch.Tensor,
                 step: Optional[int] = None):
@@ -260,11 +405,92 @@ class SKGSTrainer:
         img_loss = mse_loss if method == 'mse' else l1_loss
         losses = {'rgb': self.loss_w.w('image') * img_loss(img, image),
                   'ssim': self.loss_w.w('ssim') * ssim_loss(img, image)}
-        if family == 'init' and cfg.use_canonical_net \
+        if family == 'sp':
+            losses.update(self.sp_losses(d, scene.times[idx], step))
+        if family in ('init', 'sp') and cfg.use_canonical_net \
                 and self.loss_w.ever_nonzero('c_net'):
-            losses['c_net'] = self.c_net_weight(step) * self.cnet_loss(
-                scene.times[idx], model.params['xyz'] + d.d_xyz)
+            points_out = model.params['xyz'] + d.d_xyz
+            c_net = self.cnet_loss(scene.times[idx], points_out) \
+                if family == 'init' else \
+                self.cnet_loss_sp(scene.times[idx], points_out, d.aux)
+            losses['c_net'] = self.loss_weight('c_net', step) * c_net
         return losses, d, out, img
+
+    def sp_losses(self, d, t: torch.Tensor, step: int
+                  ) -> Dict[str, torch.Tensor]:
+        """The ``sp`` family's losses on the main pass ``d``
+        (``trainer.py:294-349``): the entropy of the LBS weights over the
+        live rows (``sparse``), their difference to the KNN Gaussians' in
+        ``gs_knn_index`` (``smooth``, autograd of the plain form), the
+        joint costs (``joint`` over the tree's edges, ``joint_all`` over
+        every live pair; the superpoint transforms detached with
+        ``sp_guided_detach``), and, when they have weight, the guided
+        skeleton losses ``g_cmp_*``. The cost matrix goes into ``d.aux``
+        as 'joint_cost_now' for the running mean."""
+        cfg, model = self.cfg, self.model
+        params = model.params
+        lw = lambda name: self.loss_weight(name, step)
+        alive, sp_alive = model.alive, model.sp_alive
+        w = d.aux['knn_w']
+        ent = -(w * torch.log(w + 1e-7) + (1 - w) * torch.log(1 - w + 1e-7))
+        out = {'sparse': lw('sparse') * masked_mean(ent, alive[:, None])}
+        out['smooth'] = lw('smooth') * smooth_loss(w, self.gs_knn_index,
+                                                   alive)
+        spT = d.aux['spT']
+        cost = joint_cost_matrix(params['joint_pos'],
+                                 spT.detach() if cfg.sp_guided_detach
+                                 else spT, sp_alive)
+        cost_f = torch.where(torch.isfinite(cost), cost,
+                             torch.zeros_like(cost))
+        a = torch.arange(cfg.num_superpoints, device=cost.device)
+        b = model.joint_parents[:, 0].to(torch.int64)
+        is_root = a == model.joint_root
+        pair_cost = torch.where(is_root | ~sp_alive,
+                                torch.zeros_like(a, dtype=cost.dtype),
+                                0.5 * (cost_f[a, b] + cost_f[b, a]))
+        out['joint'] = lw('joint') * masked_mean(pair_cost,
+                                                 ~is_root & sp_alive)
+        out['joint_all'] = lw('joint_all') * masked_mean(
+            cost_f, sp_alive[:, None] & sp_alive[None, :])
+        d.aux['joint_cost_now'] = cost_f.detach()
+        if cfg.guided_step_start >= 0 and any(
+                self.loss_w.ever_nonzero(n) for n in ('cmp_t', 'cmp_r',
+                                                      'cmp_s')):
+            out.update(self.guided_losses(d, t, step))
+        return out
+
+    def guided_losses(self, d, t: torch.Tensor, step: int
+                      ) -> Dict[str, torch.Tensor]:
+        """The skeleton net and FK on the tree's pivots, held to the
+        (detached) superpoint transforms, rotations and scales
+        (``trainer.py:474-506``), gated on step > ``guided_step_start``:
+        computed whatever the gate, so a closed gate gives the skeleton
+        net exact zero gradients."""
+        cfg, model = self.cfg, self.model
+        params = model.params
+        sp_tr = d.aux['spT'].detach()
+        sp_rot = d.aux['sp_rot'].detach()
+        sp_scale = d.aux['sp_scale'].detach()
+        a = torch.arange(cfg.num_superpoints, device=sp_tr.device)
+        b = model.joint_parents[:, 0].to(torch.int64)
+        joints = params['joint_pos'][a, b]
+        sk_r, sk_d_rot, sk_d_scale = skeleton_net_apply(
+            model.sk_deform, cfg.sk_net, skeleton_net_input(params, joints), t)
+        root = model.joint_root.to(torch.int64)
+        sk_T = kinematic_transforms(joints, sk_rot_activation(sk_r),
+                                    sp_tr[root], model.joint_parents, root)
+        rel = se3.se3_mul(se3.se3_inv(sp_tr), sk_T)
+        gate = float(step > cfg.guided_step_start)
+        sp_alive = model.sp_alive
+        lw = lambda name: gate * self.loss_weight(name, step)
+        return {
+            'g_cmp_t': lw('cmp_t') * masked_mean(torch.sqrt(torch.sum(
+                torch.square(se3.se3_log(rel)), -1) + 1e-12), sp_alive),
+            'g_cmp_r': lw('cmp_r') * masked_mean(
+                torch.square(sk_d_rot - sp_rot), sp_alive[:, None]),
+            'g_cmp_s': lw('cmp_s') * masked_mean(
+                torch.square(sk_d_scale - sp_scale), sp_alive[:, None]),
+        }
 
     def render_inputs(self, family: str, d) -> GaussianInputs:
         """The renderer's inputs from the deltas ``d``; the ``init`` family
@@ -295,13 +521,33 @@ class SKGSTrainer:
         return masked_mean(torch.square(points_t - points_out.detach()),
                            model.alive[:, None])
 
+    def cnet_loss_sp(self, t: torch.Tensor, points_out: torch.Tensor, aux):
+        """The ``sp`` branch of ``cnet_loss`` (``trainer.py:574-590``): the
+        same with both passes through ``sp_stage`` on the main pass's LBS
+        weights ``aux`` (they do not depend on t), the second from the
+        superpoints taken to the canonical frame (detached)."""
+        cfg, model = self.cfg, self.model
+        xyz = model.params['xyz']
+        tc = model.train_times[cfg.canonical_time_id]
+        out_c = sp_stage(cfg, model, xyz, tc, frozen_weights=aux['knn_w'],
+                         frozen_knn=aux['knn_i'])
+        points_c = out_c.d_xyz.detach() + xyz
+        sp_points_c = se3.se3_act(out_c.aux['spT'],
+                                  model.params['sp_points'][..., :3]).detach()
+        out_t = sp_stage(cfg, model, points_c, t, use_canonical=True,
+                         frozen_weights=out_c.aux['knn_w'],
+                         frozen_knn=out_c.aux['knn_i'], sp_points=sp_points_c)
+        points_t = out_t.d_xyz + points_c
+        return masked_mean(torch.square(points_t - points_out.detach()),
+                           model.alive[:, None])
+
     def _step(self, stage: str, idx: int, lrs: Dict[str, float],
               step: Optional[int] = None) -> Dict[str, torch.Tensor]:
         m2d_off = self.zero_grads()
         fwd = self._losses(stage, idx, m2d_off, step)
         total = sum(fwd[0].values())
         total.backward()
-        return self._update(idx, lrs, total, fwd, m2d_off)
+        return self._update(FAMILY[stage], idx, lrs, total, fwd, m2d_off)
 
     def zero_grads(self) -> torch.Tensor:
         """Clear the leaves' gradients; returns a fresh zero means2d offset
@@ -312,10 +558,13 @@ class SKGSTrainer:
                            requires_grad=True)
 
     @torch.no_grad()
-    def _update(self, idx: int, lrs: Dict[str, float], total: torch.Tensor,
-                fwd, m2d_off: torch.Tensor) -> Dict[str, torch.Tensor]:
-        """After the backward: sanitise the gradients, Adam, statistics,
-        the sk_cache row, and the metrics."""
+    def _update(self, family: str, idx: int, lrs: Dict[str, float],
+                total: torch.Tensor, fwd, m2d_off: torch.Tensor
+                ) -> Dict[str, torch.Tensor]:
+        """After the backward of a ``family`` step: sanitise the gradients,
+        Adam, statistics, the cache row (``sp_cache`` for the ``sp`` family,
+        ``sk_cache`` for ``sk``), the ``sp`` family's ``p2sp`` ('largest')
+        and joint cost mean, and the metrics."""
         losses, d, out, img = fwd
         model = self.model
         leaves = model.leaves()
@@ -335,8 +584,16 @@ class SKGSTrainer:
         self.opt_state = adam_update(grads, self.opt_state, leaves, lrs,
                                      clip_norm=self.clip_norm)
         self._stats_update(out['radii'], m2d_off.grad)
-        if 'cache_row' in d.aux:
-            model.sk_cache[self.scene.time_ids[idx]] = d.aux['cache_row']
+        tid = self.scene.time_ids[idx]
+        if family == 'sp':
+            model.sp_cache[tid] = d.aux['cache_row']
+            if self.cfg.warp_method == 'largest':
+                model.p2sp.copy_(d.aux['p2sp'])
+            mom = self.cfg.sk_momentum
+            model.joint_cost.copy_(model.joint_cost * mom
+                                   + d.aux['joint_cost_now'] * (1 - mom))
+        elif family == 'sk':
+            model.sk_cache[tid] = d.aux['cache_row']
         alive = model.alive
         return {
             'loss': total.detach(),
@@ -368,30 +625,70 @@ class SKGSTrainer:
 
     def maybe_adaptive_control(self, step: int, family: str
                                ) -> Dict[str, torch.Tensor]:
-        """Densify / prune and the opacity reset due after step ``step``
-        (the static / init branch of ``trainer.py:1165-1185``); returns the
-        event's counts (empty when nothing ran)."""
-        if family not in ('static', 'init'):
-            return {}   # sk_densify_gs defaults False (sk_gs.py:1983)
+        """The adaptive control due after step ``step``
+        (``trainer.py:1165-1214``); returns the event's counts (empty when
+        nothing ran). ``static`` / ``init``: densify / prune and the opacity
+        reset on their intervals before ``init_sampling_step``. ``sp``
+        family, on the step relative to ``stages['sp_fix'][0]``: the
+        superpoint prune / split (``n_pruned_sp``, ``n_split_sp``) and
+        merge (``n_merged_sp``) in ``sp`` only, densify / prune (the size
+        threshold after ``opacity_reset_interval[1]``), and the opacity
+        reset every ``opacity_reset_interval[0]`` steps and, on a white
+        background, at ``densify_interval[1]``."""
         cfg = self.cfg
         g = cfg.gauss
         event: Dict[str, torch.Tensor] = {}
-        if step < cfg.init_sampling_step and check_interval_v2(
-                step, *g.init_densify_prune_interval):
-            # the size threshold starts after the first opacity reset
+        if family in ('static', 'init'):
+            if step < cfg.init_sampling_step and check_interval_v2(
+                    step, *g.init_densify_prune_interval):
+                # the size threshold starts after the first opacity reset
+                size_thr = g.prune_max_screen_size \
+                    if step > g.opacity_reset_interval[0] else 0.0
+                do_dens = True
+                if not cfg.net.is_blender and int(self.model.alive.sum()) > (
+                        cfg.num_superpoints
+                        * cfg.node_max_num_ratio_during_init):
+                    do_dens = False   # real-capture nets cap the init growth
+                event.update(self._densify_prune(do_dens, size_thr))
+            if step < cfg.init_sampling_step and check_interval_v2(
+                    step, *g.init_opacity_reset_interval):
+                event.update(self._reset_opacity())
+            return event
+        if family != 'sp':
+            return event   # sk_densify_gs defaults False (sk_gs.py:1983)
+        rel = step - cfg.stages['sp_fix'][0]
+        if cfg.stage_at(step) == 'sp':
+            if check_interval_v2(rel, *cfg.sp_adjust_interval, close='[)'):
+                event.update(self._sp_prune_split())
+            if check_interval_v2(rel, *cfg.sp_merge_interval, close='[)'):
+                event.update(self._sp_merge())
+        if check_interval_v2(rel, *g.densify_interval):
             size_thr = g.prune_max_screen_size \
-                if step > g.opacity_reset_interval[0] else 0.0
-            do_dens = True
-            if not cfg.net.is_blender and int(self.model.alive.sum()) > (
-                    cfg.num_superpoints * cfg.node_max_num_ratio_during_init):
-                do_dens = False   # real-capture nets cap the init growth
-            # trainer.py:1216-1229, in place on the model and Adam
-            event.update(densify_and_prune(
-                self.model.gauss_view(), self.opt_state, g,
-                self.meta.cameras_extent, self.noise_gen, do_dens, True,
-                size_thr))
-        if step < cfg.init_sampling_step and check_interval_v2(
-                step, *g.init_opacity_reset_interval):
-            reset_opacity(self.model.gauss_view(), self.opt_state)
-            event['opacity_reset'] = torch.ones((), dtype=torch.bool)
+                if rel > g.opacity_reset_interval[1] else 0.0
+            event.update(self._densify_prune(True, size_thr))
+        if (rel > 1 and (rel - 1) % g.opacity_reset_interval[0] == 0) or (
+                self.meta.background_type == 'white'
+                and rel == g.densify_interval[1]):
+            event.update(self._reset_opacity())
         return event
+
+    def _densify_prune(self, do_densify: bool, size_thr: float
+                       ) -> Dict[str, torch.Tensor]:
+        """``trainer.py:1216-1229``, in place on the model and Adam."""
+        return densify_and_prune(
+            self.model.gauss_view(), self.opt_state, self.cfg.gauss,
+            self.meta.cameras_extent, self.noise_gen, do_densify, True,
+            size_thr)
+
+    def _reset_opacity(self) -> Dict[str, torch.Tensor]:
+        reset_opacity(self.model.gauss_view(), self.opt_state)
+        return {'opacity_reset': torch.ones((), dtype=torch.bool)}
+
+    def _sp_prune_split(self) -> Dict[str, torch.Tensor]:
+        st = sk_gs_ops.superpoint_prune_split(self.cfg, self.model,
+                                              self.opt_state)
+        return {'n_pruned_sp': st['n_pruned'], 'n_split_sp': st['n_split']}
+
+    def _sp_merge(self) -> Dict[str, torch.Tensor]:
+        st = sk_gs_ops.superpoint_merge(self.cfg, self.model)
+        return {'n_merged_sp': st['n_merged']}

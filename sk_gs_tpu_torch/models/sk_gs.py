@@ -1,15 +1,17 @@
 """SK-GS: skeleton-driven dynamic Gaussian splatting (port of ``SKGSConfig``,
-the model state, ``init_model``, ``init_stage``, ``sk_stage`` and
-``forward_deltas`` of ``sk_gs_tpu/models/sk_gs.py``).
+the model state, ``init_model``, ``init_stage``, ``sp_stage``, ``sk_stage``
+and ``forward_deltas`` of ``sk_gs_tpu/models/sk_gs.py``).
 
 Ported: the ``static`` stage (zero deltas); the ``init`` family, one warp
 field (``sp_deform``) on all Gaussians, where ``init_fix`` detaches its
-output; and the ``sk`` family, served by running the skeleton net at time t
-with the per-frame root transform interpolated between the two neighbouring
-train frames, and trained at a train frame's own root transform
-(``time_id``), where ``sk_fix`` detaches the skeleton's outputs and the
-net's output row is returned for the ``sk_cache``. Not ported yet, and
-raising ``NotImplementedError``: the ``sp`` family, the
+output; the ``sp`` family, the warp net run on the superpoints and blended
+onto the Gaussians by their K-nearest LBS weights (``sp_fix`` detaches the
+three deltas, not the weights); and the ``sk`` family, served by running
+the skeleton net at time t with the per-frame root transform interpolated
+between the two neighbouring train frames, and trained at a train frame's
+own root transform (``time_id``), where ``sk_fix`` detaches the skeleton's
+outputs and the net's output row is returned for the ``sk_cache``. Not
+ported yet, and raising ``NotImplementedError``: the
 ``test_time_interpolate`` branch over the cached skeleton outputs, and
 ``sk_r_delta`` reposing.
 """
@@ -107,6 +109,12 @@ class SKGSConfig(NamedTuple):
                 return name
         return 'sk'
 
+    @property
+    def sp_cache_dim(self) -> int:
+        """Width of an ``sp_cache`` row: the SE3 (7), the separate rotation
+        (4) with ``sep_rot``, the scale delta (3)."""
+        return 14 if self.sep_rot else 10
+
 
 class StageOutputs(NamedTuple):
     d_xyz: torch.Tensor
@@ -127,9 +135,13 @@ SP_LEAVES = ('hyper', 'sp_points', 'sp_hyper', 'joint_pos')
 DEFORM_NETS = ('sp_deform', 'canonical')
 AUX_BUFFERS = ('alive', 'active_sh_degree', 'sp_alive', 'joint_parents',
                'joint_root', 'train_times')
-# Training state: the densification statistics and the per-frame cache of
-# the skeleton net's outputs ([frames, M, sum(sk_net.out_dims)]).
-STAT_BUFFERS = ('max_radii2d', 'xyz_grad_accum', 'denom', 'sk_cache')
+# Training state: the densification statistics, the per-frame caches of the
+# skeleton net's outputs ([frames, M, sum(sk_net.out_dims)]) and of the
+# superpoint transforms ([frames, M, sp_cache_dim]), the joint cost's
+# running mean [M, M] and the heaviest superpoint of each Gaussian [N]
+# (``warp_method`` 'largest').
+STAT_BUFFERS = ('max_radii2d', 'xyz_grad_accum', 'denom', 'sk_cache',
+                'sp_cache', 'joint_cost', 'p2sp')
 
 
 class SKGSModel(nn.Module):
@@ -161,11 +173,15 @@ class SKGSModel(nn.Module):
         xyz = params['xyz']
         n, m = xyz.shape[0], params['joints'].shape[0]
         zeros = {'max_radii2d': (n,), 'xyz_grad_accum': (n,), 'denom': (n,),
-                 'sk_cache': (cfg.num_frames, m, sum(cfg.sk_net.out_dims))}
+                 'sk_cache': (cfg.num_frames, m, sum(cfg.sk_net.out_dims)),
+                 'sp_cache': (cfg.num_frames, m, cfg.sp_cache_dim),
+                 'joint_cost': (m, m), 'p2sp': (n,)}
         for name in STAT_BUFFERS:
             buf = buffers.get(name)
             if buf is None:
-                buf = torch.zeros(zeros[name], device=xyz.device)
+                buf = torch.zeros(zeros[name], device=xyz.device,
+                                  dtype=torch.int32 if name == 'p2sp'
+                                  else torch.float32)
             self.register_buffer(name, buf)
 
     @property
@@ -271,6 +287,105 @@ def init_stage(cfg: SKGSConfig, model: SKGSModel, points: torch.Tensor,
     return StageOutputs(d_xyz, zero, zero, {})
 
 
+def lbs_weights(cfg: SKGSConfig, params, sp_alive: torch.Tensor,
+                points: torch.Tensor):
+    """(weights [N, K], indices [N, K]) of ``points`` over the live
+    superpoints, in (xyz, hyper) space when the model has hyper features."""
+    hyper = cfg.hyper_dim > 0
+    return superpoints.calc_lbs_weight(
+        points, params['sp_points'][..., :3], sp_alive, cfg.num_knn,
+        cfg.LBS_method,
+        hyper=params['hyper'] if hyper else None,
+        sp_hyper=params['sp_hyper'] if hyper else None,
+        sp_W=params['sp_W'] if 'sp_W' in params else None,
+        sp_radius_raw=params['sp_radius'] if 'sp_radius' in params else None,
+        sp_weight_raw=params['sp_weight'] if 'sp_weight' in params else None)
+
+
+def sp_net_outputs(cfg: SKGSConfig, net: DeformNet, sp_points: torch.Tensor,
+                   t: torch.Tensor):
+    """The warp net at the (detached) superpoints: (d_xyz, the rotation
+    normalised after the identity bias, the separate rotation likewise or
+    None, d_scaling)."""
+    outs = deform_net_apply(net, cfg.net, sp_points.detach(), t)
+    bias = superpoints.rot_bias(outs['d_rotation'])
+    d_rot = quat.normalize(outs['d_rotation'] + bias)
+    g_rot = quat.normalize(outs['g_rotation'] + bias) if cfg.sep_rot else None
+    return outs['d_xyz'], d_rot, g_rot, outs['d_scaling']
+
+
+def sp_cache_row(cfg: SKGSConfig, spT: torch.Tensor,
+                 g_rot: Optional[torch.Tensor], d_scale: torch.Tensor
+                 ) -> torch.Tensor:
+    """[M, sp_cache_dim]: the SE3, the separate rotation with ``sep_rot``,
+    the scale delta."""
+    parts = [spT] + ([g_rot] if cfg.sep_rot else []) + [d_scale]
+    return torch.cat(parts, dim=-1)
+
+
+def sp_stage(cfg: SKGSConfig, model: SKGSModel, points: torch.Tensor,
+             t: torch.Tensor, use_canonical: bool = False,
+             frozen_weights: Optional[torch.Tensor] = None,
+             frozen_knn: Optional[torch.Tensor] = None,
+             sp_points: Optional[torch.Tensor] = None) -> StageOutputs:
+    """Superpoint-driven LBS warp (``sk_gs.py:305-352``): the warp net
+    (``canonical`` with ``use_canonical``, which needs the frozen weights)
+    at the superpoints (``sp_points`` when given) and time t gives one SE3
+    per superpoint; the points (detached) take the blend of their K
+    superpoints' transforms by their LBS weights, or their heaviest
+    superpoint's alone with ``warp_method`` 'largest'. ``frozen_weights``
+    / ``frozen_knn`` reuse another pass's weights on the same points: the
+    weights do not depend on t. The aux holds the transforms 'spT', the
+    weights 'knn_w' / 'knn_i', the superpoints' 'sp_rot' / 'sp_scale', the
+    assignment 'p2sp' and the ``sp_cache`` row 'cache_row'."""
+    params = model.params
+    points = points.detach()
+    sp_points_ = params['sp_points'][..., :3] if sp_points is None \
+        else sp_points
+    if use_canonical:
+        if model.canonical is None:
+            raise ValueError('the model has no canonical net')
+        outs = deform_net_apply(model.canonical, cfg.net, sp_points_.detach(),
+                                t)
+        bias = superpoints.rot_bias(outs['d_rotation'])
+        d_xyz_sp = outs['d_xyz']
+        d_rot_sp = quat.normalize(outs['d_rotation'] + bias)
+        g_rot = quat.normalize(outs['g_rotation'] + bias) if cfg.sep_rot \
+            else None
+        d_scale_sp = outs['d_scaling']
+        weights, indices = frozen_weights, frozen_knn
+    else:
+        if model.sp_deform is None:
+            raise ValueError('the model has no sp_deform net')
+        d_xyz_sp, d_rot_sp, g_rot, d_scale_sp = sp_net_outputs(
+            cfg, model.sp_deform, sp_points_, t)
+        if frozen_weights is not None:
+            weights, indices = frozen_weights, frozen_knn
+        else:
+            weights, indices = lbs_weights(cfg, params, model.sp_alive, points)
+
+    spT = superpoints.sp_transforms(d_xyz_sp, d_rot_sp, sp_points_,
+                                    cfg.warp_method)
+    idx = indices.to(torch.int64)
+    p2sp = torch.gather(idx, 1, torch.argmax(weights, dim=-1,
+                                             keepdim=True))[:, 0]
+    rot_attr = g_rot if g_rot is not None else d_rot_sp
+    if cfg.warp_method == 'largest':
+        d_points = superpoints.warp_points(points, spT, weights, indices,
+                                           cfg.warp_method, p2sp)
+        d_rotation = superpoints.blend_attr(rot_attr, weights, indices)
+        d_scaling = superpoints.blend_attr(d_scale_sp, weights, indices)
+    else:
+        dense_w = superpoints.dense_lbs_rows(weights, indices, spT.shape[0])
+        d_points, d_rotation, d_scaling = superpoints.warp_blend_dense(
+            points, spT, dense_w, rot_attr, d_scale_sp)
+    aux = {'spT': spT, 'knn_w': weights, 'knn_i': indices,
+           'sp_rot': rot_attr, 'sp_scale': d_scale_sp,
+           'p2sp': p2sp.to(torch.int32),
+           'cache_row': sp_cache_row(cfg, spT, g_rot, d_scale_sp)}
+    return StageOutputs(d_points, d_rotation, d_scaling, aux)
+
+
 def skeleton_net_input(params, joints: torch.Tensor) -> torch.Tensor:
     """Joints, plus the learned per-joint features when the model has them."""
     if 'sk_feature' in params:
@@ -354,10 +469,15 @@ def forward_deltas(cfg: SKGSConfig, model: SKGSModel, t: torch.Tensor,
         if stage == 'init_fix':
             out = out._replace(d_xyz=out.d_xyz.detach())
         return out
+    if stage in ('sp', 'sp_fix'):
+        out = sp_stage(cfg, model, model.params['xyz'], t)
+        if stage == 'sp_fix':
+            out = out._replace(d_xyz=out.d_xyz.detach(),
+                               d_rotation=out.d_rotation.detach(),
+                               d_scaling=out.d_scaling.detach())
+        return out
     if stage in SK_STAGES:
         return sk_stage(cfg, model, model.params['xyz'], t, time_id,
                         sk_r_delta, detach=stage == 'sk_fix',
                         training=training)
-    if stage in STAGE_NAMES:
-        raise NotImplementedError(f'stage {stage!r} is not ported yet')
     raise ValueError(f'unknown stage {stage!r}')

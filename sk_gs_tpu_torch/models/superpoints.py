@@ -1,5 +1,9 @@
-"""Masked KNN, LBS weights and the dense LBS warp (port of the parts of
-``sk_gs_tpu/models/superpoints.py`` the skeleton warp uses)."""
+"""Masked KNN, LBS weights, the superpoint transforms and warps, and the
+superpoint adjustment masks (port of ``sk_gs_tpu/models/superpoints.py``).
+
+Dead superpoints (``sp_alive`` False) lie at +inf KNN distance: never
+selected, no LBS weight.
+"""
 from __future__ import annotations
 
 from typing import Optional, Tuple
@@ -7,6 +11,14 @@ from typing import Optional, Tuple
 import torch
 
 from ..ops import quaternion as quat
+from ..ops import se3
+
+# the identity bias of the warp net's raw rotation head
+ROT_BIAS = (0.0, 0.0, 0.0, 1.0)
+
+
+def rot_bias(like: torch.Tensor) -> torch.Tensor:
+    return torch.tensor(ROT_BIAS, dtype=like.dtype, device=like.device)
 
 
 def masked_knn(queries: torch.Tensor, keys: torch.Tensor,
@@ -103,3 +115,100 @@ def warp_blend_dense(points: torch.Tensor, spT: torch.Tensor,
     d_rotation = b[:, 12:12 + rot_attr.shape[-1]]
     d_scaling = b[:, 12 + rot_attr.shape[-1]:]
     return d_xyz, d_rotation, d_scaling
+
+
+def sp_transforms(d_xyz: torch.Tensor, d_rot: torch.Tensor,
+                  sp_points: torch.Tensor, warp_method: str) -> torch.Tensor:
+    """Per-superpoint SE3 [M, 7] from the warp net's outputs; ``LBS_c``
+    rotates about the superpoint (t = d_xyz + p + R(-p))."""
+    if warp_method == 'LBS_c':
+        t = d_xyz + sp_points + quat.apply(d_rot, -sp_points)
+    else:
+        t = d_xyz
+    return torch.cat([t, d_rot], dim=-1)
+
+
+def warp_points(points: torch.Tensor, spT: torch.Tensor,
+                weights: torch.Tensor, indices: torch.Tensor,
+                warp_method: str, p2sp: Optional[torch.Tensor] = None
+                ) -> torch.Tensor:
+    """d_xyz [N, 3] of the blended SE3 actions; ``largest`` takes each
+    point's heaviest superpoint ``p2sp`` alone."""
+    if warp_method == 'largest':
+        return se3.se3_act(spT[p2sp.to(torch.int64)], points) - points
+    pk = se3.se3_act(spT[indices.to(torch.int64)], points[:, None, :])
+    return torch.sum(pk * weights[..., None], dim=1) - points
+
+
+def blend_attr(attr: torch.Tensor, weights: torch.Tensor,
+               indices: torch.Tensor) -> torch.Tensor:
+    """Weighted blend of per-superpoint attributes [M, C] -> [N, C]."""
+    return torch.sum(attr[indices.to(torch.int64)] * weights[..., None], dim=1)
+
+
+def segment_sum(values: torch.Tensor, ids: torch.Tensor, n: int
+                ) -> torch.Tensor:
+    """Sum of ``values`` [E, ...] into ``n`` segments by ``ids`` [E]."""
+    out = torch.zeros((n, *values.shape[1:]), dtype=values.dtype,
+                      device=values.device)
+    return out.index_add_(0, ids.to(torch.int64), values)
+
+
+def superpoint_prune_split_masks(
+        weights: torch.Tensor, indices: torch.Tensor, sp_alive: torch.Tensor,
+        xyz_grad_accum: torch.Tensor, denom: torch.Tensor,
+        points: torch.Tensor, prune_threshold: float, split_threshold: float,
+        m_cap: int) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(prune [M], split [M], split positions [M, 3]): prune a live
+    superpoint whose LBS weight mass W is below the threshold; split a kept
+    one whose weighted mean position gradient reaches the split threshold
+    or whose W is at least twice the 90th percentile of the kept W; the
+    split position is the weight-normalised mean of its points."""
+    flat_idx = indices.reshape(-1)
+    W = segment_sum(weights.reshape(-1), flat_idx, m_cap)
+    prune = sp_alive & (W < prune_threshold)
+    keep = sp_alive & ~prune
+
+    p_grad = torch.where(denom > 0,
+                         xyz_grad_accum / torch.clamp(denom, min=1.0),
+                         torch.zeros_like(denom))
+    sp_grad = segment_sum((p_grad[:, None] * weights).reshape(-1), flat_idx,
+                          m_cap)
+    split = keep & (sp_grad / torch.clamp(W, min=1e-6) >= split_threshold)
+
+    inf = torch.full_like(W, float('inf'))
+    w_sorted = torch.sort(torch.where(keep, W, inf)).values
+    # 0.9 * n_keep in float32, truncated, as the JAX package computes it
+    n_keep = keep.sum().to(torch.float32)
+    k90 = torch.clamp((0.9 * n_keep).to(torch.int64), 0, m_cap - 1)
+    w90 = w_sorted[k90]
+    split = split | (keep & (W >= 2.0 * w90) & torch.isfinite(w90))
+
+    wsum = torch.clamp(W, min=1e-6)
+    wnorm = weights / wsum[indices.to(torch.int64)]
+    new_pos = segment_sum((points[:, None, :] * wnorm[..., None])
+                          .reshape(-1, 3), flat_idx, m_cap)
+    return prune, split, new_pos
+
+
+def superpoint_merge_masks(sp_points: torch.Tensor, sp_alive: torch.Tensor,
+                           sp_cache: torch.Tensor, num_knn: int
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(min_diff [M], min_index [M]): over each live superpoint's
+    ``num_knn`` nearest live superpoints (nearest first, ties in index
+    order as ``top_k`` takes them), the smallest mean over the frames of
+    the cached transform difference, and that neighbour."""
+    m = sp_points.shape[0]
+    d = torch.linalg.norm(sp_points[:, None] - sp_points[None, :], dim=-1)
+    inf = torch.tensor(float('inf'), device=d.device)
+    d = torch.where(sp_alive[None, :] & sp_alive[:, None], d, inf)
+    d = torch.where(torch.eye(m, dtype=torch.bool, device=d.device), inf, d)
+    k = min(m, num_knn)
+    knn = torch.sort(d, dim=-1, stable=True).indices[:, :k]
+    tr_diff = torch.linalg.norm(sp_cache[:, :, None, :] - sp_cache[:, knn, :],
+                                dim=-1)                          # [T, M, K]
+    tr_diff = torch.mean(tr_diff, dim=0)
+    tr_diff = torch.where(sp_alive[:, None], tr_diff, inf)
+    min_diff, min_k = torch.min(tr_diff, dim=1)
+    min_index = knn[torch.arange(m, device=d.device), min_k]
+    return min_diff, min_index

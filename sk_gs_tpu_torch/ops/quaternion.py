@@ -20,6 +20,16 @@ def normalize(q: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
     return q / n
 
 
+def conjugate(q: torch.Tensor) -> torch.Tensor:
+    """(x, y, z, w) -> (-x, -y, -z, w)."""
+    return torch.cat([-q[..., :3], q[..., 3:4]], dim=-1)
+
+
+def standardize(q: torch.Tensor) -> torch.Tensor:
+    """Flip the sign so that the scalar part w is non-negative."""
+    return torch.where(q[..., 3:4] < 0, -q, q)
+
+
 def multiply(q1: torch.Tensor, q2: torch.Tensor) -> torch.Tensor:
     """Hamilton product: rotating by ``multiply(q1, q2)`` rotates by q2
     first, then by q1."""

@@ -29,7 +29,12 @@ import torch
 from sk_gs_tpu_torch import convert
 from sk_gs_tpu_torch.framework.evaluate import render_eval
 from sk_gs_tpu_torch.framework.presets import synthetic_fullscale
+from sk_gs_tpu_torch.data.synthetic import make_synthetic_scene
 from sk_gs_tpu_torch.framework.random_model import orbit_view, random_model_flat
+from sk_gs_tpu_torch.framework.trainer import SKGSTrainer
+from sk_gs_tpu_torch.models import sk_gs_ops
+from sk_gs_tpu_torch.models.losses import LossWeights
+from sk_gs_tpu_torch.ops.knn import furthest_point_sampling
 from sk_gs_tpu_torch.models.gaussian_splatting import gaussian_inputs
 from sk_gs_tpu_torch.models.sk_gs import forward_deltas
 from sk_gs_tpu_torch.render import GaussianInputs, prepare_blend
@@ -544,3 +549,110 @@ def test_forward_keep_decisions_at_the_cut(cuda, ch):
         assert torch.equal(p_kept[:, first_col],
                            want[:, None, :].expand(-1, 16, -1)), kernel.name
         assert float(alpha.max()) < 0.5, kernel.name      # no pixel stops
+
+
+# ---------------------------------------------------------------- sp family
+
+
+def test_fps_card_matches_cpu(cuda):
+    """The FPS on the card picks what the CPU picks on tie-free data (the
+    two best scores at every pick differ by more than 1e-5 of the best)."""
+    rng = np.random.default_rng(10)
+    pts = rng.normal(size=(2000, 48)).astype(np.float32)
+    mask = rng.uniform(size=2000) > 0.2
+    mask[0] = False
+    got = []
+    for dev in (cuda, torch.device('cpu')):
+        idx, dists = furthest_point_sampling(
+            torch.from_numpy(pts).to(dev), 128,
+            torch.from_numpy(mask).to(dev), return_dists=True)
+        got.append((idx.cpu(), dists.cpu()))
+    (i_card, d_card), (i_cpu, d_cpu) = got
+    # tie-free: at every pick the best score beats the second by 1e-5
+    p64 = pts.astype(np.float64)
+    dists = np.full(len(p64), np.inf)
+    for i in range(1, 128):
+        dists = np.minimum(dists, ((p64 - p64[i_cpu[i - 1]]) ** 2).sum(-1))
+        top2 = np.sort(np.where(mask, dists, -np.inf))[-2:]
+        assert top2[1] - top2[0] > 1e-5 * top2[1], i
+    assert torch.equal(i_card, i_cpu)
+    assert bool(torch.from_numpy(mask)[i_card].all()) and int(i_card[0]) == 1
+    fin = torch.isfinite(d_cpu)
+    assert float(((d_card[fin] - d_cpu[fin]) / d_cpu[fin]).abs().max()) <= 1e-6
+
+
+def sp_trainer(dev, rcfg_kernel=True, seed=5):
+    """A small random sp-stage model behind the trainer on ``dev``."""
+    cfg, rcfg, train = synthetic_fullscale()
+    cfg = cfg._replace(gauss=cfg.gauss._replace(capacity=4096),
+                       num_superpoints=64, num_frames=6,
+                       net=cfg.net._replace(depth=4, width=64),
+                       sk_net=cfg.sk_net._replace(width=64, depth=4,
+                                                  skips=(2,)))
+    rcfg = rcfg._replace(image_width=96, image_height=80,
+                         pair_capacity=2 ** 16, use_kernel=rcfg_kernel)
+    flat = random_model_flat(cfg, seed, n_alive=3000, log_scale_mean=-3.0,
+                             sp_stage=True)
+    scene, meta, _ = make_synthetic_scene(
+        seed=0, num_links=3, gauss_per_link=60, num_frames=6, h=80, w=96,
+        pair_capacity=2 ** 15, device=dev)
+    model = convert.model_from_flat(flat, cfg, rcfg, device=dev,
+                                    trainable=True)
+    return SKGSTrainer(cfg, rcfg, scene, meta, model,
+                       LossWeights(train.loss), sp_initialized=True,
+                       reinit_done=True, device=dev)
+
+
+def test_sp_step_gradients_kernel_vs_plain(cuda):
+    """One sp step's leaf gradients through kernels #1/#2 against the plain
+    route, on the card: within 1e-3 of each leaf's max (chip_smoke's
+    grad_path bar)."""
+    grads = []
+    for use_kernel in (True, False):
+        tr = sp_trainer(cuda, use_kernel)
+        step = 20001
+        tr.loss_w.set_step(step)
+        before = (tile_blend_fwd.launches, tile_blend_bwd.launches)
+        m2d_off = tr.zero_grads()
+        losses = tr._losses('sp', 3, m2d_off, step)[0]
+        sum(losses.values()).backward()
+        torch.cuda.synchronize()
+        launched = (tile_blend_fwd.launches - before[0],
+                    tile_blend_bwd.launches - before[1])
+        assert launched == ((1, 1) if use_kernel else (0, 0))
+        assert losses['joint'] > 0 and losses['smooth'] > 0
+        grads.append({k: p.grad.detach().clone()
+                      for k, p in tr.model.leaves().items()
+                      if p.grad is not None})
+    got, ref = grads
+    assert set(got) == set(ref) >= {'sp_W', 'xyz', 'joint_pos'}
+    for name, r in ref.items():
+        scale = float(r.abs().max())
+        err = float((got[name] - r).abs().max())
+        assert err <= 1e-3 * scale + 1e-30, (name, err, scale)
+
+
+def test_superpoint_prune_split_card_matches_cpu(cuda):
+    """The superpoint prune / split on the card edits the same rows as on
+    the CPU: masks, copies, moments."""
+    out = []
+    for dev in (cuda, torch.device('cpu')):
+        tr = sp_trainer(dev)
+        m = tr.model
+        gen = torch.Generator().manual_seed(3)
+        m.xyz_grad_accum.copy_(torch.rand(m.xyz_grad_accum.shape,
+                                          generator=gen).to(dev) * 1e-3)
+        m.denom.fill_(2.0)
+        m.sp_alive[::7] = False
+        cfg = tr.cfg._replace(sp_prune_threshold=30.0,
+                              sp_split_threshold=2e-4)
+        stats = sk_gs_ops.superpoint_prune_split(cfg, m, tr.opt_state)
+        out.append(({k: int(v) for k, v in stats.items()},
+                    convert.model_to_flat(m)))
+    (s_card, f_card), (s_cpu, f_cpu) = out
+    assert s_card == s_cpu and s_card['n_split'] > 0 and s_card['n_pruned'] > 0
+    np.testing.assert_array_equal(f_card['sp_alive'], f_cpu['sp_alive'])
+    for name in ('params/sp_points', 'params/joints', 'params/joint_pos',
+                 'params/sp_W', 'sp_cache', 'joint_cost'):
+        np.testing.assert_allclose(f_card[name], f_cpu[name], atol=1e-5,
+                                   err_msg=name)

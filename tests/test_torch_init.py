@@ -502,7 +502,13 @@ def test_trainer_refuses_the_init_parts_not_ported(three_init_steps):
         with pytest.raises(NotImplementedError, match=name):
             tt.family('init')
     tt.loss_w = tlosses.LossWeights(LOSS)
-    with pytest.raises(NotImplementedError, match='init_sampling_step'):
-        tt.train_step(tt.cfg.init_sampling_step)
-    with pytest.raises(NotImplementedError, match='sp'):
-        tt.train_step(tt.cfg.stages['sp'][0] + 1)
+    # the time noise of nets that are not is_blender, in the init and sp
+    # families
+    blender = tt.cfg
+    tt.cfg = blender._replace(net=blender.net._replace(is_blender=False))
+    try:
+        for stage in ('init', 'sp'):
+            with pytest.raises(NotImplementedError, match='is_blender'):
+                tt.family(stage)
+    finally:
+        tt.cfg = blender

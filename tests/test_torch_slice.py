@@ -247,14 +247,14 @@ def test_metrics_match_jax(rng):
 def test_unported_branches_raise(tiny):
     cfg, rcfg, model, tmodel = tiny
     t = torch.tensor(0.3)
-    for stage in ('sp', 'sp_fix'):       # the init family is ported
-        with pytest.raises(NotImplementedError):
-            tsk_gs.forward_deltas(tmodel.cfg, tmodel, t, stage)
-    for stage in ('init', 'init_fix'):
+    # the init and sp families are ported
+    for stage, atol in (('init', 1e-7), ('init_fix', 1e-7), ('sp', 1e-5),
+                        ('sp_fix', 1e-5)):
         ref = jsk_gs.forward_deltas(cfg, model, jnp.asarray(0.3), stage)
         got = tsk_gs.forward_deltas(tmodel.cfg, tmodel, t, stage)
         np.testing.assert_allclose(got.d_xyz.detach().numpy(),
-                                   np.asarray(ref.d_xyz), atol=1e-7)
+                                   np.asarray(ref.d_xyz), atol=atol,
+                                   err_msg=stage)
     with pytest.raises(ValueError):
         tsk_gs.forward_deltas(tmodel.cfg, tmodel, t, 'no_such_stage')
     with pytest.raises(NotImplementedError):

@@ -277,7 +277,8 @@ def three_steps(tiny, jax_scene, tmp_path_factory):
     tt = SKGSTrainer(tmodel.cfg, tmodel.rcfg, port_scene(scene),
                      SceneMeta(background_type=meta.background_type,
                                background=meta.background),
-                     tmodel, tlosses.LossWeights(LOSS), device='cpu')
+                     tmodel, tlosses.LossWeights(LOSS),
+                     skeleton_initialized=True, device='cpu')
     s0 = cfg.stages['sk'][0] + 1
     snaps = {}
     for k in range(3):
@@ -372,7 +373,7 @@ def test_single_view_loss_falls(tiny):
     model = convert.model_from_flat(flat, cfg, rcfg, device='cpu',
                                     trainable=True)
     tt = SKGSTrainer(cfg, rcfg, scene, meta, model, sampler=_FixedView(),
-                     device='cpu')
+                     skeleton_initialized=True, device='cpu')
     s0 = cfg.stages['sk'][0] + 1
     losses = [float(tt.train_step(s0 + k)['loss']) for k in range(20)]
     assert np.isfinite(losses).all()
@@ -397,8 +398,9 @@ def test_trainer_refuses_what_is_not_ported(tiny, jax_scene, tmp_path):
                     port_model(tiny, tmp_path, trainable=False),
                     device='cpu')
     tt = SKGSTrainer(cfg, rcfg, scene, meta, model, device='cpu')
-    # the superpoint initialisation before the step at init_sampling_step,
-    # and the sp family
-    for step in (cfg.init_sampling_step, cfg.stages['sp'][0] + 5):
-        with pytest.raises(NotImplementedError, match='not ported'):
-            tt.train_step(step)
+    # an sk-family step before the skeleton initialisation, and the sk_init
+    # family
+    with pytest.raises(NotImplementedError, match='init_skeleton'):
+        tt.train_step(cfg.stages['sk'][0] + 1)
+    with pytest.raises(NotImplementedError, match='not ported'):
+        tt.family('sk_init')
