@@ -3,15 +3,16 @@
 
     python3 chip_smoke.py [--profile]
 
-Drives the port's four paths at full width (the ``synthetic_fullscale``
+Drives the port's paths at full width (the ``synthetic_fullscale``
 preset: 100,352 Gaussian slots, 512 joints, 400 x 400, random weights from
 seed 0) through the entry points a user calls, and checks them: serving
 through ``framework.evaluate`` (80,000 alive); training the ``sk`` stage
 through ``framework.trainer.SKGSTrainer.train_step`` on the preset's
 synthetic scene, made on the card (the ``tile`` schedule, kernels #1/#2);
 training the ``init`` family with adaptive density control on the
-``chunk`` schedule (kernels #3/#4); and training the ``sp`` family with its
-stage events on the ``tile`` schedule. Phases, one JSON line each:
+``chunk`` schedule (kernels #3/#4); training the ``sp`` family with its
+stage events on the ``tile`` schedule; and the skeleton initialisation
+with the ``sk_init`` family (kernel #1). Phases, one JSON line each:
 
 1. device: the card, the device count and its power limit;
 2. build: every hand-written kernel compiled from ``sk_gs_tpu_torch/csrc``
@@ -42,14 +43,18 @@ stage events on the ``tile`` schedule. Phases, one JSON line each:
    counts read back; per step the synchronised time and the metrics; the
    loss on the first step's view before and after; the peak memory;
 9. grad_path: one step's leaf gradients through the kernels against the
-   plain forward and backward on the card, on the same sample;
+   plain forward and backward on the card, on the same sample, both
+   routes from one cotangent of the image losses on the composited image
+   (the plain route's: the l1 loss has a kink where a route renders a
+   pixel channel exactly at the target), with the count of pixel channels
+   whose l1 sign differs between the routes;
 10. train_reference: a small model trained 2 steps on the card and on the
    CPU (plain versions), losses, gradients and parameters compared;
 11. kernel_chunk_bwd: the chunk schedule's backward kernel (#4) against its
    plain version on a real ``init`` step's cotangents (the populated start
    of 13, at its first step, before it trains), as 7 reports #2;
 12. grad_path_init: that step's leaf gradients through kernels #3 and #4
-   against the plain chunk route on the card;
+   against the plain chunk route on the card, as 9 holds them;
 13. init_train: the launch counts set to 0, then three starts of the init
    family on the chunk schedule, the counts read back: the flagship start
    (2,000 points, ``init_from_pcd``, ``init_model`` from seed 0; steps 1-3
@@ -82,7 +87,7 @@ stage events on the ``tile`` schedule. Phases, one JSON line each:
    counts and synchronised host time; the peak memory; the smooth loss's
    forward and backward alone on the rebuilt and on an all-zero KNN;
 17. grad_path_sp: one sp step's leaf gradients through kernels #1/#2
-   against the plain route on the card;
+   against the plain route on the card, as 9 holds them;
 18. train_reference_sp: a small sp-stage model trained on the card and on
    the CPU, 2 steps on the all-zero smooth-loss KNN (sp_fix into sp) and 2
    steps after its rebuild across the joint tree and the superpoint prune
@@ -90,9 +95,36 @@ stage events on the ``tile`` schedule. Phases, one JSON line each:
    ``joint_parents`` equal; the ``sp_W`` gradient's bar adds the float32
    rounding of its smooth-loss term, measured against float64 on each
    side;
-19. with ``--profile`` only: one request's, one ``sk`` step's and one
-   ``init`` step's (the flagship start's) stages timed with CUDA events,
-   and torch.profiler windows over a few requests and steps (device time
+19. sk_init_event: the skeleton initialisation at full width on the
+   flagship's shape (no ``sk_init`` steps): the random sp-stage model of
+   16 takes the last sp step (40,000), then step 40,001 runs the
+   initialisation before it, both loops cut to ``SK_EVENT_CUT`` (500) of
+   the flagship's min(10,000, 2,000) iterations, then steps
+   40,002-40,005 through kernels #1/#2: the event's synchronised time by
+   part (sp cache and LBS freeze, joint loop, joint tree, distillation)
+   and per loop iteration, the loops' first and last losses, the root, the
+   non-finite count of the skeleton (0), peak memory, the steps' metrics
+   and launches;
+20. sk_init_train: the same model on the sk stages of
+   ``configs/synthetic_smoke.yaml`` (10 ``sk_init`` steps,
+   ``joint_init_steps`` 50): the last sp step, then, with the launch
+   counts at 0, the first 5 ``sk_init`` steps (the initialisation before
+   the first), the counts read back (kernel #1 once a step, #2 never: the
+   image losses are detached), the ``cmp_*`` losses finite;
+21. train_reference_sk_init: the skeleton initialisation (20 + 20
+   iterations, the loops checked for host syncs on the card) of a small
+   model on the card and on the CPU: the tree, the frozen LBS and the
+   caches equal or within 1e-5, the Adam-updated leaves as 10 holds
+   parameters; then an ``sk_init`` and an ``sk`` step on both from the
+   CPU's state after it, as 10 holds steps;
+22. with ``--profile`` only: 19 at the flagship's 2,000 + 2,000
+   iterations (profile_sk_init_event); profile_sk_init, each loop's
+   iteration on the host clock and under torch.profiler (device time,
+   busy share, top kernels) on that model after its initialisation; 21
+   over 50 + 50 iterations, reported, not held; and one request's, one
+   ``sk`` step's and one ``init`` step's (the flagship start's) stages
+   timed with CUDA events, and torch.profiler windows over a few requests
+   and steps (device time
    by kernel, device busy share against the same trainer's unprofiled
    steps, the pairs of the window's steps, and any ``index_add_`` kernel in
    a step's window); and for each of those two trainers, its backward
@@ -123,6 +155,8 @@ beside it the import fails.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import functools
 import json
 import math
 import subprocess
@@ -140,8 +174,10 @@ from sk_gs_tpu_torch.framework.evaluate import evaluate, render_eval
 from sk_gs_tpu_torch.framework.presets import (flagship_point_cloud,
                                                synthetic_fullscale)
 from sk_gs_tpu_torch.framework.random_model import orbit_view, random_model_flat
-from sk_gs_tpu_torch.framework.trainer import (FAMILY, SKGSTrainer,
-                                               smooth_loss)
+from sk_gs_tpu_torch.framework.trainer import (FAMILY,
+                                               INIT_SKELETON_MAX_STEPS,
+                                               SKGSTrainer, smooth_loss)
+from sk_gs_tpu_torch.models import optim, sk_gs_ops
 from sk_gs_tpu_torch.models.gaussian_splatting import (gaussian_inputs,
                                                        init_from_pcd)
 from sk_gs_tpu_torch.models.losses import LossWeights, l1_loss, ssim_loss
@@ -196,6 +232,10 @@ BWD_TOL = 3e-4          # of each column group's max magnitude
 # (of each column group's max magnitude)
 RERUN_TOL = 1e-5
 GRAD_PATH_TOL = 1e-3    # of each leaf's max magnitude
+PROFILER_TRIES = 3
+# the losses on the composited image: the gradient paths give both routes
+# one cotangent of their sum on the image
+IMAGE_LOSSES = ('rgb', 'ssim')
 SEED = 0
 N_REQUESTS = 10
 N_STEPS = 10
@@ -232,6 +272,31 @@ EVENT_HOOKS = ('_init_superpoints', '_reinit_from_pcd', '_canonical_replace',
 # the FPS's running minimum distances, card against CPU, where a pick breaks
 # a near-tie another way
 FPS_RTOL = 1e-6
+# the skeleton initialisation's parts in sk_gs_ops, timed by sk_init_event
+INIT_SKELETON_PARTS = ('freeze_lbs', 'optimize_joint_pos', 'finalize_joints',
+                       'distill_sk_deform')
+# sk_init_event: joint_init_steps of the default run, and the sk steps
+# after the initialisation. At the flagship's 2,000 + 2,000 iterations the
+# event took 110.7-140.4 s on the H100, over 120 s once: the default run
+# cuts both loops to 500, and --profile runs the flagship's counts
+SK_EVENT_CUT = 500
+SK_AFTER_INIT = 5
+# profile_sk_init: iterations of each loop timed and profiled
+N_PROFILED_ITERS = 20
+# sk_init_train: the sk stages of configs/synthetic_smoke.yaml, and the
+# steps taken of its sk_init stage
+SK_INIT_SMOKE = {'sk_init': 10, 'joint_init_steps': 50}
+N_SK_INIT_STEPS = 5
+# train_reference_sk_init: iterations of each loop, and the factor on the
+# random warp net's translation and rotation heads (a fresh net's spread,
+# 1e-5, barely moves the superpoints: the joint costs then sit at the
+# joint loop's Adam noise, +-lr, where rounding decides them). The
+# parameter rule holds a few Adam steps: over longer loops the +-lr moves
+# of the entries whose gradient is near zero feed back into every
+# gradient, which it does not bound (--profile reports SK_REF_ITERS_LONG)
+SK_REF_ITERS = 20
+SK_REF_ITERS_LONG = 50
+SK_REF_MOTION = 1000.0
 
 
 def emit(obj):
@@ -737,16 +802,48 @@ def phase_train(trainer: SKGSTrainer, s0: int):
     return launches
 
 
-def leaf_grads(trainer: SKGSTrainer, step: int, idx: int):
+def leaf_grads(trainer: SKGSTrainer, step: int, idx: int,
+               img_cotangent: torch.Tensor = None):
     """Every leaf's gradient of the step's loss at view ``idx`` (no
-    update)."""
+    update), with the composited image and the image losses' cotangent on
+    it: that part of the gradient enters as ``img_cotangent`` when given
+    (else the route's own); the other losses go through autograd."""
     trainer.loss_w.set_step(step)
     m2d_off = trainer.zero_grads()
-    losses = trainer._losses(trainer.cfg.stage_at(step), idx, m2d_off,
-                             step)[0]
-    sum(losses.values()).backward()
-    return {k: p.grad.detach().clone()
-            for k, p in trainer.model.leaves().items() if p.grad is not None}
+    losses, _, _, img = trainer._losses(trainer.cfg.stage_at(step), idx,
+                                        m2d_off, step)
+    if img_cotangent is None:
+        img_cotangent, = torch.autograd.grad(
+            sum(losses[k] for k in IMAGE_LOSSES), img, retain_graph=True)
+    outs, cots = [img], [img_cotangent]
+    rest = [v for k, v in losses.items() if k not in IMAGE_LOSSES]
+    if rest:
+        outs.append(sum(rest))
+        cots.append(torch.ones_like(outs[-1]))
+    torch.autograd.backward(outs, cots)
+    grads = {k: p.grad.detach().clone()
+             for k, p in trainer.model.leaves().items() if p.grad is not None}
+    return grads, img.detach(), img_cotangent
+
+
+def route_grads(trainer: SKGSTrainer, plain: SKGSTrainer, step: int):
+    """The leaf gradients of ``step`` at its first view through the
+    kernels (``trainer``) and through the plain route (``plain``, the same
+    model), both from one cotangent of the image losses on the composited
+    image, the plain route's: where one route renders a pixel channel
+    exactly at the target, the l1 loss's sign(image - target) is 0 there
+    and +-1 on the other, which is the loss's kink, not the kernels'. So
+    the check holds the kernels' VJP at one upstream gradient. Returns
+    (view, kernels' gradients, plain gradients, the pixel channels whose
+    l1 sign differs between the routes)."""
+    idx = first_view(trainer, step)
+    ref, img_p, cot = leaf_grads(plain, step, idx)
+    got, img_k, _ = leaf_grads(trainer, step, idx, cot)
+    trainer.zero_grads()
+    target = trainer.scene.images[idx][..., :3]
+    flips = torch.sign(img_k[..., :3] - target) != \
+        torch.sign(img_p[..., :3] - target)
+    return idx, got, ref, int(flips.sum())
 
 
 def close_leaves(got, ref, tol, scale_of=None, tol_of=None):
@@ -780,14 +877,12 @@ def phase_grad_path(trainer: SKGSTrainer, step: int):
     plain = SKGSTrainer(trainer.cfg, trainer.rcfg._replace(use_kernel=False),
                         trainer.scene, trainer.meta, trainer.model,
                         trainer.loss_w, opt_state=trainer.opt_state,
-                        device='cuda')
-    idx = first_view(trainer, step)
-    got = leaf_grads(trainer, step, idx)
-    ref = leaf_grads(plain, step, idx)
-    trainer.zero_grads()
+                        skeleton_initialized=True, device='cuda')
+    idx, got, ref, flips = route_grads(trainer, plain, step)
     worst = close_leaves(got, ref, GRAD_PATH_TOL)
     emit({'phase': 'grad_path', 'step': step, 'view': idx,
           'leaves': len(ref), 'tolerance': GRAD_PATH_TOL,
+          'image_cotangent': 'shared', 'l1_sign_flips': flips,
           'worst_err_over_max': max(worst.values()),
           'err_over_max_by_leaf': worst})
 
@@ -998,10 +1093,7 @@ def phase_grad_path_init(trainer: SKGSTrainer, step: int):
                         trainer.scene, trainer.meta, trainer.model,
                         trainer.loss_w, opt_state=trainer.opt_state,
                         device='cuda')
-    idx = first_view(trainer, step)
-    got = leaf_grads(trainer, step, idx)
-    ref = leaf_grads(plain, step, idx)
-    trainer.zero_grads()
+    idx, got, ref, flips = route_grads(trainer, plain, step)
     # the init family renders every Gaussian at one isotropic scale, so the
     # covariance does not depend on the rotation: its gradient is rounding
     # noise, held against the position gradient's scale instead
@@ -1010,6 +1102,7 @@ def phase_grad_path_init(trainer: SKGSTrainer, step: int):
     emit({'phase': 'grad_path_init', 'step': step,
           'stage': trainer.cfg.stage_at(step), 'view': idx,
           'leaves': len(ref), 'nets': nets, 'tolerance': GRAD_PATH_TOL,
+          'image_cotangent': 'shared', 'l1_sign_flips': flips,
           'worst_err_over_max': max(worst.values()),
           'max_abs_grad': {k: float(ref[k].abs().max())
                            for k in ('rotation', 'xyz')},
@@ -1222,6 +1315,19 @@ def phase_sp_events(cfg, rcfg, train):
         raise AssertionError(f'sp events: {fps} {checks}')
 
 
+def sp_stage_trainer(cfg, rcfg, train) -> SKGSTrainer:
+    """A random sp-stage model (80,000 alive, all 512 superpoints live)
+    behind a fresh trainer on the preset's scene, past the superpoint
+    events, its skeleton not initialised."""
+    scene, meta, _ = fullscale_scene(rcfg, train)
+    model = convert.model_from_flat(
+        random_model_flat(cfg, SEED, 80_000, sp_stage=True), cfg, rcfg,
+        device='cuda', trainable=True)
+    return SKGSTrainer(cfg, rcfg, scene, meta, model, LossWeights(train.loss),
+                       seed=train.seed, sp_initialized=True,
+                       reinit_done=True, device='cuda')
+
+
 def phase_sp_train(cfg, rcfg, train):
     """The sp family at full width: a random sp-stage model (80,000 alive,
     all 512 superpoints live), one trainer on the tile schedule, built
@@ -1233,14 +1339,7 @@ def phase_sp_train(cfg, rcfg, train):
     densify / prune after it) and 29,999-30,001 (the merge after 30,000).
     Then the smooth loss's forward and backward alone on the last step's
     weights, on the rebuilt KNN and on an all-zero one."""
-    scene, meta, _ = fullscale_scene(rcfg, train)
-    model = convert.model_from_flat(
-        random_model_flat(cfg, SEED, 80_000, sp_stage=True), cfg, rcfg,
-        device='cuda', trainable=True)
-    trainer = SKGSTrainer(cfg, rcfg, scene, meta, model,
-                          LossWeights(train.loss), seed=train.seed,
-                          sp_initialized=True, reinit_done=True,
-                          device='cuda')
+    trainer = sp_stage_trainer(cfg, rcfg, train)
     trainer.train_step(SP_TRAIN_STEPS[0] - 1)
     log = time_events(trainer)
     torch.cuda.synchronize()
@@ -1312,15 +1411,13 @@ def phase_grad_path_sp(trainer: SKGSTrainer, step: int):
                         trainer.loss_w, opt_state=trainer.opt_state,
                         gs_knn_index=trainer.gs_knn_index,
                         sp_initialized=True, reinit_done=True, device='cuda')
-    idx = first_view(trainer, step)
-    got = leaf_grads(trainer, step, idx)
-    ref = leaf_grads(plain, step, idx)
-    trainer.zero_grads()
+    idx, got, ref, flips = route_grads(trainer, plain, step)
     worst = close_leaves(got, ref, GRAD_PATH_TOL)
     zero = sorted(k for k, v in ref.items() if not v.any())
     emit({'phase': 'grad_path_sp', 'step': step,
           'stage': trainer.cfg.stage_at(step), 'view': idx,
           'leaves': len(ref), 'tolerance': GRAD_PATH_TOL,
+          'image_cotangent': 'shared', 'l1_sign_flips': flips,
           'worst_err_over_max': max(worst.values()),
           'leaves_with_zero_gradient': zero,
           'err_over_max_by_leaf': worst})
@@ -1492,6 +1589,325 @@ def phase_train_reference_sp(seed: int):
         raise AssertionError(f'card and CPU sp training differ: {failed}')
 
 
+# ---------------------------------------------------------------- skeleton
+
+
+@contextlib.contextmanager
+def timed_parts(log: dict):
+    """Time each part of the skeleton initialisation that runs inside the
+    block (``INIT_SKELETON_PARTS`` of ``sk_gs_ops``), synchronised, into
+    ``log`` by name."""
+    saved = {name: getattr(sk_gs_ops, name) for name in INIT_SKELETON_PARTS}
+
+    def timed(*args, _fn, _name, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = _fn(*args, **kw)
+        torch.cuda.synchronize()
+        log[_name] = (time.perf_counter() - t0) * 1e3
+        return out
+    for name, fn in saved.items():
+        setattr(sk_gs_ops, name, functools.partial(timed, _fn=fn, _name=name))
+    try:
+        yield log
+    finally:
+        for name, fn in saved.items():
+            setattr(sk_gs_ops, name, fn)
+
+
+def capture_init(trainer: SKGSTrainer, out: dict):
+    """Wrap the trainer's skeleton initialisation: its synchronised host
+    time and the loops' losses go to ``out``."""
+    fn = trainer._init_skeleton
+
+    def run():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        out['ms'] = (time.perf_counter() - t0) * 1e3
+        out['losses'] = {k: v.cpu() for k, v in res.items()}
+        return res
+    trainer._init_skeleton = run
+
+
+def non_finite_skeleton(model) -> int:
+    """Non-finite entries of ``joints``, ``global_tr`` and the skeleton net."""
+    leaves = [model.params['joints'], model.params['global_tr'],
+              *model.sk_deform.parameters()]
+    return int(sum((~torch.isfinite(x)).sum() for x in leaves))
+
+
+def phase_sk_init_event(cfg, rcfg, train, phase: str = 'sk_init_event'):
+    """The skeleton initialisation at full width on the flagship's shape
+    (``sk_init`` empty): phase_sp_train's random sp-stage model trains the
+    last sp step (40,000), then step 40,001 runs the initialisation before
+    it, min(``joint_init_steps``, 2,000) iterations in each loop (the
+    flagship's 2,000, or the default run's cut ``SK_EVENT_CUT``), then
+    steps 40,002-40,005;
+    all five steps through kernels #1/#2. Reports the event's synchronised
+    host time by part (the sp cache and the LBS freeze, the joint loop, the
+    joint tree, the distillation) and per loop iteration, the loops' first
+    and last losses, the root, the non-finite count (0) and peak memory."""
+    trainer = sp_stage_trainer(cfg, rcfg, train)
+    s0 = cfg.stages['sk'][0]
+    n = min(cfg.joint_init_steps, INIT_SKELETON_MAX_STEPS)
+    run_sp_steps(trainer, (s0,), [], phase)
+    init, parts = {}, {}
+    capture_init(trainer, init)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for k in KERNELS:
+        k.launches = 0
+    with timed_parts(parts):
+        records = run_sp_steps(trainer, range(s0 + 1, s0 + 1 + SK_AFTER_INIT),
+                               [], phase)
+    launches = {k.name: k.launches for k in KERNELS}
+    peak = torch.cuda.max_memory_allocated()
+    model = trainer.model
+    bad = non_finite_skeleton(model)
+    jl, dl = init['losses']['joint_loss'], init['losses']['distill_loss']
+    emit({'phase': phase, 'step': s0 + 1, 'iterations': n,
+          'event_ms': init['ms'], 'parts_ms': parts,
+          'ms_per_iteration': {
+              'joint': parts['optimize_joint_pos'] / n,
+              'distill': parts['distill_sk_deform'] / n},
+          'step_ms_with_event': records[0]['ms'],
+          'step_ms_after': [r['ms'] for r in records[1:]],
+          'joint_loss_first_last': [float(jl[0]), float(jl[-1])],
+          'distill_loss_first_last': [float(dl[0]), float(dl[-1])],
+          'joint_root': int(model.joint_root),
+          'n_live_joints': int(model.sp_alive.sum()),
+          'non_finite': bad, 'launches': launches,
+          'max_memory_allocated': peak})
+    expected = {k.name: SK_AFTER_INIT if k in (tile_blend_fwd, tile_blend_bwd)
+                else 0 for k in KERNELS}
+    if bad or launches != expected or not trainer.skeleton_initialized \
+            or not all(r['stage'] == 'sk' for r in records) \
+            or jl.shape[0] != n or dl.shape[0] != n \
+            or not (torch.isfinite(jl).all() and torch.isfinite(dl).all()):
+        raise AssertionError(f'{phase}: non-finite {bad}, launches '
+                             f'{launches} (expected {expected})')
+    return trainer
+
+
+def phase_profile_sk_init(trainer: SKGSTrainer):
+    """Where an iteration of the skeleton initialisation's loops goes: each
+    loop run again on ``trainer``'s model (after its initialisation) for
+    ``N_PROFILED_ITERS`` iterations, 3 first unprofiled (their host-clock
+    time a loop iteration) and then under torch.profiler: device time an
+    iteration, the busy share against the unprofiled iteration, the top
+    kernels."""
+    cfg, model = trainer.cfg, trainer.model
+    gen = torch.Generator().manual_seed(SEED)
+    tids = torch.randint(0, model.sp_cache.shape[0], (N_PROFILED_ITERS,),
+                         generator=gen).to(model.device)
+    out = {}
+    for name, loop in (('joint', sk_gs_ops.optimize_joint_pos),
+                       ('distill', sk_gs_ops.distill_sk_deform)):
+        loop(cfg, model, tids[:3])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loop(cfg, model, tids)
+        torch.cuda.synchronize()
+        iter_ms = (time.perf_counter() - t0) * 1e3 / N_PROFILED_ITERS
+        on_dev, wall = profile_window(lambda: loop(cfg, model, tids))
+        dev = sum(dev_us(e) for e in on_dev) * 1e-3 / N_PROFILED_ITERS
+        out[name] = {'iteration_ms': iter_ms,
+                     'iteration_ms_profiled': wall * 1e3 / N_PROFILED_ITERS,
+                     'device_ms_per_iteration': dev,
+                     'device_busy_share': dev / iter_ms,
+                     'launches_per_iteration': sum(e.count for e in on_dev)
+                     / N_PROFILED_ITERS,
+                     'top_device_kernels': top_kernels(
+                         on_dev, N_PROFILED_ITERS, 'iteration', k=8)}
+    emit({'phase': 'profile_sk_init', 'iterations': N_PROFILED_ITERS, **out})
+
+
+def sk_init_cfg(cfg):
+    """``cfg`` with the sk stages of ``configs/synthetic_smoke.yaml``: 10
+    ``sk_init`` steps and ``joint_init_steps`` 50."""
+    sched = tuple((k, SK_INIT_SMOKE['sk_init'] if k == 'sk_init' else v)
+                  for k, v in cfg.train_schedule)
+    return cfg._replace(train_schedule=sched,
+                        joint_init_steps=SK_INIT_SMOKE['joint_init_steps'])
+
+
+def phase_sk_init_train(cfg, rcfg, train):
+    """The ``sk_init`` family at full width: phase_sp_train's random
+    sp-stage model on the flagship schedule with the sk stages of
+    synthetic_smoke (``sk_init_cfg``); the last sp step, then with the
+    launch counts at 0 the first ``N_SK_INIT_STEPS`` sk_init steps, the
+    skeleton initialisation (50 + 50 iterations) before the first. Kernel
+    #1 launches once a step and #2 never: the image losses are detached."""
+    cfg = sk_init_cfg(cfg)
+    trainer = sp_stage_trainer(cfg, rcfg, train)
+    s0 = cfg.stages['sk_init'][0]
+    run_sp_steps(trainer, (s0,), [], 'sk_init_train')
+    init = {}
+    capture_init(trainer, init)
+    torch.cuda.synchronize()
+    for k in KERNELS:
+        k.launches = 0
+    records = run_sp_steps(trainer, range(s0 + 1, s0 + 1 + N_SK_INIT_STEPS),
+                           [], 'sk_init_train')
+    launches = {k.name: k.launches for k in KERNELS}
+    cmp = {k: [r[k] for r in records] for k in ('cmp_t', 'cmp_r', 'cmp_s')}
+    ms = [r['ms'] for r in records]
+    emit({'phase': 'sk_init_train', 'steps': len(records),
+          'first_step': s0 + 1, 'launches': launches,
+          'event_ms': init['ms'], 'step_ms_with_event': ms[0],
+          'step_ms_after': ms[1:], 'cmp': cmp,
+          'non_finite': non_finite_skeleton(trainer.model),
+          'max_memory_allocated': torch.cuda.max_memory_allocated()})
+    expected = {k.name: len(records) if k is tile_blend_fwd else 0
+                for k in KERNELS}
+    if launches != expected \
+            or not all(r['stage'] == 'sk_init' for r in records) \
+            or not all(math.isfinite(v) for vs in cmp.values() for v in vs):
+        raise AssertionError(f'sk_init_train: launches {launches} (expected '
+                             f'{expected}), cmp {cmp}')
+    return launches
+
+
+@contextlib.contextmanager
+def no_host_sync():
+    """Raise at any operation that synchronises the host with the card
+    inside the block (``torch.cuda.set_sync_debug_mode``)."""
+    torch.cuda.set_sync_debug_mode('error')
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode('default')
+
+
+def phase_train_reference_sk_init(seed: int, iters: int = SK_REF_ITERS,
+                                  phase: str = 'train_reference_sk_init',
+                                  check: bool = True):
+    """The skeleton initialisation, then an ``sk_init`` and an ``sk`` step,
+    of a small model on the card (kernels #1/#2) and on the CPU (plain
+    versions): train_reference_sp's model (every eighth superpoint dead),
+    its warp net's translation and rotation heads scaled by
+    ``SK_REF_MOTION``, on a schedule with one ``sk_init`` step and
+    ``joint_init_steps`` ``iters``; both trainers draw the loops' frames
+    from their CPU generator of one seed. On the card the two loops run
+    with the host sync check on (``no_host_sync``). The event: ``sp_knn``,
+    ``p2sp``, ``joint_parents`` and ``joint_root`` equal; ``sp_cache``,
+    ``sp_weights`` and ``joint_cost`` within 1e-5 of their max; the Adam
+    leaves (``joint_pos`` over the joint loop, the distilled leaves over
+    both loops, since ``joints`` start from ``joint_pos``) by
+    ``params_over_tol`` with the CPU's gradients of each iteration. Then
+    the two steps, both devices from the CPU's state after the event, as
+    train_reference holds them: losses 2e-4, gradients 3e-4 of each leaf's
+    max. ``check`` False reports without holding (``--profile`` runs the
+    loops longer than the parameter rule covers)."""
+    cfg, rcfg, train = synthetic_fullscale()
+    sched = tuple((k, 1 if k == 'sk_init' else v)
+                  for k, v in cfg.train_schedule)
+    cfg = cfg._replace(gauss=cfg.gauss._replace(capacity=4096),
+                       num_superpoints=64, num_frames=6,
+                       net=cfg.net._replace(depth=4, width=64),
+                       sk_net=cfg.sk_net._replace(width=64, depth=4,
+                                                  skips=(2,)),
+                       train_schedule=sched, joint_init_steps=iters)
+    rcfg = rcfg._replace(image_width=96, image_height=80,
+                         pair_capacity=2 ** 16)
+    flat = random_model_flat(cfg, seed + 1, n_alive=3000,
+                             log_scale_mean=-3.0, sp_stage=True)
+    flat['sp_alive'][::8] = False
+    for head in ('warp', 'rotation'):
+        flat[f'params/sp_deform/{head}/w'] *= SK_REF_MOTION
+    s0 = cfg.stages['sk_init'][0] + 1
+    scenes = {dev: make_synthetic_scene(
+        seed=seed, num_links=3, gauss_per_link=60, num_frames=6, h=80, w=96,
+        pair_capacity=2 ** 15, device=dev)[:2] for dev in ('cuda', 'cpu')}
+
+    def trainer(dev, model_flat, **flags):
+        model = convert.model_from_flat(model_flat, cfg, rcfg, device=dev,
+                                        trainable=True)
+        return SKGSTrainer(cfg, rcfg, *scenes[dev], model,
+                           LossWeights(train.loss), seed=seed,
+                           sp_initialized=True, reinit_done=True,
+                           device=dev, **flags)
+
+    events = {}
+    for dev in ('cuda', 'cpu'):
+        tr = trainer(dev, flat)
+        init, loop_grads = {}, []
+        capture_init(tr, init)
+        update = optim.adam_update
+        saved = {k: getattr(sk_gs_ops, k)
+                 for k in ('optimize_joint_pos', 'distill_sk_deform')}
+
+        def spy(grads, *args, _out=loop_grads, **kw):
+            _out.append({k: g.detach().cpu().clone()
+                         for k, g in grads.items() if g is not None})
+            return update(grads, *args, **kw)
+
+        def checked(*args, _fn, **kw):
+            with no_host_sync():
+                return _fn(*args, **kw)
+        if dev == 'cpu':
+            optim.adam_update = spy
+        else:
+            for k, fn in saved.items():
+                setattr(sk_gs_ops, k, functools.partial(checked, _fn=fn))
+        try:
+            tr.maybe_stage_events(s0)
+        finally:
+            optim.adam_update = update
+            for k, fn in saved.items():
+                setattr(sk_gs_ops, k, fn)
+        events[dev] = (init, loop_grads, convert.model_to_flat(tr.model))
+    (init_c, _, f_c), (init_p, loop_p, f_p) = events['cuda'], events['cpu']
+    joint_g = [{'joint_pos': g['jp']} for g in loop_p[:iters]]
+    distill_g = loop_p[iters:]
+    equal = {k: bool(np.array_equal(f_c[k], f_p[k]))
+             for k in ('sp_knn', 'p2sp', 'joint_parents', 'joint_root')}
+    close = {k: float(np.abs(f_c[k] - f_p[k]).max()
+                      / max(np.abs(f_p[k]).max(), 1e-30))
+             for k in ('sp_cache', 'sp_weights', 'joint_cost')}
+    lr = sk_gs_ops.INIT_LR
+    joint_worst = params_over_tol(f_c, f_p, joint_g, {'joint_pos': lr}, iters)
+    distill_worst = params_over_tol(f_c, f_p, distill_g,
+                                    {k: lr for k in distill_g[0]}, 2 * iters)
+
+    runs = {}
+    for dev in ('cuda', 'cpu'):
+        tr = trainer(dev, f_p, skeleton_initialized=True)
+        losses, grads = [], []
+        for step in (s0, s0 + 1):
+            losses.append(float(tr.train_step(step)['loss']))
+            grads.append({k: p.grad.detach().cpu().clone()
+                          for k, p in tr.model.leaves().items()})
+        runs[dev] = (losses, grads)
+    (l_c, g_c), (l_p, g_p) = runs['cuda'], runs['cpu']
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(l_c, l_p))
+    grad_worst = [max(close_leaves(a, b, 3e-4).values()) if check
+                  else max(close_leaves(a, b, math.inf).values())
+                  for a, b in zip(g_c, g_p)]
+    emit({'phase': phase, 'image': [80, 96], 'iterations': iters,
+          'steps': [s0, s0 + 1],
+          'stages': [cfg.stage_at(s0), cfg.stage_at(s0 + 1)],
+          'loops_checked_for_host_syncs_on_the_card': True, 'equal': equal,
+          'err_over_max': close, 'tolerance': 1e-5,
+          'joint_root': int(f_c['joint_root']),
+          'distilled_leaves': len(distill_g[0]),
+          'param_worst_over_tol_joint_pos': joint_worst[0],
+          'param_worst_over_tol_distill': distill_worst[0],
+          'param_worst_leaf_distill': distill_worst[1],
+          'event_ms_cuda': init_c['ms'], 'event_ms_cpu': init_p['ms'],
+          'distill_loss_last': [float(init_c['losses']['distill_loss'][-1]),
+                                float(init_p['losses']['distill_loss'][-1])],
+          'steps_from': 'the CPU state after the event',
+          'loss_cuda': l_c, 'loss_cpu': l_p, 'loss_rel_err': loss_err,
+          'grad_worst_err_over_max': grad_worst})
+    if check and (not all(equal.values()) or max(close.values()) > 1e-5
+                  or joint_worst[0] > 1.0 or distill_worst[0] > 1.0
+                  or loss_err > 2e-4 or len(loop_p) != 2 * iters):
+        raise AssertionError('card and CPU skeleton initialisation differ')
+
+
 def phase_profile_train_sp(trainer: SKGSTrainer, s0: int):
     """Where an sp step's time goes: phase_profile_train's split and
     window, and beside it the step's own pieces timed alone on the same
@@ -1629,12 +2045,16 @@ def device_ms(kernel, fn, launches: int = 20) -> float:
     wrapper that takes longer on the host than the kernel on the card."""
     for _ in range(3 if launches > 1 else 0):
         fn()
-    on_dev, _ = profile_window(lambda: [fn() for _ in range(launches)])
-    found = [e for e in on_dev if kernel.name + '_kernel<' in e.key]
-    if len(found) != 1 or found[0].count < 1:
-        raise AssertionError(f'the profiler saw {kernel.name} as '
-                             f'{[(e.key, e.count) for e in found]}')
-    return dev_us(found[0]) * 1e-3 / found[0].count
+    # the profiler has returned a window without the kernel's events once
+    # (its launch count moved): up to three windows are tried
+    for _ in range(PROFILER_TRIES):
+        on_dev, _ = profile_window(lambda: [fn() for _ in range(launches)])
+        found = [e for e in on_dev if kernel.name + '_kernel<' in e.key]
+        if len(found) == 1 and found[0].count >= 1:
+            return dev_us(found[0]) * 1e-3 / found[0].count
+    raise AssertionError(f'the profiler saw {kernel.name} as '
+                         f'{[(e.key, e.count) for e in found]} in '
+                         f'{PROFILER_TRIES} windows')
 
 
 def profile_window(fn):
@@ -1774,7 +2194,17 @@ def main(argv=None) -> int:
     s_sp = SP_TRAIN_STEPS[-1] + 1
     phase_grad_path_sp(sp_trainer, s_sp)
     phase_train_reference_sp(SEED)
+
+    # the skeleton initialisation and the sk_init family
+    phase_sk_init_event(cfg._replace(joint_init_steps=SK_EVENT_CUT), rcfg,
+                        train)
+    sk_init_launches = phase_sk_init_train(cfg, rcfg, train)
+    phase_train_reference_sk_init(SEED)
     if args.profile:
+        phase_train_reference_sk_init(SEED, SK_REF_ITERS_LONG,
+                                      'profile_reference_sk_init', False)
+        phase_profile_sk_init(phase_sk_init_event(
+            cfg, rcfg, train, 'profile_sk_init_event'))
         phase_profile(model, views, times, bg, served_ms)
         phase_profile_train(trainer, s_next)
         # kernel #1 on the inputs of the step that profile_bwd then trains
@@ -1799,7 +2229,8 @@ def main(argv=None) -> int:
         phase_profile_train_sp(sp_trainer, s_sp + 1)
 
     paths = {'serve': serve_launches, 'train': train_launches,
-             'train_init': init_launches, 'train_sp': sp_launches}
+             'train_init': init_launches, 'train_sp': sp_launches,
+             'train_sk_init': sk_init_launches}
     for row in rows:
         own = 'train_init' if row['name'].startswith('chunk') else 'train'
         row['launches'] = paths[own][row['name']]

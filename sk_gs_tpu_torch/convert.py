@@ -13,8 +13,8 @@ Adam moments (``state/opt/mu/...``, ``state/opt/nu/...``,
 ``state/opt/count``) and ``model_to_flat`` writes the port's model back in
 the JAX names. ``trainer_flags_from_flat`` reads a trainer checkpoint's
 stage flags and the smooth loss's KNN (``state/flags/...``) as the JAX
-trainer's ``restore`` does, so that a run taken inside the ``sp`` stages
-resumes in the port.
+trainer's ``restore`` does, so that a run taken inside the ``sp`` or ``sk``
+stages resumes in the port.
 
 Carried: every leaf of ``SKGSModel.leaves`` (the Gaussian and skeleton
 leaves, ``hyper``, ``sp_points``, ``sp_hyper`` and ``joint_pos`` when the
@@ -23,10 +23,10 @@ arrays have them, the skeleton net, and the warp nets ``sp_deform`` and
 when present) and their Adam moments, the buffers the port reads
 (``AUX_BUFFERS``) and the training state it updates (``STAT_BUFFERS``:
 ``max_radii2d``, ``xyz_grad_accum``, ``denom``, ``sk_cache``, ``sp_cache``,
-``joint_cost``, ``p2sp``; zeros when the checkpoint has none). Not
-carried: ``joint_depth`` (the port reads none) and the frozen LBS of the
-sk stages, ``sp_weights`` / ``sp_knn``, which the skeleton initialisation
-writes; they stay in the JAX checkpoint.
+``joint_cost``, ``p2sp``, and the frozen LBS of the sk stages,
+``sp_weights`` / ``sp_knn``, which the skeleton initialisation writes;
+zeros when the checkpoint has none), both ways. Not carried:
+``joint_depth`` (the port reads none).
 """
 from __future__ import annotations
 
@@ -52,7 +52,7 @@ from .render.settings import RasterConfig
 _BUFFER_DTYPES = {'alive': torch.bool, 'active_sh_degree': torch.int32,
                   'sp_alive': torch.bool, 'joint_parents': torch.int32,
                   'joint_root': torch.int32, 'train_times': torch.float32,
-                  'p2sp': torch.int32}
+                  'p2sp': torch.int32, 'sp_knn': torch.int32}
 # the trainer's stage flags in a JAX ``ckpt_state()``
 TRAINER_FLAGS = ('sp_initialized', 'reinit_done', 'skeleton_initialized')
 

@@ -1,7 +1,6 @@
-"""SK-GS training, the ``static``, ``init``, ``sp`` and ``sk`` families (port
-of the parts of ``sk_gs_tpu/framework/trainer.py:SKGSTrainer`` that the
-stages ``static``, ``init_fix``, ``init``, ``sp_fix``, ``sp``, ``sk_fix``
-and ``sk`` run).
+"""SK-GS training, the ``static``, ``init``, ``sp``, ``sk_init`` and ``sk``
+families (port of ``sk_gs_tpu/framework/trainer.py:SKGSTrainer`` for every
+stage of the schedule).
 
 One step (``train_step``, ``trainer.py:1376-1436``) runs the stage events
 due before it, rebuilds the smooth loss's Gaussian KNN on its interval
@@ -12,12 +11,16 @@ control due after it. The body: the stage's deltas (none for ``static``;
 the ``sp_deform`` warp net for the ``init`` family, detached in
 ``init_fix``; the superpoint LBS warp for the ``sp`` family, its deltas
 detached in ``sp_fix``; the skeleton warp at the view's own train frame for
-the ``sk`` family), activations (the ``init`` family renders every
-Gaussian at the live mean of the log-scales), a render whose blend goes
+the ``sk_init`` and ``sk`` families), activations (the ``init`` family
+renders every Gaussian at the live mean of the log-scales), a render whose
+blend goes
 through ``TileBlend`` or ``ChunkBlend`` (the hand-written kernels on the
 card) by ``RasterConfig.schedule``, l1 (or mse) and SSIM image losses; for
 the ``sp`` family the LBS weights' sparsity and smoothness, the joint
-costs and the guided skeleton losses; the canonical-net consistency
+costs and the guided skeleton losses; for ``sk_init`` the image losses
+and the colours and opacities detached, and the skeleton's deltas held to
+the frozen LBS blend of the cached superpoint motion (``cmp_t``,
+``cmp_r``, ``cmp_s``); the canonical-net consistency
 ``c_net`` (``init`` and ``sp``), ``backward``, non-finite gradient entries
 zeroed and counted (``n_bad_grad``), Adam with per-leaf learning rates, the
 densification statistics, and the per-frame cache row (``sp_cache`` or
@@ -28,9 +31,10 @@ Stage events (``maybe_stage_events``, ``trainer.py:1061-1155``): the
 superpoint initialisation before ``init_sampling_step``, the restart from
 the point cloud ``pcd`` before ``stages['sp_fix'][0]`` (skipped without
 one, as in the JAX trainer), and the canonical-net replacement before each
-of ``canonical_replace_steps``; each fires once, when its flag is unset.
-A trainer built at a later step takes the flags (``convert.
-trainer_flags_from_flat`` reads them from a JAX checkpoint).
+of ``canonical_replace_steps``, and the skeleton initialisation before the
+first ``sk_init`` / ``sk_fix`` / ``sk`` step; each fires once, when its
+flag is unset. A trainer built at a later step takes the flags
+(``convert.trainer_flags_from_flat`` reads them from a JAX checkpoint).
 
 Adaptive control (``maybe_adaptive_control``, ``trainer.py:1165-1214``):
 the ``static`` and ``init`` stages densify and prune every
@@ -43,13 +47,12 @@ with ``seed`` (so the card and the CPU draw the same numbers; the JAX key
 stream is not matched). The ``sk`` family has none
 (``trainer.py:1188-1189``).
 
-Not ported, and raising ``NotImplementedError``: the skeleton
-initialisation (an ``sk``-family step needs ``skeleton_initialized``) and
-the ``sk_init`` family; the ``elastic``, ``acc``, ``arap`` and ``arap_p``
-losses and the ``sp`` extras ``re_pos``, ``jp_dist``, ``sp_arap_t`` and
-``sp_arap_ct`` (zero in the default weights); the time noise of nets that
-are not ``is_blender``; ``batch_views > 1``, a device mesh, backgrounds
-composited per step, optimizers other than Adam.
+Not ported, and raising ``NotImplementedError``: the ``elastic``, ``acc``,
+``arap`` and ``arap_p`` losses and the ``sp`` extras ``re_pos``,
+``jp_dist``, ``sp_arap_t`` and ``sp_arap_ct`` (zero in the default
+weights); the time noise of nets that are not ``is_blender``;
+``batch_views > 1``, a device mesh, backgrounds composited per step,
+optimizers other than Adam.
 """
 from __future__ import annotations
 
@@ -71,7 +74,10 @@ from ..models.losses import (LossWeights, l1_loss, masked_mean, mse_loss,
 from ..models.optim import AdamState, adam_init, adam_update
 from ..models.sk_gs import (DEFORM_NETS, SK_STAGES, SKGSConfig, SKGSModel,
                             forward_deltas, init_stage, skeleton_net_input,
-                            sk_rot_activation, sp_stage)
+                            sk_rot_activation, sp_stage, split_sp_cache,
+                            take_frame)
+from ..models.superpoints import (blend_attr, dense_lbs_rows,
+                                  warp_blend_dense, warp_points)
 from ..models.skeleton import (joint_cost_matrix, kinematic_transforms,
                                update_joint)
 from ..ops import se3
@@ -80,7 +86,11 @@ from ..render.render import composite_background, render
 from ..render.settings import GaussianInputs, RasterConfig
 
 FAMILY = {'static': 'static', 'init_fix': 'init', 'init': 'init',
-          'sp_fix': 'sp', 'sp': 'sp', 'sk_fix': 'sk', 'sk': 'sk'}
+          'sp_fix': 'sp', 'sp': 'sp', 'sk_init': 'sk_init', 'sk_fix': 'sk',
+          'sk': 'sk'}
+# the iterations of each of the skeleton initialisation's two loops are
+# min(joint_init_steps, this) (trainer.py:1115-1116)
+INIT_SKELETON_MAX_STEPS = 2000
 # the JAX trainer's default loss weights (trainer.py:247-251)
 DEFAULT_LOSS = {'image': {'method': 'l1', 'lambda': 0.8}, 'ssim': 0.2,
                 'sparse': 0.1, 'smooth': 0.1, 'joint': 1.0,
@@ -254,11 +264,8 @@ class SKGSTrainer:
             m.active_sh_degree.add_(1)
 
     def family(self, stage: str) -> str:
-        """The ported step family of ``stage``; raises for the others."""
-        if stage not in FAMILY:
-            raise NotImplementedError(
-                f'stage {stage!r} is not ported yet: the trainer runs the '
-                f'stages {tuple(FAMILY)} (the sk_init family is missing)')
+        """The step family of ``stage``; raises where its losses are not
+        ported."""
         family = FAMILY[stage]
         unported = {'init': UNPORTED_INIT_LOSSES,
                     'sp': UNPORTED_SP_LOSSES}.get(family)
@@ -279,9 +286,10 @@ class SKGSTrainer:
         ``init_sampling_step``, the restart from the point cloud at
         ``stages['sp_fix'][0]`` (the last ``init`` step; none without
         ``pcd``), the canonical-net replacement at each of
-        ``canonical_replace_steps`` after ``sp_fix`` starts. An sk-family
-        step raises until the skeleton is initialised: ``init_skeleton`` is
-        not ported (ROADMAP.md item 1.4)."""
+        ``canonical_replace_steps`` after ``sp_fix`` starts, the skeleton
+        initialisation before the first sk-family step (``_init_skeleton``;
+        the JAX trainer then writes the snapshot ``sk_init.npz``, which
+        waits for the port's checkpoint module)."""
         cfg = self.cfg
         stages = cfg.stages
         has_sp = stages['sp_fix'][2] > 0 or stages['sp'][2] > 0
@@ -298,11 +306,32 @@ class SKGSTrainer:
                 and step in cfg.canonical_replace_steps):
             self._canonical_replace()
         if cfg.stage_at(step) in SK_STAGES and not self.skeleton_initialized:
-            raise NotImplementedError(
-                f'step {step}: the skeleton initialisation before the first '
-                'sk-family step (init_skeleton) is not ported yet (ROADMAP.md '
-                'item 1.4); a model whose skeleton is already initialised '
-                'trains with skeleton_initialized=True')
+            self._init_skeleton()
+            self.skeleton_initialized = True
+
+    def _init_skeleton(self) -> Dict[str, torch.Tensor]:
+        """``sk_gs_ops.init_skeleton`` with min(``joint_init_steps``,
+        ``INIT_SKELETON_MAX_STEPS``) iterations in each loop, their frames
+        drawn from the trainer's CPU generator (joint loop first) and
+        uploaded once; then the non-finite check of ``joints``,
+        ``global_tr`` and the skeleton net (``trainer.py:1119-1130``). The
+        Adam state of the trainer is kept. Returns the loops' losses."""
+        cfg, model = self.cfg, self.model
+        n = min(cfg.joint_init_steps, INIT_SKELETON_MAX_STEPS)
+        tids = torch.randint(0, model.sp_cache.shape[0], (2, n),
+                             generator=self.noise_gen).to(self.device)
+        out = sk_gs_ops.init_skeleton(cfg, model, tids[0], tids[1])
+        checked = {'joints': [model.params['joints']],
+                   'global_tr': [model.params['global_tr']],
+                   'sk_deform': list(model.sk_deform.parameters())}
+        for name, leaves in checked.items():
+            bad = int(sum((~torch.isfinite(x)).sum() for x in leaves))
+            if bad:
+                raise FloatingPointError(
+                    f"init_skeleton produced {bad} non-finite values in "
+                    f"params['{name}']: the sk stages would train on a "
+                    "broken skeleton")
+        return out
 
     def _init_superpoints(self) -> torch.Tensor:
         """The FPS picks [M] of the superpoint initialisation."""
@@ -407,6 +436,9 @@ class SKGSTrainer:
                   'ssim': self.loss_w.w('ssim') * ssim_loss(img, image)}
         if family == 'sp':
             losses.update(self.sp_losses(d, scene.times[idx], step))
+        if family == 'sk_init':
+            losses = {k: v.detach() for k, v in losses.items()}
+            losses.update(self.sk_init_losses(d, scene.time_ids[idx], step))
         if family in ('init', 'sp') and cfg.use_canonical_net \
                 and self.loss_w.ever_nonzero('c_net'):
             points_out = model.params['xyz'] + d.d_xyz
@@ -492,17 +524,53 @@ class SKGSTrainer:
                 torch.square(sk_d_scale - sp_scale), sp_alive[:, None]),
         }
 
+    def sk_init_losses(self, d, time_id: torch.Tensor, step: int
+                       ) -> Dict[str, torch.Tensor]:
+        """The ``sk_init`` family's losses (``trainer.py:769-800``): the
+        skeleton's deltas ``d`` held to the blend of the cached superpoint
+        motion at the view's frame under the frozen LBS ``sp_weights`` /
+        ``sp_knn`` (each superpoint's own with ``warp_method``
+        'largest'), squared, over the live rows."""
+        cfg, model = self.cfg, self.model
+        sp_tr, sp_rot, sp_scale = split_sp_cache(
+            cfg, take_frame(model.sp_cache, time_id))
+        points = model.params['xyz'].detach()
+        w, knn = model.sp_weights, model.sp_knn
+        if cfg.warp_method == 'largest':
+            sp_xyz = warp_points(points, sp_tr, w, knn, cfg.warp_method,
+                                 model.p2sp)
+            sp_rot_b = blend_attr(sp_rot, w, knn)
+            sp_scale_b = blend_attr(sp_scale, w, knn)
+        else:
+            sp_xyz, sp_rot_b, sp_scale_b = warp_blend_dense(
+                points, sp_tr, dense_lbs_rows(w, knn, sp_tr.shape[0]), sp_rot,
+                sp_scale)
+        am = model.alive[:, None]
+        lw = lambda name: self.loss_weight(name, step)
+        return {
+            'cmp_t': lw('cmp_t') * masked_mean(
+                torch.square(d.d_xyz - sp_xyz), am),
+            'cmp_r': lw('cmp_r') * masked_mean(
+                torch.square(d.d_rotation - sp_rot_b), am),
+            'cmp_s': lw('cmp_s') * masked_mean(
+                torch.square(d.d_scaling - sp_scale_b), am)}
+
     def render_inputs(self, family: str, d) -> GaussianInputs:
         """The renderer's inputs from the deltas ``d``; the ``init`` family
         renders every Gaussian at the live mean log-scale (get_scaling,
-        ``trainer.py:658-664``)."""
+        ``trainer.py:658-664``), ``sk_init`` with the colours and opacities
+        detached (``trainer.py:672-675``)."""
         model = self.model
         gv = model.gauss_view()
-        if family == 'init':
+        if family in ('init', 'sk_init'):
             p = dict(gv.params)
-            p['scaling'] = torch.broadcast_to(
-                masked_mean(p['scaling'], model.alive[:, None]),
-                p['scaling'].shape)
+            if family == 'init':
+                p['scaling'] = torch.broadcast_to(
+                    masked_mean(p['scaling'], model.alive[:, None]),
+                    p['scaling'].shape)
+            else:
+                for name in ('f_dc', 'f_rest', 'opacity'):
+                    p[name] = p[name].detach()
             gv = gv._replace(params=p)
         return gaussian_inputs(gv, self.cfg.gauss, d.d_xyz, d.d_rotation,
                                d.d_scaling)
@@ -583,7 +651,9 @@ class SKGSTrainer:
         grads = {k: p.grad for k, p in leaves.items()}
         self.opt_state = adam_update(grads, self.opt_state, leaves, lrs,
                                      clip_norm=self.clip_norm)
-        self._stats_update(out['radii'], m2d_off.grad)
+        # sk_init has no image gradient: its statistics take a zero one
+        self._stats_update(out['radii'], torch.zeros_like(m2d_off)
+                           if m2d_off.grad is None else m2d_off.grad)
         tid = self.scene.time_ids[idx]
         if family == 'sp':
             model.sp_cache[tid] = d.aux['cache_row']

@@ -10,10 +10,12 @@ three deltas, not the weights); and the ``sk`` family, served by running
 the skeleton net at time t with the per-frame root transform interpolated
 between the two neighbouring train frames, and trained at a train frame's
 own root transform (``time_id``), where ``sk_fix`` detaches the skeleton's
-outputs and the net's output row is returned for the ``sk_cache``. Not
-ported yet, and raising ``NotImplementedError``: the
-``test_time_interpolate`` branch over the cached skeleton outputs, and
-``sk_r_delta`` reposing.
+outputs and the net's output row is returned for the ``sk_cache``. The
+``sk_init`` stage runs the ``sk`` warp undetached; its losses read the
+frozen LBS ``sp_weights`` / ``sp_knn`` that the skeleton initialisation
+writes (``sk_gs_ops.init_skeleton``). Not ported yet, and raising
+``NotImplementedError``: the ``test_time_interpolate`` branch over the
+cached skeleton outputs, and ``sk_r_delta`` reposing.
 """
 from __future__ import annotations
 
@@ -138,10 +140,12 @@ AUX_BUFFERS = ('alive', 'active_sh_degree', 'sp_alive', 'joint_parents',
 # Training state: the densification statistics, the per-frame caches of the
 # skeleton net's outputs ([frames, M, sum(sk_net.out_dims)]) and of the
 # superpoint transforms ([frames, M, sp_cache_dim]), the joint cost's
-# running mean [M, M] and the heaviest superpoint of each Gaussian [N]
-# (``warp_method`` 'largest').
+# running mean [M, M], the heaviest superpoint of each Gaussian [N]
+# (``warp_method`` 'largest'), and the LBS weights [N, K] and superpoints
+# [N, K] that the skeleton initialisation freezes for the sk stages.
 STAT_BUFFERS = ('max_radii2d', 'xyz_grad_accum', 'denom', 'sk_cache',
-                'sp_cache', 'joint_cost', 'p2sp')
+                'sp_cache', 'joint_cost', 'p2sp', 'sp_weights', 'sp_knn')
+INT_BUFFERS = ('p2sp', 'sp_knn')
 
 
 class SKGSModel(nn.Module):
@@ -175,12 +179,13 @@ class SKGSModel(nn.Module):
         zeros = {'max_radii2d': (n,), 'xyz_grad_accum': (n,), 'denom': (n,),
                  'sk_cache': (cfg.num_frames, m, sum(cfg.sk_net.out_dims)),
                  'sp_cache': (cfg.num_frames, m, cfg.sp_cache_dim),
-                 'joint_cost': (m, m), 'p2sp': (n,)}
+                 'joint_cost': (m, m), 'p2sp': (n,),
+                 'sp_weights': (n, cfg.num_knn), 'sp_knn': (n, cfg.num_knn)}
         for name in STAT_BUFFERS:
             buf = buffers.get(name)
             if buf is None:
                 buf = torch.zeros(zeros[name], device=xyz.device,
-                                  dtype=torch.int32 if name == 'p2sp'
+                                  dtype=torch.int32 if name in INT_BUFFERS
                                   else torch.float32)
             self.register_buffer(name, buf)
 
@@ -323,6 +328,24 @@ def sp_cache_row(cfg: SKGSConfig, spT: torch.Tensor,
     return torch.cat(parts, dim=-1)
 
 
+def split_sp_cache(cfg: SKGSConfig, row: torch.Tensor):
+    """An ``sp_cache`` row -> (the SE3 [..., 7], the rotation [..., 4]: the
+    separate one with ``sep_rot``, else the SE3's own, the scale delta
+    [..., 3])."""
+    if cfg.sep_rot:
+        return row[..., :7], row[..., 7:11], row[..., 11:14]
+    return row[..., :7], row[..., 3:7], row[..., 7:10]
+
+
+def take_frame(x: torch.Tensor, time_id) -> torch.Tensor:
+    """``x[time_id]`` for an int or a 0-d integer tensor; a tensor index
+    goes through ``index_select``, so that the host never reads it (a 0-d
+    tensor subscript reads its value on the host, a device sync)."""
+    if isinstance(time_id, torch.Tensor):
+        return x.index_select(0, time_id.reshape(1).to(torch.int64))[0]
+    return x[time_id]
+
+
 def sp_stage(cfg: SKGSConfig, model: SKGSModel, points: torch.Tensor,
              t: torch.Tensor, use_canonical: bool = False,
              frozen_weights: Optional[torch.Tensor] = None,
@@ -397,7 +420,8 @@ def sk_rot_activation(sk_r: torch.Tensor) -> torch.Tensor:
     """Raw rotation head -> unit quaternion: a 4-dim head gets the identity
     bias and is normalised; a 3-dim head is an axis-angle through so3_exp."""
     if sk_r.shape[-1] == 4:
-        bias = torch.tensor([0.0, 0.0, 0.0, 1.0], device=sk_r.device)
+        # made on the device: a host tensor's copy would synchronise
+        bias = torch.eye(4, dtype=sk_r.dtype, device=sk_r.device)[3]
         return quat.normalize(sk_r + bias)
     return se3.so3_exp(sk_r)
 
@@ -411,7 +435,8 @@ def sk_stage(cfg: SKGSConfig, model: SKGSModel, points: torch.Tensor,
     the joint transforms and the net's rotation and scale deltas. The aux
     'cache_row' [M, sum(out_dims)] is what the trainer stores in
     ``sk_cache``: the normalised quaternion (the raw axis-angle in lie
-    mode), then the rotation and scale deltas."""
+    mode), then the rotation and scale deltas; 'sk_rot' / 'sk_scale' are
+    the net's per-joint rotation and scale deltas [M, .]."""
     if sk_r_delta is not None:
         raise NotImplementedError('sk_r_delta reposing is not ported yet')
     if not training and cfg.test_time_interpolate:
@@ -422,7 +447,7 @@ def sk_stage(cfg: SKGSConfig, model: SKGSModel, points: torch.Tensor,
     joints = params['joints']
 
     if time_id is not None:
-        g_tr = params['global_tr'][time_id]
+        g_tr = take_frame(params['global_tr'], time_id)
     else:
         tt = model.train_times
         t0 = t.reshape(())
@@ -453,7 +478,7 @@ def sk_stage(cfg: SKGSConfig, model: SKGSModel, points: torch.Tensor,
     d_xyz, d_rotation, d_scaling = superpoints.warp_blend_dense(
         points, sk_T, dense_w, d_rot, d_scale)
     aux = {'skT': sk_T, 'knn_w': weights, 'knn_i': indices, 'g_tr': g_tr,
-           'cache_row': cache_row}
+           'sk_rot': d_rot, 'sk_scale': d_scale, 'cache_row': cache_row}
     return StageOutputs(d_xyz, d_rotation, d_scaling, aux)
 
 

@@ -1,13 +1,21 @@
-"""SK-GS stage transitions and superpoint adjustment (port of the parts of
-``sk_gs_tpu/models/sk_gs_ops.py`` that the ``init`` and ``sp`` families
-run).
+"""SK-GS stage transitions and superpoint adjustment (port of
+``sk_gs_tpu/models/sk_gs_ops.py``).
 
 Each function edits the model and the Adam state in place, between steps
 (the JAX package returns new pytrees): ``init_superpoints`` (the FPS at
 ``init_sampling_step``), ``reinit_gaussians_at_sp_fix`` (the point-cloud
-restart before ``sp_fix``), ``compute_sp_transforms_all_frames``, and
+restart before ``sp_fix``), ``compute_sp_transforms_all_frames``,
 ``superpoint_prune_split`` / ``superpoint_merge`` (the ``sp`` stage's
-masked edits of the M-capacity superpoint buffers).
+masked edits of the M-capacity superpoint buffers), and ``init_skeleton``,
+the sp -> sk transition before the first sk-family step: the frozen LBS
+(``freeze_lbs``), the joint pivots' Adam loop (``optimize_joint_pos``), the
+joint tree (``finalize_joints``) and the skeleton net's distillation
+(``distill_sk_deform``).
+
+The JAX package runs each of the two loops as one jitted ``lax.scan`` and
+draws each iteration's frame from its key; here they are Python loops of
+torch ops on the model's device that take the frame ids as a device tensor
+and never read a value on the host inside the loop.
 """
 from __future__ import annotations
 
@@ -17,12 +25,14 @@ from typing import Dict, Iterable
 import numpy as np
 import torch
 
+from ..ops import se3
 from ..ops.knn import furthest_point_sampling
-from . import optim, superpoints
+from . import optim, skeleton, superpoints
 from .deform import DeformNet, deform_net_apply
 from .gaussian_splatting import GaussianConfig, init_from_pcd
-from .sk_gs import (SKGSConfig, SKGSModel, lbs_weights, sp_cache_row,
-                    sp_net_outputs)
+from .losses import masked_mean
+from .sk_gs import (SKGSConfig, SKGSModel, lbs_weights, sk_stage,
+                    sp_cache_row, sp_net_outputs, split_sp_cache, take_frame)
 
 GAUSS_LEAVES = ('xyz', 'f_dc', 'f_rest', 'scaling', 'rotation', 'opacity',
                 'hyper')
@@ -266,3 +276,179 @@ def _merge_pairs(min_diff: np.ndarray, min_index: np.ndarray,
         merged[i] = True
         merged[j] = True
     return removed
+
+
+# ---------------------------------------------------------------- skeleton
+
+# the leaves the distillation trains besides the skeleton net, where the
+# model has them (``sk_gs_ops.py:290-293``)
+DISTILL_LEAVES = ('sk_deform', 'joints', 'global_tr', 'sp_radius',
+                  'sp_weight', 'sp_W', 'sk_feature')
+# the two loops' Adam: lr and eps (``sk_gs_ops.py:237-238, 338``)
+INIT_LR = 1e-3
+INIT_EPS = 1e-8
+
+
+@torch.no_grad()
+def freeze_lbs(cfg: SKGSConfig, model: SKGSModel):
+    """Steps 1-2 of the skeleton initialisation: ``sp_cache`` at every
+    train frame, and the Gaussians' LBS weights and superpoints frozen into
+    ``sp_weights`` / ``sp_knn``, with ``p2sp`` their heaviest superpoint."""
+    params = model.params
+    model.sp_cache.copy_(compute_sp_transforms_all_frames(
+        cfg, model.sp_deform, params['sp_points'], model.train_times))
+    w, idx = lbs_weights(cfg, params, model.sp_alive, params['xyz'])
+    model.sp_weights.copy_(w)
+    model.sp_knn.copy_(idx)
+    model.p2sp.copy_(torch.gather(idx, 1,
+                                  torch.argmax(w, -1, keepdim=True))[:, 0])
+
+
+def joint_pos_init_midpoint(params) -> torch.Tensor:
+    """joint_pos[a, b] = the midpoint of superpoints a and b."""
+    sp = params['sp_points'][..., :3]
+    return 0.5 * (sp[:, None] + sp[None, :])
+
+
+def joint_pos_loss(joint_pos: torch.Tensor, spT: torch.Tensor,
+                   sp_alive: torch.Tensor):
+    """(loss, cost): the joint cost [M, M] at the superpoint transforms
+    ``spT`` with non-finite entries 0, and the loss, the mean over rows of
+    each row's smallest positive cost (1e6 for a row without one, with no
+    gradient) plus the mean cost. The smallest is the first of a stable
+    sort, so a tie sends its gradient to one entry, as JAX's sort does."""
+    cost = skeleton.joint_cost_matrix(joint_pos, spT, sp_alive)
+    cost = torch.where(torch.isfinite(cost), cost, torch.zeros_like(cost))
+    pos = torch.where(cost > 0, cost, torch.full_like(cost, float('inf')))
+    best = torch.sort(pos, dim=-1, stable=True).values[:, 0]
+    return torch.clamp(best, 0.0, 1e6).mean() + cost.mean(), cost
+
+
+def optimize_joint_pos(cfg: SKGSConfig, model: SKGSModel,
+                       tids: torch.Tensor, lr: float = INIT_LR
+                       ) -> torch.Tensor:
+    """Adam on ``joint_pos`` over ``joint_pos_loss`` at the cached
+    superpoint transforms of frame ``tids[i]`` in iteration i, the joint
+    cost's running mean (``sk_momentum``) updated every iteration; both
+    written back to the model. Returns the losses [len(tids)]."""
+    jp = model.params['joint_pos'].detach().clone().requires_grad_(True)
+    opt = optim.adam_init({'jp': jp.detach()})
+    cost_mean = model.joint_cost.clone()
+    mom = cfg.sk_momentum
+    losses = []
+    for i in range(tids.shape[0]):
+        spT = take_frame(model.sp_cache, tids[i])[:, :7]
+        with torch.enable_grad():
+            loss, cost = joint_pos_loss(jp, spT, model.sp_alive)
+            g, = torch.autograd.grad(loss, jp)
+        with torch.no_grad():
+            cost_mean = cost_mean * mom + cost * (1.0 - mom)
+        opt = optim.adam_update({'jp': g}, opt, {'jp': jp}, {'jp': lr},
+                                eps=INIT_EPS)
+        losses.append(loss.detach())
+    with torch.no_grad():
+        model.params['joint_pos'].copy_(jp)
+        model.joint_cost.copy_(cost_mean)
+    return torch.stack(losses)
+
+
+@torch.no_grad()
+def finalize_joints(cfg: SKGSConfig, model: SKGSModel) -> torch.Tensor:
+    """The joint tree from the joint cost (``skeleton.update_joint``, an
+    MST on the host); each live non-root joint moves to its pivot with its
+    parent, the root and dead joints to their superpoints; ``global_tr``
+    takes the root superpoint's cached transform at every frame. Returns
+    the root."""
+    params = model.params
+    sp_pts = params['sp_points'][..., :3]
+    parents, _, root = skeleton.update_joint(
+        model.joint_cost, sp_pts, model.sp_alive, cfg.sk_knn_num)
+    a = torch.arange(cfg.num_superpoints, device=sp_pts.device)
+    b = parents[:, 0].to(torch.int64)
+    keep = ((a == root) | ~model.sp_alive)[:, None]
+    params['joints'].copy_(torch.where(keep, sp_pts,
+                                       params['joint_pos'][a, b]))
+    params['global_tr'].copy_(model.sp_cache.index_select(
+        1, root.reshape(1).to(torch.int64))[:, 0, :7])
+    model.joint_parents.copy_(parents)
+    model.joint_root.copy_(root)
+    return root
+
+
+def distill_sk_deform(cfg: SKGSConfig, model: SKGSModel,
+                      tids: torch.Tensor, lr: float = INIT_LR
+                      ) -> torch.Tensor:
+    """Fit the skeleton net, ``joints``, ``global_tr`` and the LBS leaves
+    the model has (``DISTILL_LEAVES``) to the cached superpoint motion at
+    frame ``tids[i]`` in iteration i, with a fresh Adam: 0.01 cmp_t (the
+    SE3 log distance of the joint transforms to the superpoints') + cmp_p
+    (the squared distance of the Gaussians warped by the skeleton to where
+    the frozen LBS of ``sp_cache`` takes them) + 0.01 cmp_r + 0.01 cmp_s
+    (the net's rotation and scale deltas to the cached ones), each a mean
+    over the live rows. The model's leaves are updated in place; no
+    ``.grad`` is left on them. Returns the losses [len(tids)]."""
+    params = model.params
+    points_c = params['xyz'].detach()
+    sp_w, sp_k = model.sp_weights, model.sp_knn
+    largest = cfg.warp_method == 'largest'
+    dense_sp_w = None if largest else superpoints.dense_lbs_rows(
+        sp_w, sp_k, cfg.num_superpoints)
+    empty = points_c.new_zeros((cfg.num_superpoints, 0))
+    leaves = {k: p for k, p in model.leaves().items()
+              if k.split('/')[0] in DISTILL_LEAVES}
+    opt = optim.adam_init({k: p.detach() for k, p in leaves.items()})
+    lrs = {k: lr for k in leaves}
+    sp_alive, alive = model.sp_alive, model.alive
+    losses = []
+    for i in range(tids.shape[0]):
+        tid = tids[i]
+        t = take_frame(model.train_times, tid)
+        sp_tr, sp_d_rot, sp_d_scale = split_sp_cache(
+            cfg, take_frame(model.sp_cache, tid))
+        with torch.no_grad():
+            if largest:
+                d1 = superpoints.warp_points(points_c, sp_tr, sp_w, sp_k,
+                                             cfg.warp_method, model.p2sp)
+            else:
+                d1 = superpoints.warp_blend_dense(points_c, sp_tr, dense_sp_w,
+                                                  empty, empty)[0]
+            points_t1 = points_c + d1
+        with torch.enable_grad():
+            out = sk_stage(cfg, model, points_c, t, time_id=tid,
+                           training=True)
+            diff = se3.se3_log(se3.se3_mul(se3.se3_inv(sp_tr),
+                                           out.aux['skT']))
+            cmp_t = masked_mean(skeleton._safe_norm(diff), sp_alive)
+            cmp_p = masked_mean(torch.square(points_t1
+                                             - (points_c + out.d_xyz)),
+                                alive[:, None])
+            cmp_r = masked_mean(torch.square(out.aux['sk_rot'] - sp_d_rot),
+                                sp_alive[:, None])
+            cmp_s = masked_mean(torch.square(out.aux['sk_scale']
+                                             - sp_d_scale), sp_alive[:, None])
+            loss = 0.01 * cmp_t + cmp_p + 0.01 * cmp_r + 0.01 * cmp_s
+            grads = torch.autograd.grad(loss, list(leaves.values()),
+                                        allow_unused=True)
+        opt = optim.adam_update(dict(zip(leaves, grads)), opt, leaves, lrs,
+                                eps=INIT_EPS)
+        losses.append(loss.detach())
+    return torch.stack(losses)
+
+
+def init_skeleton(cfg: SKGSConfig, model: SKGSModel,
+                  joint_tids: torch.Tensor, distill_tids: torch.Tensor
+                  ) -> Dict[str, torch.Tensor]:
+    """The sp -> sk transition (``sk_gs_ops.py:355-384``), in place:
+    ``freeze_lbs``, the pivots at the superpoint midpoints, then
+    ``optimize_joint_pos`` over the frames ``joint_tids``,
+    ``finalize_joints`` and ``distill_sk_deform`` over ``distill_tids``
+    (integer tensors on the model's device; the JAX package draws them
+    from its key). Returns both loops' losses, 'joint_loss' and
+    'distill_loss'."""
+    freeze_lbs(cfg, model)
+    with torch.no_grad():
+        model.params['joint_pos'].copy_(joint_pos_init_midpoint(model.params))
+    joint_loss = optimize_joint_pos(cfg, model, joint_tids)
+    finalize_joints(cfg, model)
+    distill_loss = distill_sk_deform(cfg, model, distill_tids)
+    return {'joint_loss': joint_loss, 'distill_loss': distill_loss}

@@ -8,6 +8,7 @@ from __future__ import annotations
 
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
 from ..ops import quaternion as quat
@@ -36,13 +37,12 @@ def masked_knn(queries: torch.Tensor, keys: torch.Tensor,
     d2 = torch.square(queries[:, None, 0] - keys[None, :, 0])
     for j in range(1, queries.shape[1]):
         d2 = d2 + torch.square(queries[:, None, j] - keys[None, :, j])
-    inf = torch.tensor(float('inf'), device=d2.device)
-    d2 = torch.where(key_mask[None, :], d2, inf)
+    # constants as Python scalars: a tensor made on the host and copied to
+    # the card would synchronise the host with the card at every call
+    d2 = torch.where(key_mask[None, :], d2, float('inf'))
     m = d2.shape[1]
     col = torch.arange(m, device=d2.device)[None, :]
-    ramp = (col + 1).to(torch.float32) * torch.tensor(3.0e38 / m,
-                                                      dtype=torch.float32,
-                                                      device=d2.device)
+    ramp = (col + 1).to(torch.float32) * float(np.float32(3.0e38 / m))
     taken = torch.where(key_mask[None, :], d2, ramp)
     dists, idxs = [], []
     for _ in range(k):

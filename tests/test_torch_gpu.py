@@ -656,3 +656,70 @@ def test_superpoint_prune_split_card_matches_cpu(cuda):
                  'params/sp_W', 'sp_cache', 'joint_cost'):
         np.testing.assert_allclose(f_card[name], f_cpu[name], atol=1e-5,
                                    err_msg=name)
+
+
+def adam_over_tol(got, ref, grads, lr, steps) -> float:
+    """A parameter's worst error over its bound (chip_smoke's
+    params_over_tol for one leaf): where the gradient exceeded 1e-3 of its
+    max at every one of ``grads``, 1e-5 of the leaf plus 1% of the Adam
+    steps; elsewhere 2 lr a step."""
+    big = np.ones(got.shape, bool)
+    for g in grads:
+        g = g.abs().numpy()
+        big &= g > 1e-3 * g.max()
+    err = np.abs(got - ref)
+    scale = float(np.abs(ref).max())
+    tol_big = 1e-5 * scale + 0.01 * lr * steps + 1e-30
+    tol_all = 2 * lr * steps + 1e-5 * scale + 1e-30
+    return max(float(err[big].max(initial=0.0)) / tol_big,
+               float(err.max()) / tol_all)
+
+
+def test_init_skeleton_card_matches_cpu(cuda, monkeypatch):
+    """The skeleton initialisation (20 + 20 iterations, the same frames)
+    on the card against the CPU, as chip_smoke's train_reference_sk_init
+    holds it (its warp heads scaled as there, so that the superpoints move
+    and the joint costs are not Adam's noise): the tree, the frozen LBS
+    and the assignment equal; the caches within 1e-5 of their max;
+    joint_pos and the distilled leaves by the Adam parameter rule with the
+    CPU's gradients (a rule for a few Adam steps: see chip_smoke's
+    SK_REF_ITERS)."""
+    n = 20
+    tids = torch.randint(0, 6, (2, n), generator=torch.Generator()
+                         .manual_seed(0))
+    out = {}
+    for dev in (cuda, torch.device('cpu')):
+        tr = sp_trainer(dev)
+        tr.model.sp_alive[::8] = False
+        with torch.no_grad():
+            for head in (tr.model.sp_deform.warp, tr.model.sp_deform.rotation):
+                head.w.mul_(1000.0)
+        grads = []
+        update = sk_gs_ops.optim.adam_update
+
+        def spy(g, *args, _out=grads, **kw):
+            _out.append({k: v.detach().cpu().clone() for k, v in g.items()
+                         if v is not None})
+            return update(g, *args, **kw)
+        monkeypatch.setattr(sk_gs_ops.optim, 'adam_update', spy)
+        losses = sk_gs_ops.init_skeleton(tr.cfg, tr.model, tids[0].to(dev),
+                                         tids[1].to(dev))
+        monkeypatch.undo()
+        assert all(torch.isfinite(v).all() for v in losses.values())
+        out[dev.type] = (convert.model_to_flat(tr.model), grads)
+    (f_c, _), (f_p, grads) = out['cuda'], out['cpu']
+    for name in ('sp_knn', 'p2sp', 'joint_parents', 'joint_root'):
+        np.testing.assert_array_equal(f_c[name], f_p[name], name)
+    for name in ('sp_cache', 'sp_weights', 'joint_cost'):
+        err = np.abs(f_c[name] - f_p[name]).max()
+        assert err <= 1e-5 * np.abs(f_p[name]).max(), (name, err)
+    lr = sk_gs_ops.INIT_LR
+    worst = {'joint_pos': adam_over_tol(
+        f_c['params/joint_pos'], f_p['params/joint_pos'],
+        [g['jp'] for g in grads[:n]], lr, n)}
+    for name in grads[n]:
+        worst[name] = adam_over_tol(f_c['params/' + name],
+                                    f_p['params/' + name],
+                                    [g[name] for g in grads[n:]], lr, 2 * n)
+    assert len(grads) == 2 * n and 'sp_W' in grads[n]
+    assert max(worst.values()) <= 1.0, worst

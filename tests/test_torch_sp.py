@@ -424,11 +424,25 @@ def test_largest_warp_matches_jax(largest_run):
 
 
 def test_sk_step_needs_the_skeleton(sp_run):
+    """The first sk-family step runs the skeleton initialisation before it
+    and sets the flag (its loops cut to 4 iterations here), on a copy of
+    the last sp step's model."""
     tt = sp_run[STEPS[-1]]['trainer']
-    sk_step = tt.cfg.stages['sk'][0] + 1
-    with pytest.raises(NotImplementedError, match='init_skeleton'):
-        tt.train_step(sk_step)
-    assert tt.step == STEPS[-1]
+    cfg = tt.cfg._replace(joint_init_steps=4)
+    model = convert.model_from_flat(convert.model_to_flat(tt.model), cfg,
+                                    tt.rcfg, device='cpu', trainable=True)
+    fresh = ttrainer.SKGSTrainer(cfg, tt.rcfg, tt.scene, tt.meta, model,
+                                 tlosses.LossWeights(LOSS),
+                                 sp_initialized=True, reinit_done=True,
+                                 device='cpu')
+    sk_step = cfg.stages['sk'][0] + 1
+    assert not fresh.skeleton_initialized
+    m = fresh.train_step(sk_step)
+    assert fresh.skeleton_initialized and fresh.step == sk_step
+    assert np.isfinite(float(m['loss']))
+    assert not model.sp_weights.eq(tt.model.sp_weights).all()
+    assert not torch.equal(model.params['joints'], tt.model.params['joints'])
+    assert not tt.skeleton_initialized
 
 
 def test_sp_parts_not_ported_raise(sp_run):
@@ -438,8 +452,7 @@ def test_sp_parts_not_ported_raise(sp_run):
         with pytest.raises(NotImplementedError, match=name):
             tt.family('sp')
     tt.loss_w = tlosses.LossWeights(LOSS)
-    with pytest.raises(NotImplementedError, match='sk_init'):
-        tt.family('sk_init')
+    assert tt.family('sk_init') == 'sk_init'
     blender = tt.cfg
     tt.cfg = blender._replace(net=blender.net._replace(is_blender=False))
     try:

@@ -398,9 +398,10 @@ def test_trainer_refuses_what_is_not_ported(tiny, jax_scene, tmp_path):
                     port_model(tiny, tmp_path, trainable=False),
                     device='cpu')
     tt = SKGSTrainer(cfg, rcfg, scene, meta, model, device='cpu')
-    # an sk-family step before the skeleton initialisation, and the sk_init
-    # family
-    with pytest.raises(NotImplementedError, match='init_skeleton'):
-        tt.train_step(cfg.stages['sk'][0] + 1)
-    with pytest.raises(NotImplementedError, match='not ported'):
-        tt.family('sk_init')
+    # the first sk-family step runs the skeleton initialisation (its loops
+    # cut to 4 iterations here) and sets the flag; the sk_init family is
+    # ported
+    tt.cfg = cfg._replace(joint_init_steps=4)
+    tt.train_step(cfg.stages['sk'][0] + 1)
+    assert tt.skeleton_initialized
+    assert tt.family('sk_init') == 'sk_init'
