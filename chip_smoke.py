@@ -5,7 +5,9 @@
 
 Drives the port's paths at full width (the ``synthetic_fullscale``
 preset: 100,352 Gaussian slots, 512 joints, 400 x 400, random weights from
-seed 0) through the entry points a user calls, and checks them: serving
+seed 0) through the entry points a user calls, and checks them: the
+command-line entry points ``sk_gs_tpu_torch.cli.train``, ``.test`` and
+``.render_repose`` from a YAML config to a checkpoint and back; serving
 through ``framework.evaluate`` (80,000 alive); training the ``sk`` stage
 through ``framework.trainer.SKGSTrainer.train_step`` on the preset's
 synthetic scene, made on the card (the ``tile`` schedule, kernels #1/#2);
@@ -117,7 +119,31 @@ with the ``sk_init`` family (kernel #1). Phases, one JSON line each:
    caches equal or within 1e-5, the Adam-updated leaves as 10 holds
    parameters; then an ``sk_init`` and an ``sk`` step on both from the
    CPU's state after it, as 10 holds steps;
-22. with ``--profile`` only: 19 at the flagship's 2,000 + 2,000
+22. cli_train_smoke: ``sk_gs_tpu_torch.cli.train`` (its ``main``, in this
+   process, into a temporary directory) on configs/synthetic_smoke.yaml,
+   the whole 180-step schedule with the launch counts at 0: the seconds,
+   the ms a step by stage from metrics.jsonl, the files written, the
+   results (the JAX package's keys; finite, or null where the JAX
+   package writes null), #1 once a step, a ground-truth frame and an
+   evaluated view, #2 once a step but the ``sk_init`` steps';
+23. cli_test_fullscale: the random full-width model (80,000 alive) with
+   its ``sk_cache`` filled at the 48 train frames as ``sk`` training fills
+   it, saved through the port's checkpoint at step 40,010 with the
+   skeleton initialised; ``cli.test`` on configs/synthetic_fullscale.yaml
+   (48 views, 400 px, LPIPS alex and vgg) without and with
+   ``test_time_interpolate`` (the first also sweeping FPS over 1,000
+   renders): the columns and FPS of each; at the 48 train times the two
+   routes' deltas within 1e-4 and their renders at least 60 dB apart;
+24. cli_repose_fullscale: ``cli.render_repose`` of that checkpoint with
+   ``--orbit --time-sweep --pose-json`` (two keyframes), 20 frames at 400
+   px: ms a frame (render, copy to the host, PNG), each PNG decoded by
+   the port's reader, #1 once a frame
+   (and once a ground-truth frame); a zero pose delta renders as none;
+25. cli_train_fullscale: ``cli.train`` on configs/synthetic_fullscale.yaml
+   for 20 steps (the flagship start in 100,352 slots, 48 frames, 400 px):
+   ms a step, the full-metric evaluation over the 48 views, the files
+   written, peak memory;
+26. with ``--profile`` only: 19 at the flagship's 2,000 + 2,000
    iterations (profile_sk_init_event); profile_sk_init, each loop's
    iteration on the host clock and under torch.profiler (device time,
    busy share, top kernels) on that model after its initialisation; 21
@@ -146,7 +172,8 @@ with the ``sk_init`` family (kernel #1). Phases, one JSON line each:
    backward scatter named on its own line.
 
 Then a ``kernels`` line (every ported kernel with its launches on its own
-training path and on each path, error, times and bound), the card's name
+training path and on each path, the CLI paths ``cli_train``, ``cli_test``
+and ``cli_repose`` included, error, times and bound), the card's name
 and power limit as nvidia-smi prints them, and last ``{"ok": true,
 "device": {...}}``. Any failure raises and exits non-zero; with no CUDA
 device it exits non-zero before printing any result, and without the port
@@ -161,15 +188,23 @@ import json
 import math
 import subprocess
 import sys
+import tempfile
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
 
 from sk_gs_tpu_torch import convert
+from sk_gs_tpu_torch.cli import render_repose as cli_repose
+from sk_gs_tpu_torch.cli import test as cli_test
+from sk_gs_tpu_torch.cli import train as cli_train
 from sk_gs_tpu_torch.cuda_build import build_all
 from sk_gs_tpu_torch.data.sampler import UniformSampler
 from sk_gs_tpu_torch.data.synthetic import make_synthetic_scene
+from sk_gs_tpu_torch.framework.checkpoint import CheckpointManager
+from sk_gs_tpu_torch.framework.checkpoint import load as load_ckpt
+from sk_gs_tpu_torch.framework.config import make_config
 from sk_gs_tpu_torch.framework.evaluate import evaluate, render_eval
 from sk_gs_tpu_torch.framework.presets import (flagship_point_cloud,
                                                synthetic_fullscale)
@@ -196,6 +231,7 @@ from sk_gs_tpu_torch.render.render import blend_tiles, composite_background
 from sk_gs_tpu_torch.render.tile_kernel import (KERNELS, chunk_blend_bwd,
                                                 chunk_blend_fwd,
                                                 tile_blend_bwd, tile_blend_fwd)
+from sk_gs_tpu_torch.utils.png import read_png
 
 # published H100 SXM peaks (NVIDIA data sheet): float32 outside the tensor
 # cores, and HBM3 bandwidth
@@ -297,6 +333,30 @@ N_SK_INIT_STEPS = 5
 SK_REF_ITERS = 20
 SK_REF_ITERS_LONG = 50
 SK_REF_MOTION = 1000.0
+# the CLI phases: the configs they run, the step of the random sk
+# checkpoint (inside the flagship's sk stage), the agreement bars of the
+# interpolated and the net routes at the train times (deltas, max abs; the
+# renders, their least PSNR against each other: a last-bit change of a
+# delta can reorder a near-tie in the depth sort), the repose frames,
+# the full-width training steps, and the keys of results.json as the JAX
+# package writes them (uncalibrated LPIPS)
+CLI_SMOKE = 'configs/synthetic_smoke.yaml'
+CLI_FULLSCALE = 'configs/synthetic_fullscale.yaml'
+CLI_SK_STEP = 40_010
+CLI_N_ALIVE = 80_000
+CLI_INTERP_TOL = 1e-4
+CLI_INTERP_PSNR = 60.0
+CLI_REPOSE_FRAMES = 20
+CLI_FULLSCALE_STEPS = 20
+# the 1,000-render FPS sweep of cli.test runs in the default run
+CLI_FPS_SWEEP = True
+CLI_METRIC_KEYS = {'PSNR', 'SSIM', 'SSIM (border-cropped)', 'MS-SSIM',
+                   'LPIPS (alex)', 'LPIPS (vgg)', 'LPIPS weights',
+                   'LPIPS (alex) [uncalibrated]',
+                   'LPIPS (vgg) [uncalibrated]'}
+CLI_TRAIN_KEYS = CLI_METRIC_KEYS | {'best_PSNR', 'train_time_s'}
+CLI_TEST_KEYS = CLI_METRIC_KEYS | {'FPS', 'stage', 'step', 'capacity',
+                                   'pair_capacity', 'n_alive'}
 
 
 def emit(obj):
@@ -2139,6 +2199,278 @@ def phase_profile(model, views, times, bg, served_ms):
           'top_device_kernels': top_kernels(on_dev, n_win, 'request')})
 
 
+# ---------------------------------------------------------------- the CLIs
+
+def cli_run(fn, argv):
+    """``fn(argv)`` with the launch counts set to 0 just before and read
+    just after; returns (its result, the launches, the seconds)."""
+    torch.cuda.synchronize()
+    for k in KERNELS:
+        k.launches = 0
+    t0 = time.perf_counter()
+    out = fn(argv)
+    torch.cuda.synchronize()
+    return out, {k.name: k.launches for k in KERNELS}, \
+        time.perf_counter() - t0
+
+
+def files_under(root: Path) -> dict:
+    """Every file under ``root`` with its size in bytes."""
+    return {str(p.relative_to(root)): p.stat().st_size
+            for p in sorted(root.rglob('*')) if p.is_file()}
+
+
+def check_results(res: dict, keys, phase: str):
+    """``res`` has exactly ``keys``; every number is finite, the LPIPS
+    columns null beside their uncalibrated values (no calibrated weights
+    in the repo), as the JAX package writes them."""
+    if set(res) != set(keys):
+        raise AssertionError(f'{phase}: results keys {sorted(res)} != '
+                             f'{sorted(keys)}')
+    for k, v in res.items():
+        if k in ('LPIPS (alex)', 'LPIPS (vgg)'):
+            ok = v is None
+        elif isinstance(v, float):
+            ok = math.isfinite(v)
+        else:
+            ok = True
+        if not ok:
+            raise AssertionError(f'{phase}: {k} = {v}')
+
+
+def ms_by_stage(out_dir: Path) -> dict:
+    """Mean of metrics.jsonl's windowed ms a step, by the stage of each
+    logged step."""
+    by = {}
+    for line in (out_dir / 'metrics.jsonl').read_text().splitlines():
+        rec = json.loads(line)
+        by.setdefault(rec['stage'], []).append(rec['ms_per_step'])
+    return {k: sum(v) / len(v) for k, v in by.items()}
+
+
+def phase_cli_train_smoke(tmp: Path):
+    """``cli.train`` on configs/synthetic_smoke.yaml, the whole 180-step
+    schedule on the card: #1 once a training step and once a render of
+    the ground truth and of each evaluation, #2 once a step but the
+    ``sk_init`` steps'."""
+    cfg = make_config(CLI_SMOKE)
+    res, launches, secs = cli_run(cli_train.main, [
+        '-c', CLI_SMOKE, '--device', 'cuda', '--set', f'output_dir={tmp}',
+        f'dataset.root={tmp}'])
+    out = tmp / cfg['exp_name']
+    sched = cfg['train_schedule']
+    steps = sum(sched.values())
+    views = cfg['dataset']['num_frames']
+    evals = steps // cfg['train']['eval_interval'] + (
+        steps % cfg['train']['eval_interval'] > 0) + 1
+    expected = {tile_blend_fwd.name: steps + views * (1 + evals),
+                tile_blend_bwd.name: steps - sched['sk_init'],
+                chunk_blend_fwd.name: 0, chunk_blend_bwd.name: 0}
+    files = files_under(out)
+    emit({'phase': 'cli_train_smoke', 'seconds': secs, 'steps': steps,
+          'ms_per_step_by_stage': ms_by_stage(out), 'launches': launches,
+          'expected_launches': expected, 'results': res, 'files': files})
+    check_results(json.loads((out / 'results.json').read_text()),
+                  CLI_TRAIN_KEYS, 'cli_train_smoke')
+    want = {'checkpoints/' + n for n in (
+        'checkpoint_00000100.npz', 'init.npz', 'sk_init.npz', 'best.npz',
+        'last.npz')} | {'config.yaml', 'metrics.jsonl', 'last.ply',
+                        'results.json'}
+    if not want <= set(files) or launches != expected:
+        raise AssertionError(f'cli_train_smoke: files {sorted(files)}, '
+                             f'launches {launches} != {expected}')
+    return launches
+
+
+def sk_checkpoint(tmp: Path, cfg, rcfg) -> Path:
+    """The random full-width model (``CLI_N_ALIVE`` alive) with its ``sk_cache``
+    filled at the train frames as ``sk`` training writes it, saved through
+    the port's checkpoint at step ``CLI_SK_STEP`` with the skeleton
+    initialised."""
+    flat = random_model_flat(cfg, SEED, n_alive=CLI_N_ALIVE)
+    model = convert.model_from_flat(flat, cfg, rcfg, device='cuda')
+    with torch.no_grad():
+        for tid in range(cfg.num_frames):
+            d = forward_deltas(cfg, model, model.train_times[tid], 'sk',
+                               time_id=tid, training=True)
+            model.sk_cache[tid] = d.aux['cache_row']
+    state = {'model/' + k: v for k, v in convert.model_to_flat(model).items()}
+    state['flags/skeleton_initialized'] = np.asarray(True)
+    return CheckpointManager(tmp).save(state, CLI_SK_STEP, force=True,
+                                       name='sk_random.npz')
+
+
+def interp_agreement(ckpt: Path, cfg, rcfg) -> dict:
+    """At each train time, the served deltas and renders through the net
+    and through the interpolated ``sk_cache``: the deltas' max abs
+    difference, and the renders' max abs difference, the share of pixel
+    channels apart by more than ``CLI_INTERP_TOL`` and their least PSNR
+    against each other. The cache holds the normalised quaternion, which
+    the read path normalises again (a last-bit change), so the deltas
+    differ at rounding level and the depth sort may order a near-tie of
+    two splats the other way."""
+    model = convert.model_from_flat(load_ckpt(ckpt), cfg, rcfg, device='cuda')
+    bg = torch.ones(3, device='cuda')
+    out = {'deltas_max_abs': 0.0, 'render_max_abs': 0.0,
+           'render_share_over_tol': 0.0, 'render_psnr_min': math.inf}
+    for tid in range(cfg.num_frames):
+        view = orbit_view(2.0 * math.pi * tid / cfg.num_frames,
+                          rcfg.image_width, rcfg.image_height, device='cuda')
+        t = model.train_times[tid]
+        deltas, imgs = [], []
+        for interp in (False, True):
+            model.cfg = cfg._replace(test_time_interpolate=interp)
+            with torch.no_grad():
+                d = forward_deltas(model.cfg, model, t, 'sk')
+            deltas.append(torch.cat([d.d_xyz, d.d_rotation, d.d_scaling], 1))
+            imgs.append(render_eval(model, view, t, bg)['image'])
+        diff = (imgs[0] - imgs[1]).abs()
+        mse = float(torch.mean(diff ** 2))
+        out['deltas_max_abs'] = max(out['deltas_max_abs'], float(
+            (deltas[0] - deltas[1]).abs().max()))
+        out['render_max_abs'] = max(out['render_max_abs'], float(diff.max()))
+        out['render_share_over_tol'] = max(
+            out['render_share_over_tol'],
+            float((diff > CLI_INTERP_TOL).float().mean()))
+        out['render_psnr_min'] = min(out['render_psnr_min'], math.inf
+                                     if mse == 0 else -10 * math.log10(mse))
+    return out
+
+
+def phase_cli_test_fullscale(tmp: Path, sweep: bool):
+    """``cli.test`` on configs/synthetic_fullscale.yaml (48 views, 400 px,
+    LPIPS alex and vgg) with the random ``sk`` checkpoint, without and with
+    ``test_time_interpolate``; the first run also sweeps FPS when
+    ``sweep``. At the train times the two routes render alike."""
+    cfg, rcfg, _ = synthetic_fullscale()
+    ckpt = sk_checkpoint(tmp, cfg, rcfg)
+    runs, launches = {}, {}
+    for interp in (False, True):
+        argv = ['-c', CLI_FULLSCALE, '--load', str(ckpt), '--device', 'cuda',
+                '--out', str(tmp / f'test_{interp}.json'), '--set',
+                f'dataset.root={tmp}',
+                f'model.test_time_interpolate={str(interp).lower()}']
+        if sweep and not interp:
+            argv.append('--fps-sweep')
+        res, launches[interp], secs = cli_run(cli_test.main, argv)
+        res['seconds'] = secs
+        runs[str(interp).lower()] = res
+    agree = interp_agreement(ckpt, cfg, rcfg)
+    views = cfg.num_frames
+    # the ground truth, the warm-up and the timed evaluation (and the
+    # sweep's 1,000 renders and their warm-up)
+    expected = {interp: {
+        tile_blend_fwd.name: 3 * views + (
+            cli_test.N_SWEEP + cli_test.SWEEP_WARMUP
+            if sweep and not interp else 0),
+        tile_blend_bwd.name: 0, chunk_blend_fwd.name: 0,
+        chunk_blend_bwd.name: 0} for interp in (False, True)}
+    emit({'phase': 'cli_test_fullscale', 'runs': runs,
+          'launches': {str(k).lower(): v for k, v in launches.items()},
+          'interp_vs_net_at_train_times': agree,
+          'tolerance': {'deltas': CLI_INTERP_TOL,
+                        'render_psnr_min': CLI_INTERP_PSNR}})
+    for res in runs.values():
+        check_results({k: v for k, v in res.items() if k != 'seconds'},
+                      CLI_TEST_KEYS | ({'FPS_sweep'} if 'FPS_sweep' in res
+                                       else set()), 'cli_test_fullscale')
+        if (res['stage'], res['step'], res['n_alive']) != (
+                'sk', CLI_SK_STEP, CLI_N_ALIVE):
+            raise AssertionError(f'cli_test_fullscale: {res}')
+    if agree['deltas_max_abs'] > CLI_INTERP_TOL \
+            or agree['render_psnr_min'] < CLI_INTERP_PSNR \
+            or launches != expected:
+        raise AssertionError(f'cli_test_fullscale: interpolation {agree}, '
+                             f'launches {launches} != {expected}')
+    return ckpt, launches[False]
+
+
+def phase_cli_repose_fullscale(tmp: Path, ckpt: Path):
+    """``cli.render_repose`` of the random ``sk`` checkpoint: orbit, time
+    sweep and two pose keyframes, ``CLI_REPOSE_FRAMES`` frames at 400 px,
+    each a PNG that decodes; #1 once a frame (and once a ground-truth view
+    of the scene). A zero pose delta renders as no delta."""
+    cfg, rcfg, _ = synthetic_fullscale()
+    rng = np.random.default_rng(SEED)
+    poses = tmp / 'poses.json'
+    poses.write_text(json.dumps([
+        {'joint_deltas': np.zeros((cfg.num_superpoints, 3)).tolist()},
+        {'joint_deltas': (0.3 * rng.normal(size=(cfg.num_superpoints, 3)))
+         .tolist()}]))
+    res, launches, secs = cli_run(cli_repose.main, [
+        '-c', CLI_FULLSCALE, '--load', str(ckpt), '--device', 'cuda',
+        '--orbit', '--time-sweep', '--pose-json', str(poses),
+        '--num-frames', str(CLI_REPOSE_FRAMES), '--out', str(tmp / 'frames'),
+        '--set', f'dataset.root={tmp}'])
+    shapes = {tuple(read_png(p).shape) for p in res['paths']}
+    model = convert.model_from_flat(load_ckpt(ckpt), cfg, rcfg,
+                                    device='cuda')
+    view = orbit_view(0.3, rcfg.image_width, rcfg.image_height,
+                      device='cuda')
+    t = torch.tensor(0.4, device='cuda')
+    with torch.no_grad():
+        zero = cli_repose.render_frame(
+            model, view, t, torch.zeros(cfg.num_superpoints, 3,
+                                        device='cuda'))
+        plain = render_eval(model, view, t, torch.ones(3, device='cuda'),
+                            'sk')['image']
+    zero_err = float((zero - plain).abs().max())
+    expected = {tile_blend_fwd.name: CLI_REPOSE_FRAMES + cfg.num_frames,
+                tile_blend_bwd.name: 0, chunk_blend_fwd.name: 0,
+                chunk_blend_bwd.name: 0}
+    ms = [1e3 * x for x in res['seconds']]
+    emit({'phase': 'cli_repose_fullscale', 'seconds': secs,
+          'frames': len(res['paths']), 'ms_per_frame': ms,
+          'ms_per_frame_mean_after_first': sum(ms[1:]) / max(len(ms) - 1, 1),
+          'png_shapes': sorted(shapes), 'zero_delta_max_abs': zero_err,
+          'launches': launches, 'expected_launches': expected})
+    if shapes != {(rcfg.image_height, rcfg.image_width, 3)} \
+            or len(res['paths']) != CLI_REPOSE_FRAMES or zero_err > 0 \
+            or launches != expected:
+        raise AssertionError(f'cli_repose_fullscale: shapes {shapes}, '
+                             f'zero delta {zero_err}, launches {launches}')
+    return launches
+
+
+def phase_cli_train_fullscale(tmp: Path):
+    """``cli.train`` on configs/synthetic_fullscale.yaml for its first
+    ``CLI_FULLSCALE_STEPS`` steps (init_fix: 2,000 points in 100,352 slots,
+    48 frames at 400 px), then the full-metric evaluation over the 48
+    views."""
+    torch.cuda.reset_peak_memory_stats()
+    cfg = make_config(CLI_FULLSCALE)
+    res, launches, secs = cli_run(cli_train.main, [
+        '-c', CLI_FULLSCALE, '--device', 'cuda', '--steps',
+        str(CLI_FULLSCALE_STEPS), '--set', f'output_dir={tmp}',
+        f'dataset.root={tmp}'])
+    out = tmp / cfg['exp_name']
+    files = files_under(out)
+    emit({'phase': 'cli_train_fullscale', 'seconds': secs,
+          'steps': CLI_FULLSCALE_STEPS,
+          'ms_per_step_by_stage': ms_by_stage(out), 'results': res,
+          'launches': launches, 'files': files,
+          'max_memory_allocated': torch.cuda.max_memory_allocated()})
+    check_results(res, CLI_TRAIN_KEYS, 'cli_train_fullscale')
+    if 'checkpoints/last.npz' not in files or \
+            launches[tile_blend_bwd.name] != CLI_FULLSCALE_STEPS:
+        raise AssertionError(f'cli_train_fullscale: files {sorted(files)}, '
+                             f'launches {launches}')
+    return launches
+
+
+def phase_clis(sweep: bool) -> dict:
+    """The four CLI phases in one temporary directory; returns their
+    launches by path."""
+    with tempfile.TemporaryDirectory(prefix='chip_smoke_cli_') as d:
+        tmp = Path(d)
+        paths = {'cli_train': phase_cli_train_smoke(tmp / 'smoke')}
+        ckpt, paths['cli_test'] = phase_cli_test_fullscale(tmp / 'test',
+                                                           sweep)
+        paths['cli_repose'] = phase_cli_repose_fullscale(tmp / 'test', ckpt)
+        phase_cli_train_fullscale(tmp / 'train')
+    return paths
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split('\n\n')[0])
     ap.add_argument('--profile', action='store_true',
@@ -2200,6 +2532,9 @@ def main(argv=None) -> int:
                         train)
     sk_init_launches = phase_sk_init_train(cfg, rcfg, train)
     phase_train_reference_sk_init(SEED)
+
+    # the entry points, from a config to a checkpoint and back
+    cli_paths = phase_clis(CLI_FPS_SWEEP or args.profile)
     if args.profile:
         phase_train_reference_sk_init(SEED, SK_REF_ITERS_LONG,
                                       'profile_reference_sk_init', False)
@@ -2230,7 +2565,7 @@ def main(argv=None) -> int:
 
     paths = {'serve': serve_launches, 'train': train_launches,
              'train_init': init_launches, 'train_sp': sp_launches,
-             'train_sk_init': sk_init_launches}
+             'train_sk_init': sk_init_launches, **cli_paths}
     for row in rows:
         own = 'train_init' if row['name'].startswith('chunk') else 'train'
         row['launches'] = paths[own][row['name']]

@@ -10,11 +10,14 @@ Weights keep the JAX layout (linear ``w`` is [in, out]), so the skeleton
 net's leaves map one to one: ``params/sk_deform/layers/3/w`` ->
 ``sk_deform.layers.3.w``. ``adam_from_flat`` reads a trainer checkpoint's
 Adam moments (``state/opt/mu/...``, ``state/opt/nu/...``,
-``state/opt/count``) and ``model_to_flat`` writes the port's model back in
-the JAX names. ``trainer_flags_from_flat`` reads a trainer checkpoint's
-stage flags and the smooth loss's KNN (``state/flags/...``) as the JAX
-trainer's ``restore`` does, so that a run taken inside the ``sp`` or ``sk``
-stages resumes in the port.
+``state/opt/count``) and ``adam_to_flat`` writes them; ``model_to_flat``
+writes the port's model back in the JAX names. ``trainer_flags_from_flat``
+reads a trainer checkpoint's stage flags and the smooth loss's KNN
+(``state/flags/...``) as the JAX trainer's ``restore`` does, so that a run
+taken inside the ``sp`` or ``sk`` stages resumes in the port, and
+``trainer_state_to_flat`` writes a trainer's whole state in the layout of
+the JAX trainer's ``ckpt_state()`` (every leaf of it), plus the port's own
+keys under ``port/``, which the JAX loader skips.
 
 Carried: every leaf of ``SKGSModel.leaves`` (the Gaussian and skeleton
 leaves, ``hyper``, ``sp_points``, ``sp_hyper`` and ``joint_pos`` when the
@@ -23,10 +26,9 @@ arrays have them, the skeleton net, and the warp nets ``sp_deform`` and
 when present) and their Adam moments, the buffers the port reads
 (``AUX_BUFFERS``) and the training state it updates (``STAT_BUFFERS``:
 ``max_radii2d``, ``xyz_grad_accum``, ``denom``, ``sk_cache``, ``sp_cache``,
-``joint_cost``, ``p2sp``, and the frozen LBS of the sk stages,
-``sp_weights`` / ``sp_knn``, which the skeleton initialisation writes;
-zeros when the checkpoint has none), both ways. Not carried:
-``joint_depth`` (the port reads none).
+``joint_cost``, ``p2sp``, the frozen LBS of the sk stages, ``sp_weights``
+/ ``sp_knn``, which the skeleton initialisation writes, and the joints'
+tree depth ``joint_depth``; zeros when the checkpoint has none), both ways.
 """
 from __future__ import annotations
 
@@ -39,7 +41,6 @@ import torch
 from . import resolve_device
 from torch import nn
 
-from .framework.trainer import SKGSTrainer
 from .models.deform import (DeformNet, DeformNetConfig, SkeletonNetConfig,
                             skeleton_net)
 from .models.optim import AdamState
@@ -52,9 +53,16 @@ from .render.settings import RasterConfig
 _BUFFER_DTYPES = {'alive': torch.bool, 'active_sh_degree': torch.int32,
                   'sp_alive': torch.bool, 'joint_parents': torch.int32,
                   'joint_root': torch.int32, 'train_times': torch.float32,
-                  'p2sp': torch.int32, 'sp_knn': torch.int32}
+                  'p2sp': torch.int32, 'sp_knn': torch.int32,
+                  'joint_depth': torch.int32}
 # the trainer's stage flags in a JAX ``ckpt_state()``
 TRAINER_FLAGS = ('sp_initialized', 'reinit_done', 'skeleton_initialized')
+# the port's own trainer state: the CPU generator of the split noise and of
+# the skeleton initialisation's frames, and a mark that the smooth loss's
+# KNN is the trainer's own (an all-zero one included, which the JAX
+# ``restore`` would rebuild as a checkpoint's that lacks it)
+NOISE_GEN_KEY = 'port/noise_gen_state'
+KNN_OWN_KEY = 'port/gs_knn_index_own'
 
 
 def _tensor(arr, device, dtype=torch.float32) -> torch.Tensor:
@@ -144,7 +152,10 @@ def trainer_flags_from_flat(flat: Mapping[str, np.ndarray], cfg: SKGSConfig,
     by the schedule at ``step`` (a checkpoint without flags is an older
     one), and the smooth loss's KNN ``gs_knn_index``, rebuilt on ``device``
     from the checkpoint's Gaussians when it is all zeros or missing and
-    ``step`` lies in ``sp_fix`` or ``sp``."""
+    ``step`` lies in ``sp_fix`` or ``sp``, unless the port wrote it (its
+    ``port/gs_knn_index_own`` mark: a resumed run then keeps the KNN of an
+    uninterrupted one, zeros before the schedule's first rebuild)."""
+    from .framework.trainer import SKGSTrainer
     if model_prefix(flat) != 'state/model/':
         raise KeyError('no trainer checkpoint (arrays under "state/model/")')
     device = resolve_device(device)
@@ -159,7 +170,9 @@ def trainer_flags_from_flat(flat: Mapping[str, np.ndarray], cfg: SKGSConfig,
         'reinit_done': saved['reinit_done']
         or 0 < cfg.stages['sp_fix'][0] <= step}
     index = flat.get('state/flags/gs_knn_index')
-    if stage in ('sp_fix', 'sp') and (index is None or not np.any(index)):
+    own = bool(np.asarray(flat.get('state/' + KNN_OWN_KEY, False)))
+    if stage in ('sp_fix', 'sp') and not own and (
+            index is None or not np.any(index)):
         xyz = _tensor(flat['state/model/params/xyz'], device)
         alive = _tensor(flat['state/model/alive'], device, torch.bool)
         out['gs_knn_index'] = live_knn_index(xyz, alive,
@@ -178,6 +191,44 @@ def model_to_flat(model: SKGSModel) -> Dict[str, np.ndarray]:
            for k, p in model.leaves().items()}
     for k in AUX_BUFFERS + STAT_BUFFERS:
         out[k] = np.array(getattr(model, k).cpu())
+    return out
+
+
+def adam_to_flat(state: AdamState) -> Dict[str, np.ndarray]:
+    """``opt/mu/<leaf>``, ``opt/nu/<leaf>`` and ``opt/count`` (int32), as
+    the JAX ``AdamState`` flattens."""
+    out = {f'opt/{moment}/{k}': np.array(v.detach().cpu())
+           for moment, tree in (('mu', state.mu), ('nu', state.nu))
+           for k, v in tree.items()}
+    out['opt/count'] = np.asarray(state.count, np.int32)
+    return out
+
+
+def jax_key(seed: int) -> np.ndarray:
+    """The JAX package's ``PRNGKey(seed)`` (threefry): [seed >> 32, seed
+    & 0xFFFFFFFF] uint32."""
+    return np.asarray([(seed >> 32) & 0xFFFFFFFF, seed & 0xFFFFFFFF],
+                      np.uint32)
+
+
+def trainer_state_to_flat(model: SKGSModel, opt_state: AdamState,
+                          flags: Mapping, gs_knn_index: torch.Tensor,
+                          noise_gen: torch.Generator, seed: int
+                          ) -> Dict[str, np.ndarray]:
+    """A trainer's state in the layout of the JAX trainer's ``ckpt_state()``
+    (``model/...``, ``opt/...``, ``flags/...``: the three stage flags,
+    ``best_psnr``, ``key`` and ``gs_knn_index``, in the JAX dtypes) and the
+    port's own keys (``port/...``). ``flags/key`` is the JAX key of
+    ``seed``: the port draws nothing from it."""
+    out = {'model/' + k: v for k, v in model_to_flat(model).items()}
+    out.update(adam_to_flat(opt_state))
+    for k in TRAINER_FLAGS:
+        out['flags/' + k] = np.asarray(bool(flags[k]))
+    out['flags/best_psnr'] = np.asarray(flags['best_psnr'], np.float32)
+    out['flags/key'] = jax_key(seed)
+    out['flags/gs_knn_index'] = np.array(gs_knn_index.cpu(), np.int32)
+    out[NOISE_GEN_KEY] = noise_gen.get_state().numpy().copy()
+    out[KNN_OWN_KEY] = np.asarray(True)
     return out
 
 

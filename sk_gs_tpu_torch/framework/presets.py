@@ -1,4 +1,5 @@
-"""Named model presets, carried in code (the port reads no YAML).
+"""Named model presets, carried in code (``framework/build.py`` builds the
+same from the YAML; a test holds the two equal).
 
 ``synthetic_fullscale`` is what ``configs/synthetic_fullscale.yaml`` on top
 of ``configs/default.yaml`` gives through the JAX package's

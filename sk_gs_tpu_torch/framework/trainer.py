@@ -47,6 +47,13 @@ with ``seed`` (so the card and the CPU draw the same numbers; the JAX key
 stream is not matched). The ``sk`` family has none
 (``trainer.py:1188-1189``).
 
+Checkpoints (``ckpt_state``, ``restore``, ``trainer.py:1319-1372``): the
+trainer's whole state in the JAX trainer's layout, and back; a resumed run
+takes the steps an uninterrupted one takes. ``snapshot_fn(name)``, when
+set, is called with 'init.npz' after the restart from the point cloud and
+with 'sk_init.npz' after the skeleton initialisation. ``evaluate`` scores a
+split (``framework.evaluate.split_metrics``).
+
 Not ported, and raising ``NotImplementedError``: the ``elastic``, ``acc``,
 ``arap`` and ``arap_p`` losses and the ``sp`` extras ``re_pos``,
 ``jp_dist``, ``sp_arap_t`` and ``sp_arap_ct`` (zero in the default
@@ -56,12 +63,12 @@ optimizers other than Adam.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Callable, Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
 
-from .. import resolve_device
+from .. import convert, resolve_device
 from ..data.base import DYNAMIC_BG, Scene, SceneMeta
 from ..data.sampler import UniformSampler
 from ..models.gaussian_splatting import (densify_and_prune, expon_lr,
@@ -84,6 +91,7 @@ from ..ops import se3
 from ..ops.knn import live_knn_index
 from ..render.render import composite_background, render
 from ..render.settings import GaussianInputs, RasterConfig
+from .evaluate import render_eval, split_metrics
 
 FAMILY = {'static': 'static', 'init_fix': 'init', 'init': 'init',
           'sp_fix': 'sp', 'sp': 'sp', 'sk_init': 'sk_init', 'sk_fix': 'sk',
@@ -145,7 +153,9 @@ class SKGSTrainer:
     (zeros until the first rebuild, as in the JAX trainer), rebuilt on
     ``sp`` steps every ``gs_knn_update_interval`` = (every, after) steps
     and at step 1. ``last_event`` holds the counts of the events after the
-    last step.
+    last step. ``eval_scene`` is the split ``evaluate`` scores (the train
+    split when None); ``best_psnr`` is the best eval PSNR a caller has
+    recorded, kept in the checkpoint.
     """
 
     # the smooth loss's KNN: neighbours of a Gaussian, and the rebuild
@@ -162,7 +172,8 @@ class SKGSTrainer:
                  pcd: Optional[Tuple[np.ndarray, np.ndarray]] = None,
                  gs_knn_index: Optional[torch.Tensor] = None,
                  sp_initialized: bool = False, reinit_done: bool = False,
-                 skeleton_initialized: bool = False, device='cuda'):
+                 skeleton_initialized: bool = False,
+                 eval_scene: Optional[Scene] = None, device='cuda'):
         if batch_views != 1:
             raise NotImplementedError('batch_views > 1 is not ported yet')
         if mesh is not None:
@@ -183,12 +194,15 @@ class SKGSTrainer:
             raise ValueError('the model is frozen: build it with '
                              'convert.model_from_flat(..., trainable=True)')
         self.scene = scene.to(self.device)
+        self.eval_scene = None if eval_scene is None else \
+            eval_scene.to(self.device)
         self.meta = meta
         self.loss_w = loss_weights or LossWeights(DEFAULT_LOSS)
         self.sampler = sampler or UniformSampler(scene.num_views, seed)
         self.clip_norm = clip_norm
         self.opt_state = opt_state or adam_init(
             {k: p.detach() for k, p in leaves.items()})
+        self.seed = seed
         self.noise_gen = torch.Generator().manual_seed(seed)
         bg = meta.background
         if bg is None:
@@ -196,6 +210,8 @@ class SKGSTrainer:
                 else np.zeros(3, np.float32)
         self.bg = torch.as_tensor(bg, dtype=torch.float32).to(self.device)
         self.step = 0
+        self.best_psnr = -1.0
+        self.snapshot_fn: Optional[Callable[[str], None]] = None
         self.last_event: Dict[str, torch.Tensor] = {}
         self.pcd = pcd
         self.sp_initialized = sp_initialized
@@ -207,6 +223,69 @@ class SKGSTrainer:
                         device=self.device)
             if gs_knn_index is None else
             torch.as_tensor(gs_knn_index, dtype=torch.int64).to(self.device))
+
+    # ------------------------------------------------------------ checkpoint
+
+    def ckpt_state(self) -> Dict[str, np.ndarray]:
+        """A copy of the whole state as numpy arrays in the layout of the
+        JAX trainer's ``ckpt_state()`` (``model/...``, ``opt/...``,
+        ``flags/...``), plus the port's noise generator (``port/...``)."""
+        flags = {'skeleton_initialized': self.skeleton_initialized,
+                 'sp_initialized': self.sp_initialized,
+                 'reinit_done': self.reinit_done,
+                 'best_psnr': self.best_psnr}
+        return convert.trainer_state_to_flat(
+            self.model, self.opt_state, flags, self.gs_knn_index,
+            self.noise_gen, self.seed)
+
+    def restore(self, flat: Mapping[str, np.ndarray], step: int):
+        """Resume from a checkpoint's arrays (``framework.checkpoint.load``;
+        written by either package) taken after step ``step``, as the JAX
+        trainer's ``restore`` does: the model at the checkpoint's capacity,
+        Adam (fresh moments when the checkpoint has none), the stage flags
+        OR-ed with what the schedule implies at ``step``, ``best_psnr``, and
+        the smooth loss's KNN (rebuilt when a JAX checkpoint's is all zeros
+        inside ``sp_fix`` / ``sp``: ``convert.trainer_flags_from_flat``);
+        the port's noise generator when the checkpoint has it."""
+        self.model = convert.model_from_flat(flat, self.cfg, self.rcfg,
+                                             self.device, trainable=True)
+        leaves = {k: p.detach() for k, p in self.model.leaves().items()}
+        self.opt_state = convert.adam_from_flat(flat, self.model) \
+            if 'state/opt/count' in flat else adam_init(leaves)
+        kw = convert.trainer_flags_from_flat(flat, self.cfg, step,
+                                             self.device)
+        for k in convert.TRAINER_FLAGS:
+            setattr(self, k, kw[k])
+        n = self.model.alive.shape[0]
+        index = kw.get('gs_knn_index')
+        self.gs_knn_index = torch.zeros(
+            (n, self.gs_knn_num), dtype=torch.int64, device=self.device) \
+            if index is None else index.to(self.device, torch.int64)
+        if 'state/flags/best_psnr' in flat:
+            self.best_psnr = float(flat['state/flags/best_psnr'])
+        gen = flat.get('state/' + convert.NOISE_GEN_KEY)
+        if gen is not None:
+            self.noise_gen.set_state(torch.from_numpy(np.array(gen)))
+        self.step = step
+
+    # ------------------------------------------------------------ eval
+
+    def evaluate(self, scene: Optional[Scene] = None,
+                 stage: Optional[str] = None,
+                 full_metrics: bool = False) -> Dict:
+        """The metrics of ``scene`` (the eval split, else the train split)
+        at ``stage`` (the current step's): PSNR and SSIM, or with
+        ``full_metrics`` the six columns and their post-processing
+        (``trainer.py:1436-1491``)."""
+        scene = scene or self.eval_scene or self.scene
+        stage = stage or self.cfg.stage_at(max(self.step, 1))
+        return split_metrics(self.model, scene, self.bg, stage, full_metrics,
+                             self.rcfg)
+
+    def render_view(self, scene: Scene, i: int, stage: str) -> torch.Tensor:
+        """View ``i`` of ``scene`` at its time, composited: [H, W, 3]."""
+        return render_eval(self.model, scene.view(i), scene.times[i],
+                           self.bg, stage, self.rcfg)['image']
 
     # ------------------------------------------------------------ lr
 
@@ -287,9 +366,9 @@ class SKGSTrainer:
         ``stages['sp_fix'][0]`` (the last ``init`` step; none without
         ``pcd``), the canonical-net replacement at each of
         ``canonical_replace_steps`` after ``sp_fix`` starts, the skeleton
-        initialisation before the first sk-family step (``_init_skeleton``;
-        the JAX trainer then writes the snapshot ``sk_init.npz``, which
-        waits for the port's checkpoint module)."""
+        initialisation before the first sk-family step (``_init_skeleton``).
+        ``snapshot_fn`` takes 'init.npz' after the restart and 'sk_init.npz'
+        after the skeleton initialisation."""
         cfg = self.cfg
         stages = cfg.stages
         has_sp = stages['sp_fix'][2] > 0 or stages['sp'][2] > 0
@@ -301,6 +380,8 @@ class SKGSTrainer:
                 and stages['sp_fix'][0] > 0 and self.pcd is not None):
             self._reinit_from_pcd()
             self.reinit_done = True
+            if self.snapshot_fn is not None:
+                self.snapshot_fn('init.npz')
         if (cfg.use_canonical_net and self.model.canonical is not None
                 and step > stages['sp_fix'][0]
                 and step in cfg.canonical_replace_steps):
@@ -308,6 +389,8 @@ class SKGSTrainer:
         if cfg.stage_at(step) in SK_STAGES and not self.skeleton_initialized:
             self._init_skeleton()
             self.skeleton_initialized = True
+            if self.snapshot_fn is not None:
+                self.snapshot_fn('sk_init.npz')
 
     def _init_skeleton(self) -> Dict[str, torch.Tensor]:
         """``sk_gs_ops.init_skeleton`` with min(``joint_init_steps``,
@@ -372,10 +455,11 @@ class SKGSTrainer:
         """The joint tree from the joint cost's running mean (MST on the
         host); returns the root."""
         m = self.model
-        parents, _, root = update_joint(
+        parents, depth, root = update_joint(
             m.joint_cost, m.params['sp_points'][..., :3].detach(), m.sp_alive,
             self.cfg.sk_knn_num)
         m.joint_parents.copy_(parents)
+        m.joint_depth.copy_(depth)
         m.joint_root.copy_(root)
         return root
 

@@ -13,9 +13,9 @@ own root transform (``time_id``), where ``sk_fix`` detaches the skeleton's
 outputs and the net's output row is returned for the ``sk_cache``. The
 ``sk_init`` stage runs the ``sk`` warp undetached; its losses read the
 frozen LBS ``sp_weights`` / ``sp_knn`` that the skeleton initialisation
-writes (``sk_gs_ops.init_skeleton``). Not ported yet, and raising
-``NotImplementedError``: the ``test_time_interpolate`` branch over the
-cached skeleton outputs, and ``sk_r_delta`` reposing.
+writes (``sk_gs_ops.init_skeleton``). Served with ``test_time_interpolate``,
+the ``sk`` family reads the skeleton net's outputs from the per-frame
+``sk_cache`` instead of running the net; ``sk_r_delta`` reposes the joints.
 """
 from __future__ import annotations
 
@@ -143,9 +143,12 @@ AUX_BUFFERS = ('alive', 'active_sh_degree', 'sp_alive', 'joint_parents',
 # running mean [M, M], the heaviest superpoint of each Gaussian [N]
 # (``warp_method`` 'largest'), and the LBS weights [N, K] and superpoints
 # [N, K] that the skeleton initialisation freezes for the sk stages.
+# ``joint_depth`` [M] is each joint's depth in the tree, which the port
+# keeps for the checkpoint and reads nowhere.
 STAT_BUFFERS = ('max_radii2d', 'xyz_grad_accum', 'denom', 'sk_cache',
-                'sp_cache', 'joint_cost', 'p2sp', 'sp_weights', 'sp_knn')
-INT_BUFFERS = ('p2sp', 'sp_knn')
+                'sp_cache', 'joint_cost', 'p2sp', 'sp_weights', 'sp_knn',
+                'joint_depth')
+INT_BUFFERS = ('p2sp', 'sp_knn', 'joint_depth')
 
 
 class SKGSModel(nn.Module):
@@ -180,7 +183,8 @@ class SKGSModel(nn.Module):
                  'sk_cache': (cfg.num_frames, m, sum(cfg.sk_net.out_dims)),
                  'sp_cache': (cfg.num_frames, m, cfg.sp_cache_dim),
                  'joint_cost': (m, m), 'p2sp': (n,),
-                 'sp_weights': (n, cfg.num_knn), 'sp_knn': (n, cfg.num_knn)}
+                 'sp_weights': (n, cfg.num_knn), 'sp_knn': (n, cfg.num_knn),
+                 'joint_depth': (m,)}
         for name in STAT_BUFFERS:
             buf = buffers.get(name)
             if buf is None:
@@ -416,14 +420,32 @@ def skeleton_net_input(params, joints: torch.Tensor) -> torch.Tensor:
     return joints
 
 
-def sk_rot_activation(sk_r: torch.Tensor) -> torch.Tensor:
+def sk_rot_activation(sk_r: torch.Tensor, biased: bool = False
+                      ) -> torch.Tensor:
     """Raw rotation head -> unit quaternion: a 4-dim head gets the identity
-    bias and is normalised; a 3-dim head is an axis-angle through so3_exp."""
+    bias and is normalised; a 3-dim head is an axis-angle through so3_exp.
+    ``biased`` marks rows that already carry the bias (``sk_cache`` rows):
+    they are normalised only."""
     if sk_r.shape[-1] == 4:
+        if biased:
+            return quat.normalize(sk_r)
         # made on the device: a host tensor's copy would synchronise
         bias = torch.eye(4, dtype=sk_r.dtype, device=sk_r.device)[3]
         return quat.normalize(sk_r + bias)
     return se3.so3_exp(sk_r)
+
+
+def frame_weight(train_times: torch.Tensor, t: torch.Tensor):
+    """(idx1, idx2, w) of time ``t`` between the train frames: the frames
+    around t (clamped to the first and last pair) and t's offset from idx1
+    as a share of their gap, unclipped."""
+    t0 = t.reshape(())
+    idx2 = torch.clamp(torch.searchsorted(train_times, t0.reshape(1)), 1,
+                       train_times.shape[0] - 1)[0]
+    idx1 = idx2 - 1
+    w = (t0 - train_times[idx1]) / torch.clamp(
+        train_times[idx2] - train_times[idx1], min=1e-8)
+    return idx1, idx2, w
 
 
 def sk_stage(cfg: SKGSConfig, model: SKGSModel, points: torch.Tensor,
@@ -432,16 +454,19 @@ def sk_stage(cfg: SKGSConfig, model: SKGSModel, points: torch.Tensor,
     """Skeleton-driven warp via forward kinematics and dense LBS.
     ``time_id`` (an int or a 0-d integer tensor) takes that train frame's
     root transform; ``detach`` (the ``sk_fix`` stage) cuts the gradient of
-    the joint transforms and the net's rotation and scale deltas. The aux
+    the joint transforms and the net's rotation and scale deltas;
+    ``sk_r_delta`` [M, 3 | 4] reposes each joint's rotation. The aux
     'cache_row' [M, sum(out_dims)] is what the trainer stores in
     ``sk_cache``: the normalised quaternion (the raw axis-angle in lie
     mode), then the rotation and scale deltas; 'sk_rot' / 'sk_scale' are
-    the net's per-joint rotation and scale deltas [M, .]."""
-    if sk_r_delta is not None:
-        raise NotImplementedError('sk_r_delta reposing is not ported yet')
-    if not training and cfg.test_time_interpolate:
-        raise NotImplementedError(
-            'test_time_interpolate (the sk_cache branch) is not ported yet')
+    the net's per-joint rotation and scale deltas [M, .].
+
+    Served (``training`` False) with ``cfg.test_time_interpolate``, the
+    net's outputs come from ``sk_cache``: the row of ``time_id``, or the
+    rows of the two train frames around t blended linearly, the weight
+    clipped to [0, 1] (the root transform's is not clipped). The JAX
+    package's ``training`` defaults to True; the port's to False, so a
+    caller that trains says so."""
     params = model.params
     points = points.detach()
     joints = params['joints']
@@ -449,24 +474,31 @@ def sk_stage(cfg: SKGSConfig, model: SKGSModel, points: torch.Tensor,
     if time_id is not None:
         g_tr = take_frame(params['global_tr'], time_id)
     else:
-        tt = model.train_times
-        t0 = t.reshape(())
-        idx2 = torch.clamp(torch.searchsorted(tt, t0.reshape(1)), 1,
-                           tt.shape[0] - 1)[0]
-        idx1 = idx2 - 1
-        w = (t0 - tt[idx1]) / torch.clamp(tt[idx2] - tt[idx1], min=1e-8)
+        idx1, idx2, w = frame_weight(model.train_times, t)
         g_tr = se3.se3_interpolate(params['global_tr'][idx1],
                                    params['global_tr'][idx2], w)
 
-    x_in = skeleton_net_input(params, joints)
-    sk_r_raw, d_rot, d_scale = skeleton_net_apply(model.sk_deform, cfg.sk_net,
-                                                  x_in, t)
-    sk_r = sk_rot_activation(sk_r_raw)
-    cached_r = sk_r if sk_r_raw.shape[-1] == 4 else sk_r_raw
-    cache_row = torch.cat([cached_r, d_rot, d_scale], dim=-1)
+    if not training and cfg.test_time_interpolate:
+        if time_id is not None:
+            row = take_frame(model.sk_cache, time_id)
+        else:
+            w = torch.clamp(w, 0.0, 1.0)
+            row = (1.0 - w) * model.sk_cache[idx1] + w * model.sk_cache[idx2]
+        dims = tuple(cfg.sk_net.out_dims)
+        d_rot = row[:, dims[0]:dims[0] + dims[1]]
+        d_scale = row[:, dims[0] + dims[1]:]
+        sk_r = sk_rot_activation(row[:, :dims[0]], biased=True)
+        cache_row = row
+    else:
+        x_in = skeleton_net_input(params, joints)
+        sk_r_raw, d_rot, d_scale = skeleton_net_apply(
+            model.sk_deform, cfg.sk_net, x_in, t)
+        sk_r = sk_rot_activation(sk_r_raw)
+        cached_r = sk_r if sk_r_raw.shape[-1] == 4 else sk_r_raw
+        cache_row = torch.cat([cached_r, d_rot, d_scale], dim=-1)
     sk_T = skeleton.kinematic_transforms(joints, sk_r, g_tr,
                                          model.joint_parents,
-                                         model.joint_root)
+                                         model.joint_root, sk_r_delta)
     if detach:
         sk_T, d_rot, d_scale = sk_T.detach(), d_rot.detach(), d_scale.detach()
     weights, indices = superpoints.calc_lbs_weight(

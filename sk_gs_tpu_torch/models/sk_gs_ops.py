@@ -361,7 +361,7 @@ def finalize_joints(cfg: SKGSConfig, model: SKGSModel) -> torch.Tensor:
     the root."""
     params = model.params
     sp_pts = params['sp_points'][..., :3]
-    parents, _, root = skeleton.update_joint(
+    parents, depth, root = skeleton.update_joint(
         model.joint_cost, sp_pts, model.sp_alive, cfg.sk_knn_num)
     a = torch.arange(cfg.num_superpoints, device=sp_pts.device)
     b = parents[:, 0].to(torch.int64)
@@ -371,6 +371,7 @@ def finalize_joints(cfg: SKGSConfig, model: SKGSModel) -> torch.Tensor:
     params['global_tr'].copy_(model.sp_cache.index_select(
         1, root.reshape(1).to(torch.int64))[:, 0, :7])
     model.joint_parents.copy_(parents)
+    model.joint_depth.copy_(depth)
     model.joint_root.copy_(root)
     return root
 

@@ -188,9 +188,13 @@ def kinematic_transforms(joints: torch.Tensor, sk_r: torch.Tensor,
                          g_tr: Optional[torch.Tensor], parents: torch.Tensor,
                          root, sk_r_delta: Optional[torch.Tensor] = None
                          ) -> torch.Tensor:
-    """Per-joint rotation about the joint -> global SE3s via FK."""
+    """Per-joint rotation about the joint -> global SE3s via FK. A repose
+    delta ``sk_r_delta`` [M, 3] (an so3 log, through ``so3_exp``) or [M, 4]
+    (a quaternion) is composed before each joint's rotation."""
     if sk_r_delta is not None:
-        raise NotImplementedError('sk_r_delta reposing is not ported yet')
+        dq = se3.so3_exp(sk_r_delta) if sk_r_delta.shape[-1] == 3 \
+            else sk_r_delta
+        sk_r = quat.multiply(dq, sk_r)
     sk_t = joints + quat.apply(sk_r, -joints)
     local = torch.cat([sk_t, sk_r], dim=-1)
     return skeleton_fk(local, g_tr, parents, root)

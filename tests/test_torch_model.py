@@ -139,9 +139,15 @@ def test_kinematic_transforms_and_parents_table(rng):
     out = tsk.kinematic_transforms(t(joints), t(sk_r), t(g_tr), t(parents),
                                    root)
     close(out, ref)
-    with pytest.raises(NotImplementedError):
-        tsk.kinematic_transforms(t(joints), t(sk_r), t(g_tr), t(parents),
-                                 root, sk_r_delta=torch.zeros(m, 3))
+    # a repose delta, as an so3 log [m, 3] and as a quaternion [m, 4]
+    for delta in ((0.5 * rng.normal(size=(m, 3))).astype(np.float32),
+                  unit_quats(rng, m)):
+        ref = jsk.kinematic_transforms(
+            jnp.asarray(joints), jnp.asarray(sk_r), jnp.asarray(g_tr),
+            jnp.asarray(parents), jnp.asarray(root), jnp.asarray(delta))
+        close(tsk.kinematic_transforms(t(joints), t(sk_r), t(g_tr),
+                                       t(parents), root, sk_r_delta=t(delta)),
+              ref, err_msg=f'sk_r_delta {delta.shape}')
 
 
 def test_skeleton_net_apply(rng):

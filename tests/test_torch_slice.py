@@ -257,12 +257,31 @@ def test_unported_branches_raise(tiny):
                                    err_msg=stage)
     with pytest.raises(ValueError):
         tsk_gs.forward_deltas(tmodel.cfg, tmodel, t, 'no_such_stage')
-    with pytest.raises(NotImplementedError):
-        tsk_gs.forward_deltas(tmodel.cfg, tmodel, t, 'sk',
-                              sk_r_delta=torch.zeros(M, 3))
-    interp = tmodel.cfg._replace(test_time_interpolate=True)
-    with pytest.raises(NotImplementedError):
-        tsk_gs.forward_deltas(interp, tmodel, t, 'sk')
+    # the repose delta and the sk_cache read path are ported: both match
+    # the JAX package (the cache holds a random row per frame here;
+    # tests/test_torch_repose.py holds the cache that training writes)
+    rng = np.random.default_rng(1)
+    delta = (0.4 * rng.normal(size=(M, 3))).astype(np.float32)
+    cache = rng.normal(size=tuple(tmodel.sk_cache.shape)).astype(np.float32)
+    jmodel = model._replace(sk_cache=jnp.asarray(cache))
+    tmodel.sk_cache.copy_(torch.from_numpy(cache))
+    try:
+        for interp, sk_r_delta in ((False, delta), (True, None),
+                                   (True, delta)):
+            ref = jsk_gs.forward_deltas(
+                cfg._replace(test_time_interpolate=interp), jmodel,
+                jnp.asarray(0.3), 'sk', training=False,
+                sk_r_delta=None if sk_r_delta is None else
+                jnp.asarray(sk_r_delta))
+            got = tsk_gs.forward_deltas(
+                tmodel.cfg._replace(test_time_interpolate=interp), tmodel, t,
+                'sk', sk_r_delta=None if sk_r_delta is None else
+                torch.from_numpy(sk_r_delta))
+            np.testing.assert_allclose(got.d_xyz.detach().numpy(),
+                                       np.asarray(ref.d_xyz), atol=1e-5,
+                                       err_msg=f'interp {interp}')
+    finally:
+        tmodel.sk_cache.zero_()
 
 
 def _as_dict(x):
