@@ -7,7 +7,8 @@ Drives the port's paths at full width (the ``synthetic_fullscale``
 preset: 100,352 Gaussian slots, 512 joints, 400 x 400, random weights from
 seed 0) through the entry points a user calls, and checks them: the
 command-line entry points ``sk_gs_tpu_torch.cli.train``, ``.test`` and
-``.render_repose`` from a YAML config to a checkpoint and back; serving
+``.render_repose`` from a YAML config to a checkpoint and back, on the
+synthetic scene and on D-NeRF- and WIM-layout scenes it writes; serving
 through ``framework.evaluate`` (80,000 alive); training the ``sk`` stage
 through ``framework.trainer.SKGSTrainer.train_step`` on the preset's
 synthetic scene, made on the card (the ``tile`` schedule, kernels #1/#2);
@@ -52,12 +53,15 @@ with the ``sk_init`` family (kernel #1). Phases, one JSON line each:
    whose l1 sign differs between the routes;
 10. train_reference: a small model trained 2 steps on the card and on the
    CPU (plain versions), losses, gradients and parameters compared;
-11. kernel_chunk_bwd: the chunk schedule's backward kernel (#4) against its
+11. train_reference_rgba: 10 on an RGBA scene (made once on the CPU, copied
+   to the card) with the 'checker' background, and with 'random'
+   backgrounds drawn on the host and handed to both runs;
+12. kernel_chunk_bwd: the chunk schedule's backward kernel (#4) against its
    plain version on a real ``init`` step's cotangents (the populated start
-   of 13, at its first step, before it trains), as 7 reports #2;
-12. grad_path_init: that step's leaf gradients through kernels #3 and #4
+   of 14, at its first step, before it trains), as 7 reports #2;
+13. grad_path_init: that step's leaf gradients through kernels #3 and #4
    against the plain chunk route on the card, as 9 holds them;
-13. init_train: the launch counts set to 0, then three starts of the init
+14. init_train: the launch counts set to 0, then three starts of the init
    family on the chunk schedule, the counts read back: the flagship start
    (2,000 points, ``init_from_pcd``, ``init_model`` from seed 0; steps 1-3
    and 99-101, densify and prune after step 100), a populated start (a
@@ -68,9 +72,9 @@ with the ``sk_init`` family (kernel #1). Phases, one JSON line each:
    step the synchronised time and the metrics, per event its counts, per
    start the mean step time before, at and after its event; the peak
    memory;
-14. train_reference_init: a small init-family model trained 2 steps across
+15. train_reference_init: a small init-family model trained 2 steps across
    a densify event on the card and on the CPU, compared as in 10;
-15. sp_events: the populated init start (80,000 alive) across steps
+16. sp_events: the populated init start (80,000 alive) across steps
    7499-7501: the superpoint initialisation before step 7500 (512 distinct
    live FPS picks, the first the first live row, the replaced leaves and
    their zero moments), its FPS on the card held against the CPU on the
@@ -78,7 +82,7 @@ with the ``sk_init`` family (kernel #1). Phases, one JSON line each:
    before step 10,000 (2,000 alive, one-hot ``sp_W`` times log 36) and
    steps 10,000-10,003 into ``sp_fix``; per step and per event the
    synchronised time and the counts;
-16. sp_train: a random sp-stage model (80,000 alive, 512 superpoints) on
+17. sp_train: a random sp-stage model (80,000 alive, 512 superpoints) on
    a fresh trainer (its smooth-loss KNN all zeros until the rebuild before
    step 14,000, as the flagship's), a warm-up step, the launch counts set
    to 0, steps 13,999-14,001, 19,999-20,002 and 29,999-30,001, the counts
@@ -88,18 +92,18 @@ with the ``sk_init`` family (kernel #1). Phases, one JSON line each:
    joint tree, superpoint prune / split and merge, densify / prune) its
    counts and synchronised host time; the peak memory; the smooth loss's
    forward and backward alone on the rebuilt and on an all-zero KNN;
-17. grad_path_sp: one sp step's leaf gradients through kernels #1/#2
+18. grad_path_sp: one sp step's leaf gradients through kernels #1/#2
    against the plain route on the card, as 9 holds them;
-18. train_reference_sp: a small sp-stage model trained on the card and on
+19. train_reference_sp: a small sp-stage model trained on the card and on
    the CPU, 2 steps on the all-zero smooth-loss KNN (sp_fix into sp) and 2
    steps after its rebuild across the joint tree and the superpoint prune
    / split, compared as in 10, with ``alive``, ``sp_alive`` and
    ``joint_parents`` equal; the ``sp_W`` gradient's bar adds the float32
    rounding of its smooth-loss term, measured against float64 on each
    side;
-19. sk_init_event: the skeleton initialisation at full width on the
+20. sk_init_event: the skeleton initialisation at full width on the
    flagship's shape (no ``sk_init`` steps): the random sp-stage model of
-   16 takes the last sp step (40,000), then step 40,001 runs the
+   17 takes the last sp step (40,000), then step 40,001 runs the
    initialisation before it, both loops cut to ``SK_EVENT_CUT`` (500) of
    the flagship's min(10,000, 2,000) iterations, then steps
    40,002-40,005 through kernels #1/#2: the event's synchronised time by
@@ -107,26 +111,26 @@ with the ``sk_init`` family (kernel #1). Phases, one JSON line each:
    and per loop iteration, the loops' first and last losses, the root, the
    non-finite count of the skeleton (0), peak memory, the steps' metrics
    and launches;
-20. sk_init_train: the same model on the sk stages of
+21. sk_init_train: the same model on the sk stages of
    ``configs/synthetic_smoke.yaml`` (10 ``sk_init`` steps,
    ``joint_init_steps`` 50): the last sp step, then, with the launch
    counts at 0, the first 5 ``sk_init`` steps (the initialisation before
    the first), the counts read back (kernel #1 once a step, #2 never: the
    image losses are detached), the ``cmp_*`` losses finite;
-21. train_reference_sk_init: the skeleton initialisation (20 + 20
+22. train_reference_sk_init: the skeleton initialisation (20 + 20
    iterations, the loops checked for host syncs on the card) of a small
    model on the card and on the CPU: the tree, the frozen LBS and the
    caches equal or within 1e-5, the Adam-updated leaves as 10 holds
    parameters; then an ``sk_init`` and an ``sk`` step on both from the
    CPU's state after it, as 10 holds steps;
-22. cli_train_smoke: ``sk_gs_tpu_torch.cli.train`` (its ``main``, in this
+23. cli_train_smoke: ``sk_gs_tpu_torch.cli.train`` (its ``main``, in this
    process, into a temporary directory) on configs/synthetic_smoke.yaml,
    the whole 180-step schedule with the launch counts at 0: the seconds,
    the ms a step by stage from metrics.jsonl, the files written, the
    results (the JAX package's keys; finite, or null where the JAX
    package writes null), #1 once a step, a ground-truth frame and an
    evaluated view, #2 once a step but the ``sk_init`` steps';
-23. cli_test_fullscale: the random full-width model (80,000 alive) with
+24. cli_test_fullscale: the random full-width model (80,000 alive) with
    its ``sk_cache`` filled at the 48 train frames as ``sk`` training fills
    it, saved through the port's checkpoint at step 40,010 with the
    skeleton initialised; ``cli.test`` on configs/synthetic_fullscale.yaml
@@ -134,19 +138,38 @@ with the ``sk_init`` family (kernel #1). Phases, one JSON line each:
    ``test_time_interpolate`` (the first also sweeping FPS over 1,000
    renders): the columns and FPS of each; at the 48 train times the two
    routes' deltas within 1e-4 and their renders at least 60 dB apart;
-24. cli_repose_fullscale: ``cli.render_repose`` of that checkpoint with
+25. cli_repose_fullscale: ``cli.render_repose`` of that checkpoint with
    ``--orbit --time-sweep --pose-json`` (two keyframes), 20 frames at 400
    px: ms a frame (render, copy to the host, PNG), each PNG decoded by
    the port's reader, #1 once a frame
    (and once a ground-truth frame); a zero pose delta renders as none;
-25. cli_train_fullscale: ``cli.train`` on configs/synthetic_fullscale.yaml
+26. cli_train_fullscale: ``cli.train`` on configs/synthetic_fullscale.yaml
    for 20 steps (the flagship start in 100,352 slots, 48 frames, 400 px):
    ms a step, the full-metric evaluation over the 48 views, the files
    written, peak memory;
-26. with ``--profile`` only: 19 at the flagship's 2,000 + 2,000
+27. cli_train_dnerf: a D-NeRF-layout scene written at 800 px (the preset's
+   chain over 60 times, one orbit camera a time, unpremultiplied RGBA PNGs:
+   50 train and 10 val views) and ``cli.train`` on configs/d_nerf.yaml for
+   20 steps and the val split's evaluation: each split's load seconds and
+   MB on the card, ``read_png`` of one 800-px frame, ms a step, peak
+   memory; the loaded images equal the written bytes over white (1e-6),
+   the cameras the written ones after the OpenGL -> COLMAP conversion
+   (1e-5), #2 once a step and #1 once a step and a view of each
+   evaluation; then kernels_800: #1 and #2 on the first step of that
+   scene against their plain versions, their device time;
+28. cli_train_dnerf_random: the same files through
+   configs/d_nerf_400.yaml (downscale 2) with a 'random' background, 10
+   steps, RGBA on the card; then 2 trainer steps with each of 'random2',
+   'reference' and 'checker' on the first 10 views loaded with it: finite
+   losses, #1 and #2 once a step;
+29. cli_train_wim: a WIM-layout scene written at 800 px (20 cameras, 4 of
+   the 50 frames) and ``cli.train`` on configs/wim_512.yaml (512 px) for
+   10 steps and the test split's evaluation: load seconds, the frame and
+   camera ids as written, the launches;
+30. with ``--profile`` only: 20 at the flagship's 2,000 + 2,000
    iterations (profile_sk_init_event); profile_sk_init, each loop's
    iteration on the host clock and under torch.profiler (device time,
-   busy share, top kernels) on that model after its initialisation; 21
+   busy share, top kernels) on that model after its initialisation; 22
    over 50 + 50 iterations, reported, not held; and one request's, one
    ``sk`` step's and one ``init`` step's (the flagship start's) stages
    timed with CUDA events, and torch.profiler windows over a few requests
@@ -172,8 +195,10 @@ with the ``sk_init`` family (kernel #1). Phases, one JSON line each:
    backward scatter named on its own line.
 
 Then a ``kernels`` line (every ported kernel with its launches on its own
-training path and on each path, the CLI paths ``cli_train``, ``cli_test``
-and ``cli_repose`` included, error, times and bound), the card's name
+training path and on each path, the CLI paths ``cli_train``,
+``cli_test``, ``cli_repose``, ``cli_train_dnerf``,
+``cli_train_dnerf_random``, ``train_dynamic_bg`` and ``cli_train_wim``
+included, error, times and bound), the card's name
 and power limit as nvidia-smi prints them, and last ``{"ok": true,
 "device": {...}}``. Any failure raises and exits non-zero; with no CUDA
 device it exits non-zero before printing any result, and without the port
@@ -190,6 +215,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -201,7 +227,11 @@ from sk_gs_tpu_torch.cli import test as cli_test
 from sk_gs_tpu_torch.cli import train as cli_train
 from sk_gs_tpu_torch.cuda_build import build_all
 from sk_gs_tpu_torch.data.sampler import UniformSampler
-from sk_gs_tpu_torch.data.synthetic import make_synthetic_scene
+from sk_gs_tpu_torch.data.synthetic import (gt_frame_gaussians,
+                                            make_chain_gt,
+                                            make_synthetic_scene, orbit_views)
+from sk_gs_tpu_torch.framework import build
+from sk_gs_tpu_torch.framework import trainer as trainer_mod
 from sk_gs_tpu_torch.framework.checkpoint import CheckpointManager
 from sk_gs_tpu_torch.framework.checkpoint import load as load_ckpt
 from sk_gs_tpu_torch.framework.config import make_config
@@ -222,16 +252,19 @@ from sk_gs_tpu_torch.models.sk_gs_ops import sample_trajectories
 from sk_gs_tpu_torch.models.skeleton import joint_cost_matrix
 from sk_gs_tpu_torch.models.superpoints import select_rows
 from sk_gs_tpu_torch.ops.knn import furthest_point_sampling
+from sk_gs_tpu_torch.ops.transforms import perspective_opencv
 from sk_gs_tpu_torch.render import prepare_blend
 from sk_gs_tpu_torch.render.binning import build_tile_lists, num_chunks
 from sk_gs_tpu_torch.render.blend import (ALPHA_MIN, OUTCOMES, assemble_image,
                                           chunk_waves)
 from sk_gs_tpu_torch.render.preprocess import preprocess
-from sk_gs_tpu_torch.render.render import blend_tiles, composite_background
+from sk_gs_tpu_torch.render.render import (blend_tiles, composite_background,
+                                           render)
+from sk_gs_tpu_torch.render.settings import RasterConfig, ViewParams
 from sk_gs_tpu_torch.render.tile_kernel import (KERNELS, chunk_blend_bwd,
                                                 chunk_blend_fwd,
                                                 tile_blend_bwd, tile_blend_fwd)
-from sk_gs_tpu_torch.utils.png import read_png
+from sk_gs_tpu_torch.utils.png import read_png, write_png
 
 # published H100 SXM peaks (NVIDIA data sheet): float32 outside the tensor
 # cores, and HBM3 bandwidth
@@ -350,6 +383,23 @@ CLI_REPOSE_FRAMES = 20
 CLI_FULLSCALE_STEPS = 20
 # the 1,000-render FPS sweep of cli.test runs in the default run
 CLI_FPS_SWEEP = True
+# the real-data layouts, written here from the preset's chain: D-NeRF at
+# 800 px (the size of lego's train split, every 6th view for val), WIM at
+# 800 px over 4 of its 50 frames
+CLI_DNERF = 'configs/d_nerf.yaml'
+CLI_DNERF_400 = 'configs/d_nerf_400.yaml'
+CLI_WIM = 'configs/wim_512.yaml'
+DNERF_HW = 800
+DNERF_VIEWS = (50, 10)
+DNERF_VAL_EVERY = 6
+DNERF_STEPS = 20
+DNERF_RANDOM_STEPS = 10
+DYNAMIC_VIEWS = 10
+DYNAMIC_STEPS = 2
+WIM_HW = 800
+WIM_CAMERAS = 20
+WIM_FRAMES = 4
+WIM_STEPS = 10
 CLI_METRIC_KEYS = {'PSNR', 'SSIM', 'SSIM (border-cropped)', 'MS-SSIM',
                    'LPIPS (alex)', 'LPIPS (vgg)', 'LPIPS weights',
                    'LPIPS (alex) [uncalibrated]',
@@ -870,8 +920,8 @@ def leaf_grads(trainer: SKGSTrainer, step: int, idx: int,
     (else the route's own); the other losses go through autograd."""
     trainer.loss_w.set_step(step)
     m2d_off = trainer.zero_grads()
-    losses, _, _, img = trainer._losses(trainer.cfg.stage_at(step), idx,
-                                        m2d_off, step)
+    losses, _, _, img, _ = trainer._losses(trainer.cfg.stage_at(step), idx,
+                                           m2d_off, step)
     if img_cotangent is None:
         img_cotangent, = torch.autograd.grad(
             sum(losses[k] for k in IMAGE_LOSSES), img, retain_graph=True)
@@ -974,13 +1024,11 @@ def params_over_tol(f_c, f_p, grads, lrs, steps: int, scale_of=None):
     return worst, worst_leaf
 
 
-def phase_train_reference(seed: int):
-    """A small model trained 2 steps on the card (kernels) and on the CPU
-    (plain versions): losses 2e-4, gradients 3e-4 of each leaf's max, and
-    parameters as in tests/test_torch_train.py (where the gradient exceeds
-    1e-3 of the leaf's max: 1e-5 of the leaf plus 1% of its Adam steps;
-    elsewhere 2 lr a step, since Adam moves a near-zero gradient entry by
-    +-lr whatever its size)."""
+def reference_steps(seed: int, scenes: dict) -> dict:
+    """The small model trained 2 ``sk`` steps on the card (kernels) and on
+    the CPU (plain versions), each on its (scene, meta) of ``scenes``:
+    losses, gradients and parameters compared as in
+    tests/test_torch_train.py."""
     cfg, rcfg, train = synthetic_fullscale()
     cfg = cfg._replace(gauss=cfg.gauss._replace(capacity=4096),
                        num_superpoints=64, num_frames=6,
@@ -992,9 +1040,7 @@ def phase_train_reference(seed: int):
     s0 = cfg.stages['sk'][0] + 1
     runs = {}
     for dev in ('cuda', 'cpu'):
-        scene, meta, _ = make_synthetic_scene(
-            seed=seed, num_links=3, gauss_per_link=60, num_frames=6, h=80,
-            w=96, pair_capacity=2 ** 15, device=dev)
+        scene, meta = scenes[dev]
         model = convert.model_from_flat(flat, cfg, rcfg, device=dev,
                                         trainable=True)
         tr = SKGSTrainer(cfg, rcfg, scene, meta, model,
@@ -1009,21 +1055,79 @@ def phase_train_reference(seed: int):
         runs[dev] = (losses, grads, convert.model_to_flat(model),
                      tr.lr_trees(s0 + 1))
     (l_c, g_c, f_c, lrs), (l_p, g_p, f_p, _) = runs['cuda'], runs['cpu']
-    loss_err = max(abs(a - b) / abs(b) for a, b in zip(l_c, l_p))
-    grad_worst = [max(close_leaves(a, b, 3e-4).values())
-                  for a, b in zip(g_c, g_p)]
     param_worst, worst_leaf = params_over_tol(f_c, f_p, g_p, lrs, 2)
     # the same bounds with the last step's gradient alone deciding which
     # entries are settled (reported beside the rule above, not checked)
     last_worst, last_leaf = params_over_tol(f_c, f_p, g_p[-1:], lrs, 2)
-    emit({'phase': 'train_reference', 'image': [80, 96], 'steps': 2,
-          'loss_cuda': l_c, 'loss_cpu': l_p, 'loss_rel_err': loss_err,
-          'grad_worst_err_over_max': grad_worst,
-          'param_worst_over_tol': param_worst, 'param_worst_leaf': worst_leaf,
-          'param_worst_over_tol_last_step_rule': last_worst,
-          'param_worst_leaf_last_step_rule': last_leaf})
-    if loss_err > 2e-4 or param_worst > 1.0:
+    return {'image': [80, 96], 'steps': 2,
+            'loss_cuda': l_c, 'loss_cpu': l_p,
+            'loss_rel_err': max(abs(a - b) / abs(b) for a, b in zip(l_c, l_p)),
+            'grad_worst_err_over_max': [max(close_leaves(a, b, 3e-4).values())
+                                        for a, b in zip(g_c, g_p)],
+            'param_worst_over_tol': param_worst,
+            'param_worst_leaf': worst_leaf,
+            'param_worst_over_tol_last_step_rule': last_worst,
+            'param_worst_leaf_last_step_rule': last_leaf}
+
+
+def phase_train_reference(seed: int):
+    """A small model trained 2 steps on the card (kernels) and on the CPU
+    (plain versions), each on the scene it made: losses 2e-4, gradients
+    3e-4 of each leaf's max, and parameters as in
+    tests/test_torch_train.py (where the gradient exceeds 1e-3 of the
+    leaf's max: 1e-5 of the leaf plus 1% of its Adam steps; elsewhere 2 lr
+    a step, since Adam moves a near-zero gradient entry by +-lr whatever
+    its size)."""
+    scenes = {dev: make_synthetic_scene(
+        seed=seed, num_links=3, gauss_per_link=60, num_frames=6, h=80, w=96,
+        pair_capacity=2 ** 15, device=dev)[:2] for dev in ('cuda', 'cpu')}
+    rec = reference_steps(seed, scenes)
+    emit({'phase': 'train_reference', **rec})
+    if rec['loss_rel_err'] > 2e-4 or rec['param_worst_over_tol'] > 1.0:
         raise AssertionError('card and CPU training differ')
+
+
+@contextlib.contextmanager
+def handed_backgrounds(seed: int):
+    """The trainer's 'random' backgrounds drawn on the host from a numpy
+    generator of ``seed`` and moved to the step's device: the k-th draw on
+    the card and the k-th on the CPU are the same background."""
+    rng = np.random.default_rng(seed)
+    orig = trainer_mod.sample_background
+    draws, calls = [], {}
+
+    def handed(kind, gen, h, w, checker=None, reference_rgb=None):
+        if kind != 'random':
+            return orig(kind, gen, h, w, checker, reference_rgb)
+        k = calls[gen.device.type] = calls.get(gen.device.type, -1) + 1
+        while len(draws) <= k:
+            draws.append(rng.uniform(size=(h, w, 3)).astype(np.float32))
+        return torch.from_numpy(draws[k]).to(gen.device)
+
+    trainer_mod.sample_background = handed
+    try:
+        yield
+    finally:
+        trainer_mod.sample_background = orig
+
+
+def phase_train_reference_rgba(seed: int):
+    """phase_train_reference on an RGBA scene (made once on the CPU and
+    copied to the card), with the 'checker' background and with 'random'
+    backgrounds drawn on the host and handed to both runs; its bars."""
+    for kind in ('checker', 'random'):
+        scene, meta, _ = make_synthetic_scene(
+            seed=seed, num_links=3, gauss_per_link=60, num_frames=6, h=80,
+            w=96, pair_capacity=2 ** 15, background=kind, device='cpu')
+        with handed_backgrounds(seed):
+            rec = reference_steps(seed, {'cuda': (scene.to('cuda'), meta),
+                                         'cpu': (scene, meta)})
+        emit({'phase': 'train_reference_rgba', 'background': kind,
+              'channels': int(scene.images.shape[-1]), **rec})
+        if rec['loss_rel_err'] > 2e-4 or rec['param_worst_over_tol'] > 1.0 \
+                or scene.images.shape[-1] != 4:
+            raise AssertionError(f'card and CPU training differ on RGBA '
+                                 f'({kind})')
 
 
 def flagship_model(cfg, rcfg, train, train_times):
@@ -2345,6 +2449,8 @@ def phase_cli_test_fullscale(tmp: Path, sweep: bool):
     cfg, rcfg, _ = synthetic_fullscale()
     ckpt = sk_checkpoint(tmp, cfg, rcfg)
     runs, launches = {}, {}
+    # the first run renders the ground truth and caches it under
+    # dataset.root; the second reads the cache
     for interp in (False, True):
         argv = ['-c', CLI_FULLSCALE, '--load', str(ckpt), '--device', 'cuda',
                 '--out', str(tmp / f'test_{interp}.json'), '--set',
@@ -2357,10 +2463,10 @@ def phase_cli_test_fullscale(tmp: Path, sweep: bool):
         runs[str(interp).lower()] = res
     agree = interp_agreement(ckpt, cfg, rcfg)
     views = cfg.num_frames
-    # the ground truth, the warm-up and the timed evaluation (and the
-    # sweep's 1,000 renders and their warm-up)
+    # the ground truth (first run), the warm-up and the timed evaluation
+    # (and the sweep's 1,000 renders and their warm-up)
     expected = {interp: {
-        tile_blend_fwd.name: 3 * views + (
+        tile_blend_fwd.name: (2 if interp else 3) * views + (
             cli_test.N_SWEEP + cli_test.SWEEP_WARMUP
             if sweep and not interp else 0),
         tile_blend_bwd.name: 0, chunk_blend_fwd.name: 0,
@@ -2388,8 +2494,8 @@ def phase_cli_test_fullscale(tmp: Path, sweep: bool):
 def phase_cli_repose_fullscale(tmp: Path, ckpt: Path):
     """``cli.render_repose`` of the random ``sk`` checkpoint: orbit, time
     sweep and two pose keyframes, ``CLI_REPOSE_FRAMES`` frames at 400 px,
-    each a PNG that decodes; #1 once a frame (and once a ground-truth view
-    of the scene). A zero pose delta renders as no delta."""
+    each a PNG that decodes; #1 once a frame (the ground truth comes from
+    cli_test_fullscale's cache). A zero pose delta renders as no delta."""
     cfg, rcfg, _ = synthetic_fullscale()
     rng = np.random.default_rng(SEED)
     poses = tmp / 'poses.json'
@@ -2415,7 +2521,7 @@ def phase_cli_repose_fullscale(tmp: Path, ckpt: Path):
         plain = render_eval(model, view, t, torch.ones(3, device='cuda'),
                             'sk')['image']
     zero_err = float((zero - plain).abs().max())
-    expected = {tile_blend_fwd.name: CLI_REPOSE_FRAMES + cfg.num_frames,
+    expected = {tile_blend_fwd.name: CLI_REPOSE_FRAMES,
                 tile_blend_bwd.name: 0, chunk_blend_fwd.name: 0,
                 chunk_blend_bwd.name: 0}
     ms = [1e3 * x for x in res['seconds']]
@@ -2458,9 +2564,343 @@ def phase_cli_train_fullscale(tmp: Path):
     return launches
 
 
+# ---------------------------------------------------------------- real data
+
+def render_rgba(gt, frame: int, Tv2w: np.ndarray, fovx: float,
+                hw: int) -> torch.Tensor:
+    """uint8 [hw, hw, 4] on the card: the chain at ``frame`` seen from the
+    camera-to-world ``Tv2w`` (OpenCV axes), unpremultiplied RGBA as the
+    synthetic scene gives it for a background composited per step."""
+    view = ViewParams(
+        Tw2v=torch.from_numpy(np.linalg.inv(Tv2w).astype(np.float32)).cuda(),
+        Tv2c=perspective_opencv(fovx, size=(hw, hw), n=0.5, f=20.0,
+                                device='cuda'),
+        campos=torch.from_numpy(Tv2w[:3, 3].astype(np.float32)).cuda(),
+        tan_fovx=torch.tensor(math.tan(fovx / 2), device='cuda'),
+        tan_fovy=torch.tensor(math.tan(fovx / 2), device='cuda'))
+    cfg = RasterConfig(image_width=hw, image_height=hw, sh_degree=0,
+                       pair_capacity=2 ** 17)
+    with torch.no_grad():
+        out = render(gt_frame_gaussians(gt, frame, 'cuda'), view, cfg)
+    if bool(out['overflow']):
+        raise AssertionError(f'frame {frame}: ground truth overflowed')
+    a = out['opacity']
+    rgb = out['images'] / torch.clamp(a, 1e-6, 1.0)[..., None]
+    return (torch.clamp(torch.cat([rgb, a[..., None]], -1), 0, 1) * 255) \
+        .to(torch.uint8)
+
+
+def write_pngs(paths, frames) -> float:
+    """Write the uint8 frames (on the card) as PNGs, several at once;
+    returns the seconds."""
+    t0 = time.perf_counter()
+    host = [f.cpu().numpy() for f in frames]
+    with ThreadPoolExecutor(8) as pool:
+        list(pool.map(write_png, paths, host))
+    return time.perf_counter() - t0
+
+
+def gl_camera(Tv2w_cv: np.ndarray) -> np.ndarray:
+    """An OpenCV camera-to-world matrix in OpenGL axes (y up, looking
+    down -z), as D-NeRF and WIM store them."""
+    return Tv2w_cv @ np.diag([1.0, -1.0, -1.0, 1.0])
+
+
+def write_dnerf(root: Path, train) -> dict:
+    """A D-NeRF-layout scene at DNERF_HW px: the preset's chain over
+    sum(DNERF_VIEWS) times, one orbit camera a time (the monocular
+    protocol), every DNERF_VAL_EVERY-th view in the val split; returns
+    what was written."""
+    ds = train.dataset
+    n = sum(DNERF_VIEWS)
+    gt = make_chain_gt(np.random.default_rng(train.seed), ds.num_links,
+                       ds.gauss_per_link, n)
+    Tv2w, fovx = orbit_views(n, h=DNERF_HW, w=DNERF_HW)
+    frames = [render_rgba(gt, i, Tv2w[i], fovx, DNERF_HW) for i in range(n)]
+    split = {'train': [], 'val': []}
+    for i in range(n):
+        split['val' if i % DNERF_VAL_EVERY == 0 else 'train'].append(i)
+    paths = []
+    for name, ids in split.items():
+        (root / name).mkdir(parents=True)
+        (root / f'transforms_{name}.json').write_text(json.dumps({
+            'camera_angle_x': fovx,
+            'frames': [{'file_path': f'./{name}/r_{k:03d}',
+                        'transform_matrix': gl_camera(Tv2w[i]).tolist(),
+                        'time': i / (n - 1)} for k, i in enumerate(ids)]}))
+        paths += [root / name / f'r_{k:03d}.png' for k in range(len(ids))]
+    order = split['train'] + split['val']
+    write_s = write_pngs(paths, [frames[i] for i in order])
+    return {'frames': frames, 'split': split, 'Tv2w': Tv2w, 'fovx': fovx,
+            'paths': paths, 'write_s': write_s}
+
+
+def write_wim(root: Path, train) -> dict:
+    """A WIM-layout scene: WIM_CAMERAS cameras on an orbit, each a
+    ``cam_XXX.json`` (its OpenGL camera-to-world matrix transposed, pinhole
+    intrinsics, WIM_HW px), and the chain at WIM_FRAMES times seen by every
+    camera."""
+    ds = train.dataset
+    gt = make_chain_gt(np.random.default_rng(train.seed), ds.num_links,
+                       ds.gauss_per_link, WIM_FRAMES)
+    Tv2w, fovx = orbit_views(WIM_CAMERAS, h=WIM_HW, w=WIM_HW)
+    focal = WIM_HW / 2 / math.tan(fovx / 2)
+    root.mkdir(parents=True)
+    for c in range(WIM_CAMERAS):
+        (root / f'cam_{c:03d}.json').write_text(json.dumps({'camera_data': {
+            'cam2world': gl_camera(Tv2w[c]).T.tolist(), 'width': WIM_HW,
+            'height': WIM_HW, 'intrinsics': {'cx': WIM_HW / 2,
+                                             'cy': WIM_HW / 2, 'fx': focal,
+                                             'fy': focal}}}))
+    frames, paths = [], []
+    for f in range(WIM_FRAMES):
+        for c in range(WIM_CAMERAS):
+            frames.append(render_rgba(gt, f, Tv2w[c], fovx, WIM_HW))
+            paths.append(root / f'frame_{f:05d}_cam_{c:03d}.png')
+    return {'write_s': write_pngs(paths, frames), 'paths': paths}
+
+
+@contextlib.contextmanager
+def timed_loads(name: str):
+    """``framework.build``'s loader ``name`` timed: each split's seconds
+    (decode, resize and the copy to the card), views, image shape and MB
+    on the card, and the scene itself, in the yielded list."""
+    orig = getattr(build, name)
+    log = []
+
+    def timed(*args, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        scene, meta = orig(*args, **kw)
+        torch.cuda.synchronize()
+        log.append({'split': args[2], 'seconds': time.perf_counter() - t0,
+                    'views': scene.num_views,
+                    'image': list(scene.images.shape[1:]),
+                    'mb_on_device': sum(x.numel() * x.element_size()
+                                        for x in scene) / 2 ** 20,
+                    'scene': scene, 'meta': meta})
+        return scene, meta
+
+    setattr(build, name, timed)
+    try:
+        yield log
+    finally:
+        setattr(build, name, orig)
+
+
+def expected_launches(steps: int, eval_views: int) -> dict:
+    """#2 once a step, #1 once a step and once a view of each of the two
+    evaluations (the one at the last step and the full-metric one)."""
+    return {tile_blend_fwd.name: steps + 2 * eval_views,
+            tile_blend_bwd.name: steps, chunk_blend_fwd.name: 0,
+            chunk_blend_bwd.name: 0}
+
+
+def train_cli_on(phase: str, config: str, sets, steps: int, loader: str,
+                 tmp: Path):
+    """``cli.train`` of ``config`` for ``steps`` steps with the launch
+    counts at 0, its loads timed; returns (what was measured, the
+    launches, the loads)."""
+    torch.cuda.reset_peak_memory_stats()
+    with timed_loads(loader) as loads:
+        res, launches, secs = cli_run(cli_train.main, [
+            '-c', config, '--device', 'cuda', '--steps', str(steps),
+            '--set', f'output_dir={tmp}', *sets])
+    out = tmp / make_config(config)['exp_name']
+    check_results(json.loads((out / 'results.json').read_text()),
+                  CLI_TRAIN_KEYS, phase)
+    logged = [json.loads(line) for line in
+              (out / 'metrics.jsonl').read_text().splitlines()]
+    rec = {'phase': phase, 'config': config, 'steps': steps,
+           'seconds': secs,
+           'load': [{k: v for k, v in x.items()
+                     if k not in ('scene', 'meta')} for x in loads],
+           'ms_per_step_by_stage': ms_by_stage(out),
+           'loss_last': logged[-1]['loss'], 'results': res, 'launches': launches,
+           'max_memory_allocated': torch.cuda.max_memory_allocated()}
+    if not math.isfinite(logged[-1]['loss']):
+        raise AssertionError(f'{phase}: loss {logged[-1]["loss"]}')
+    return rec, launches, loads
+
+
+def config_trainer(cfg: dict, scene, meta) -> SKGSTrainer:
+    """The trainer ``cli.train`` builds for ``cfg`` on ``scene``."""
+    skcfg, rcfg = build.build_model_cfg(cfg, meta, scene.image_size)
+    opts = build.trainer_options(cfg)
+    pts, cols = build.initial_point_cloud(cfg)
+    base = init_from_pcd(pts, cols, skcfg.gauss, device='cuda')
+    model = init_model(skcfg, rcfg, base, meta.train_times,
+                       seed=opts['seed'], device='cuda')
+    return SKGSTrainer(skcfg, rcfg, scene, meta, model,
+                       loss_weights=LossWeights(cfg.get('loss', {})),
+                       sampler=build.build_sampler(cfg, scene, skcfg),
+                       pcd=(pts, cols), device='cuda', **opts)
+
+
+def phase_kernels_800(trainer: SKGSTrainer, step: int) -> dict:
+    """Kernels #1 and #2 on the inputs and cotangents of training step
+    ``step`` of an 800-px scene, against their plain versions: error and
+    device time by torch.profiler."""
+    rcfg = trainer.rcfg
+    inp, color, alpha, g_color, g_alpha = step_blend_inputs(trainer, step)
+    args = (*schedule_kernels(inp, rcfg)[2], rcfg)
+    bwd_args = (*args[:-1], color, alpha, g_color, g_alpha, rcfg)
+    with torch.no_grad():
+        c, a = tile_blend_fwd.launch(*args)
+        pc, pa = tile_blend_fwd.plain(*args)
+        fwd_err = max(float((c - pc).abs().max()), float((a - pa).abs().max()))
+        rows = tile_blend_bwd.launch(*bwd_args)
+        prows = tile_blend_bwd.plain(*bwd_args)
+        bwd_err = max(float((rows[:, sl] - prows[:, sl]).abs().max())
+                      / max(float(prows[:, sl].abs().max()), 1e-30)
+                      for sl in GROUPS.values())
+        fwd_ms = device_ms(tile_blend_fwd, lambda: tile_blend_fwd.launch(*args))
+        bwd_ms = device_ms(tile_blend_bwd,
+                           lambda: tile_blend_bwd.launch(*bwd_args))
+    counts = inp.binned.tile_count[inp.binned.tile_count > 0].float()
+    rec = {'phase': 'kernels_800', 'step': step,
+           'stage': trainer.cfg.stage_at(step),
+           'image': [rcfg.image_height, rcfg.image_width],
+           'tiles': rcfg.num_tiles, 'pairs': int(inp.binned.num_pairs),
+           'pair_capacity': rcfg.pair_capacity,
+           'tile_list_longest': int(counts.max()),
+           'tile_list_mean': float(counts.mean()),
+           'fwd': {'ms': fwd_ms, 'max_abs_err': fwd_err,
+                   'tolerance': KERNEL_TOL},
+           'bwd': {'ms': bwd_ms, 'err_over_max': bwd_err,
+                   'tolerance': BWD_TOL}}
+    emit(rec)
+    if fwd_err > KERNEL_TOL or bwd_err > BWD_TOL:
+        raise AssertionError(f'kernels_800: {rec}')
+    return rec
+
+
+def phase_cli_train_dnerf(tmp: Path, train) -> dict:
+    """``cli.train`` on configs/d_nerf.yaml over a D-NeRF-layout scene
+    written here at 800 px (DNERF_VIEWS train and val views), DNERF_STEPS
+    steps and the evaluation on the val split; the loaded images and
+    cameras against what was written; then #1 and #2 on its first step."""
+    written = write_dnerf(tmp / 'dnerf' / 'chain', train)
+    frame = written['paths'][0]
+    reads = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        read_png(frame)
+        reads.append(time.perf_counter() - t0)
+    sets = [f'dataset.root={tmp / "dnerf"}', 'dataset.scene=chain']
+    rec, launches, loads = train_cli_on(
+        'cli_train_dnerf', CLI_DNERF, sets, DNERF_STEPS, 'load_dnerf',
+        tmp / 'out')
+    train_load = next(x for x in loads if x['split'] == 'train')
+    train_scene = train_load['scene']
+    ids = written['split']['train']
+    rgba = torch.stack([written['frames'][i] for i in ids]).float() / 255.0
+    want = rgba[..., :3] * rgba[..., 3:] + 1.0 * (1.0 - rgba[..., 3:])
+    img_err = float((train_scene.images - want).abs().max())
+    flip = np.diag([1.0, -1.0, -1.0, 1.0])
+    want_w2v = np.linalg.inv(np.stack([gl_camera(written['Tv2w'][i]) @ flip
+                                       for i in ids]))
+    cam_err = float(np.abs(train_scene.Tw2v.cpu().numpy() - want_w2v).max())
+    expected = expected_launches(DNERF_STEPS, DNERF_VIEWS[1])
+    kernels = phase_kernels_800(config_trainer(
+        make_config(CLI_DNERF, sets), train_scene, train_load['meta']), 1)
+    rec.update({'image_written': [DNERF_HW, DNERF_HW, 4],
+                'png_write_s': written['write_s'],
+                'read_png_800_rgba_s': reads,
+                'image_max_abs_err': img_err, 'image_tolerance': 1e-6,
+                'Tw2v_max_abs_err': cam_err, 'Tw2v_tolerance': 1e-5,
+                'expected_launches': expected})
+    emit(rec)
+    if img_err > 1e-6 or cam_err > 1e-5 or launches != expected:
+        raise AssertionError(f'cli_train_dnerf: images {img_err}, cameras '
+                             f'{cam_err}, launches {launches} != {expected}')
+    rec['kernels_800'] = kernels
+    return rec
+
+
+def phase_cli_train_dnerf_random(tmp: Path, white_ms: dict) -> dict:
+    """The same files through configs/d_nerf_400.yaml (downscale 2) with a
+    'random' background, DNERF_RANDOM_STEPS steps, RGBA on the card; then
+    DYNAMIC_STEPS trainer steps with each other dynamic background on the
+    first DYNAMIC_VIEWS train views loaded with it."""
+    root = tmp / 'dnerf'
+    sets = [f'dataset.root={root}', 'dataset.scene=chain',
+            'dataset.background=random']
+    rec, launches, loads = train_cli_on(
+        'cli_train_dnerf_random', CLI_DNERF_400, sets, DNERF_RANDOM_STEPS,
+        'load_dnerf', tmp / 'out_random')
+    channels = {x['split']: x['image'][-1] for x in loads}
+    expected = expected_launches(DNERF_RANDOM_STEPS, DNERF_VIEWS[1])
+    cfg = make_config(CLI_DNERF_400, sets)
+    dynamic = {}
+    for kind in ('random2', 'reference', 'checker'):
+        scene, meta = build.load_dnerf(str(root), 'chain', 'train',
+                                       downscale=2, background=kind,
+                                       num_frames_max=DYNAMIC_VIEWS,
+                                       device='cuda')
+        trainer = config_trainer(cfg, scene, meta)
+        torch.cuda.synchronize()
+        for k in KERNELS:
+            k.launches = 0
+        steps = []
+        for step in range(1, DYNAMIC_STEPS + 1):
+            t0 = time.perf_counter()
+            loss = float(trainer.train_step(step)['loss'])
+            steps.append({'loss': loss,
+                          'ms': 1e3 * (time.perf_counter() - t0)})
+        dynamic[kind] = {'steps': steps, 'image': list(scene.images.shape),
+                         'launches': {k.name: k.launches for k in KERNELS}}
+    rec.update({'channels_on_device': channels,
+                'ms_per_step_white_800': white_ms,
+                'expected_launches': expected, 'dynamic': dynamic})
+    emit(rec)
+    want_dyn = {tile_blend_fwd.name: DYNAMIC_STEPS,
+                tile_blend_bwd.name: DYNAMIC_STEPS, chunk_blend_fwd.name: 0,
+                chunk_blend_bwd.name: 0}
+    bad = [k for k, v in dynamic.items()
+           if v['launches'] != want_dyn or v['image'][-1] != 4
+           or not all(math.isfinite(s['loss']) for s in v['steps'])]
+    if launches != expected or set(channels.values()) != {4} or bad:
+        raise AssertionError(f'cli_train_dnerf_random: launches {launches} '
+                             f'!= {expected}, channels {channels}, {bad}')
+    return {'cli': launches, 'dynamic': {
+        name: sum(v['launches'][name] for v in dynamic.values())
+        for name in want_dyn}}
+
+
+def phase_cli_train_wim(tmp: Path, train) -> dict:
+    """``cli.train`` on configs/wim_512.yaml (downscale 1.5625, 800 -> 512
+    px) over a WIM-layout scene written here, frames [0, WIM_FRAMES):
+    WIM_STEPS steps and the test split's evaluation; the views' frame and
+    camera ids as written."""
+    written = write_wim(tmp / 'wim' / 'chain', train)
+    sets = [f'dataset.root={tmp / "wim"}', 'dataset.scene=chain',
+            f'dataset.frame_ranges=[0,{WIM_FRAMES}]']
+    rec, launches, loads = train_cli_on(
+        'cli_train_wim', CLI_WIM, sets, WIM_STEPS, 'load_wim', tmp / 'out')
+    ids_ok = True
+    for x in loads:
+        n_cams = WIM_CAMERAS - 2 if x['split'] == 'train' else 2
+        s = x['scene']
+        ids_ok &= bool(torch.equal(
+            s.time_ids.cpu(), torch.arange(WIM_FRAMES).repeat_interleave(
+                n_cams))) and bool(torch.equal(
+                    s.camera_ids.cpu(), torch.arange(n_cams).repeat(
+                        WIM_FRAMES)))
+    expected = expected_launches(WIM_STEPS, 2 * WIM_FRAMES)
+    rec.update({'cameras': WIM_CAMERAS, 'frames': WIM_FRAMES,
+                'png_write_s': written['write_s'], 'ids_as_written': ids_ok,
+                'expected_launches': expected})
+    emit(rec)
+    if not ids_ok or launches != expected or len(loads) != 2:
+        raise AssertionError(f'cli_train_wim: ids {ids_ok}, launches '
+                             f'{launches} != {expected}')
+    return launches
+
+
 def phase_clis(sweep: bool) -> dict:
-    """The four CLI phases in one temporary directory; returns their
-    launches by path."""
+    """The CLI phases in one temporary directory; returns their launches
+    by path."""
     with tempfile.TemporaryDirectory(prefix='chip_smoke_cli_') as d:
         tmp = Path(d)
         paths = {'cli_train': phase_cli_train_smoke(tmp / 'smoke')}
@@ -2468,6 +2908,14 @@ def phase_clis(sweep: bool) -> dict:
                                                            sweep)
         paths['cli_repose'] = phase_cli_repose_fullscale(tmp / 'test', ckpt)
         phase_cli_train_fullscale(tmp / 'train')
+        train = synthetic_fullscale()[2]
+        dnerf = phase_cli_train_dnerf(tmp / 'data', train)
+        paths['cli_train_dnerf'] = dnerf['launches']
+        rnd = phase_cli_train_dnerf_random(tmp / 'data',
+                                           dnerf['ms_per_step_by_stage'])
+        paths['cli_train_dnerf_random'] = rnd['cli']
+        paths['train_dynamic_bg'] = rnd['dynamic']
+        paths['cli_train_wim'] = phase_cli_train_wim(tmp / 'data', train)
     return paths
 
 
@@ -2512,6 +2960,7 @@ def main(argv=None) -> int:
     s_next = s0 + 1 + N_STEPS
     phase_grad_path(trainer, s_next)
     phase_train_reference(SEED)
+    phase_train_reference_rgba(SEED)
 
     # the init family on the chunk schedule
     init_rcfg = rcfg._replace(schedule='chunk')

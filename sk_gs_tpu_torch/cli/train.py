@@ -70,6 +70,8 @@ def save_vis_triplet(trainer: SKGSTrainer, vis_dir: Path, step: int):
     stage = trainer.cfg.stage_at(max(step, 1))
     img = trainer.render_view(scene, 0, stage)
     gt = scene.images[0]
+    if gt.shape[-1] == 4:
+        gt = gt[..., :3] * gt[..., 3:4] + trainer.bg * (1.0 - gt[..., 3:4])
     diff = torch.clamp(torch.abs(img - gt) * 5.0, 0, 1)
     strip = torch.cat([torch.clamp(img, 0, 1), gt, diff], dim=1)
     vis_dir.mkdir(parents=True, exist_ok=True)

@@ -62,6 +62,7 @@ TRAINER_FLAGS = ('sp_initialized', 'reinit_done', 'skeleton_initialized')
 # KNN is the trainer's own (an all-zero one included, which the JAX
 # ``restore`` would rebuild as a checkpoint's that lacks it)
 NOISE_GEN_KEY = 'port/noise_gen_state'
+BG_GEN_KEY = 'port/bg_gen_state'
 KNN_OWN_KEY = 'port/gs_knn_index_own'
 
 
@@ -213,7 +214,8 @@ def jax_key(seed: int) -> np.ndarray:
 
 def trainer_state_to_flat(model: SKGSModel, opt_state: AdamState,
                           flags: Mapping, gs_knn_index: torch.Tensor,
-                          noise_gen: torch.Generator, seed: int
+                          noise_gen: torch.Generator,
+                          bg_gen: torch.Generator, seed: int
                           ) -> Dict[str, np.ndarray]:
     """A trainer's state in the layout of the JAX trainer's ``ckpt_state()``
     (``model/...``, ``opt/...``, ``flags/...``: the three stage flags,
@@ -228,6 +230,7 @@ def trainer_state_to_flat(model: SKGSModel, opt_state: AdamState,
     out['flags/key'] = jax_key(seed)
     out['flags/gs_knn_index'] = np.array(gs_knn_index.cpu(), np.int32)
     out[NOISE_GEN_KEY] = noise_gen.get_state().numpy().copy()
+    out[BG_GEN_KEY] = bg_gen.get_state().numpy().copy()
     out[KNN_OWN_KEY] = np.asarray(True)
     return out
 

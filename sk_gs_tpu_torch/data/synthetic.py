@@ -9,6 +9,8 @@ are the JAX package's, in the same order, so one seed gives the same scene.
 """
 from __future__ import annotations
 
+import shutil
+from pathlib import Path
 from typing import NamedTuple, Tuple
 
 import numpy as np
@@ -20,7 +22,7 @@ from ..ops import se3
 from ..ops.transforms import look_at, perspective_opencv
 from ..render.render import composite_background, render
 from ..render.settings import GaussianInputs, RasterConfig, ViewParams
-from .base import Scene, SceneMeta, build_scene, fovx_to_fovy, solid_background
+from .base import DYNAMIC_BG, Scene, SceneMeta, build_scene, fovx_to_fovy
 
 
 class ArticulatedGT(NamedTuple):
@@ -119,35 +121,68 @@ def orbit_views(num_views: int, radius: float = 4.0, h: int = 64, w: int = 64,
     return np.stack(Tv2w), float(fovx)
 
 
+def cache_key(seed: int, num_links: int, gauss_per_link: int,
+              num_frames: int, h: int, w: int, background: str,
+              detail: bool) -> str:
+    """The name of a scene's ground truth in a cache directory (the JAX
+    package's, so either package reads what the other wrote)."""
+    return (f'chain_s{seed}_l{num_links}_g{gauss_per_link}_f{num_frames}'
+            f'_{h}x{w}_{background}' + ('_detail' if detail else ''))
+
+
 @torch.no_grad()
 def make_synthetic_scene(seed: int = 0, num_links: int = 3,
                          gauss_per_link: int = 120, num_frames: int = 24,
                          h: int = 64, w: int = 64, background: str = 'white',
                          pair_capacity: int = 2 ** 16, chunk: int = 64,
-                         detail: bool = False, device='cuda'
+                         detail: bool = False, cache_dir=None, device='cuda'
                          ) -> Tuple[Scene, SceneMeta, ArticulatedGT]:
     """Render the chain from an orbit, one camera per frame, on ``device``
     (CUDA unless asked otherwise: the blend kernel on the card, its plain
     version on the CPU). Raises if a frame overflows ``pair_capacity``,
-    since dropped pairs would corrupt the ground truth."""
+    since dropped pairs would corrupt the ground truth. A background
+    composited per step (``DYNAMIC_BG``) gets unpremultiplied RGBA frames.
+
+    ``cache_dir``: the frames are kept there as ``<cache_key>.npz``, and
+    each rendered frame as ``<cache_key>.frames/f<frame>.npy`` until the
+    ``.npz`` is written, so that a restart renders only what is missing."""
     device = resolve_device(device)
     rng = np.random.default_rng(seed)
     gt = make_chain_gt(rng, num_links, gauss_per_link, num_frames,
                        detail=detail)
     Tv2w, fovx = orbit_views(num_frames, h=h, w=w)
     fovy = fovx_to_fovy(fovx, w / h)
-    cfg = RasterConfig(image_width=w, image_height=h, sh_degree=0,
-                       pair_capacity=pair_capacity, chunk=chunk)
     meta = SceneMeta(background_type=background, near=0.5, far=20.0,
                      scene='synthetic_chain')
-    bg = torch.as_tensor(solid_background(background)).to(device) \
-        if background != 'none' else None
+    times = np.linspace(0, 1, num_frames).astype(np.float32)
+    cache = frame_dir = None
+    if cache_dir is not None:
+        key = cache_key(seed, num_links, gauss_per_link, num_frames, h, w,
+                        background, detail)
+        cache = Path(cache_dir) / f'{key}.npz'
+        if cache.exists():
+            with np.load(cache) as z:
+                images = z['images']
+            scene, meta = build_scene(images, Tv2w, fovx, times, meta,
+                                      device=device)
+            return scene, meta, gt
+        frame_dir = Path(cache_dir) / f'{key}.frames'
+        frame_dir.mkdir(parents=True, exist_ok=True)
+    cfg = RasterConfig(image_width=w, image_height=h, sh_degree=0,
+                       pair_capacity=pair_capacity, chunk=chunk)
+    dynamic = background in DYNAMIC_BG
+    bg = torch.ones(3, device=device) if background == 'white' else \
+        torch.zeros(3, device=device)
     Tv2c = perspective_opencv(fovy, size=(w, h), n=meta.near, f=meta.far,
                               device=device)
     tan = lambda a: torch.tensor(np.tan(a / 2), dtype=torch.float32,
                                  device=device)
     images = []
     for fr in range(num_frames):
+        fpath = None if frame_dir is None else frame_dir / f'f{fr:04d}.npy'
+        if fpath is not None and fpath.exists():
+            images.append(np.load(fpath))
+            continue
         view = ViewParams(
             Tw2v=torch.from_numpy(np.linalg.inv(Tv2w[fr]).astype(np.float32)
                                   ).to(device),
@@ -159,9 +194,21 @@ def make_synthetic_scene(seed: int = 0, num_links: int = 3,
             raise RuntimeError(
                 f'GT render overflowed pair_capacity={pair_capacity} at '
                 f'frame {fr}; raise the pair budget for this scene size')
-        images.append(composite_background(out['images'], out['opacity'],
-                                           bg).cpu().numpy())
-    times = np.linspace(0, 1, num_frames).astype(np.float32)
-    scene, meta = build_scene(np.stack(images), Tv2w, fovx, times, meta,
-                              device=device)
+        if dynamic:
+            # unpremultiplied RGBA: the trainer composites the rendered
+            # scene over each step's background
+            a = out['opacity']
+            rgb = out['images'] / torch.clamp(a, 1e-6, 1.0)[..., None]
+            img = torch.cat([rgb, a[..., None]], dim=-1)
+        else:
+            img = composite_background(out['images'], out['opacity'], bg)
+        img = img.cpu().numpy()
+        if fpath is not None:
+            np.save(fpath, img)
+        images.append(img)
+    images = np.stack(images)
+    if cache is not None:
+        np.savez_compressed(cache, images=images)
+        shutil.rmtree(frame_dir, ignore_errors=True)
+    scene, meta = build_scene(images, Tv2w, fovx, times, meta, device=device)
     return scene, meta, gt

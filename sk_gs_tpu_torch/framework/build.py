@@ -9,9 +9,8 @@ true) is the kernel on CUDA tensors and the plain version on CPU tensors,
 false the plain version everywhere.
 
 Refused, as the trainer refuses them: ``train.precision: bf16``, a
-``train.parallel`` mesh of more than one device, ``train.batch_views`` > 1,
-optimizers other than Adam, and every dataset kind but ``synthetic`` (the
-loaders come with ``ROADMAP.md`` item 1.7). ``train.capacity_buckets``
+``train.parallel`` mesh of more than one device, ``train.batch_views`` > 1
+and optimizers other than Adam. ``train.capacity_buckets``
 (recompile-driven capacity buckets, a TPU choice) is logged and ignored:
 a bucketed run and a padded one compute the same function.
 """
@@ -22,8 +21,12 @@ from typing import Any, Dict, Tuple
 
 import numpy as np
 
+from ..data.colmap import load_colmap
+from ..data.dnerf import load_dnerf
 from ..data.sampler import make_sampler
 from ..data.synthetic import make_synthetic_scene
+from ..data.wim import load_wim
+from ..data.zju import load_zju, load_zju_pickled
 from ..models.deform import DeformNetConfig, SkeletonNetConfig
 from ..models.gaussian_splatting import GaussianConfig
 from ..models.sk_gs import SKGSConfig
@@ -41,29 +44,71 @@ SK_INTERVAL_KEYS = ('sp_adjust_interval', 'sp_merge_interval')
 
 
 def build_scene(cfg: Dict[str, Any], device='cuda'):
-    """(scene, meta, eval_scene, pcd) of ``cfg['dataset']``; pcd is the
-    dataset's point cloud or None. The synthetic scene is rendered on
-    ``device`` and evaluated on its train split."""
+    """(scene, meta, eval_scene, pcd) of ``cfg['dataset']`` on ``device``
+    (``train.py:build_scene``): the synthetic scene (rendered on
+    ``device``, its frames cached under ``dataset.root``) and COLMAP are
+    evaluated on their train split, the others on their test split, or on
+    the train split when it has no file; pcd is COLMAP's point cloud, else
+    None."""
     d = cfg['dataset']
     kind = d.get('kind', 'synthetic')
-    if kind != 'synthetic':
-        raise NotImplementedError(
-            f'dataset kind {kind!r} is not ported yet (the loaders are '
-            'ROADMAP.md item 1.7); only synthetic is')
-    hw = int(d.get('image_size', 64))
-    # the ground truth renders the chain's Gaussians only: a small pair
-    # budget, as in train.py
-    gt_pairs = int(d.get('gt_pair_capacity',
-                         min(int(cfg['raster']['pair_capacity']), 2 ** 17)))
-    scene, meta, _gt = make_synthetic_scene(
-        seed=int(cfg['train'].get('seed', 0)),
-        num_links=int(d.get('num_links', 3)),
-        gauss_per_link=int(d.get('gauss_per_link', 120)),
-        num_frames=int(d.get('num_frames', 24)),
-        h=hw, w=hw, background=d.get('background', 'white'),
-        detail=bool(d.get('detail', False)), pair_capacity=gt_pairs,
-        chunk=int(cfg['raster']['chunk']), device=device)
-    return scene, meta, scene, None
+    if kind == 'synthetic':
+        hw = int(d.get('image_size', 64))
+        # the ground truth renders the chain's Gaussians only: a small pair
+        # budget, as in train.py
+        gt_pairs = int(d.get('gt_pair_capacity',
+                             min(int(cfg['raster']['pair_capacity']),
+                                 2 ** 17)))
+        scene, meta, _gt = make_synthetic_scene(
+            seed=int(cfg['train'].get('seed', 0)),
+            num_links=int(d.get('num_links', 3)),
+            gauss_per_link=int(d.get('gauss_per_link', 120)),
+            num_frames=int(d.get('num_frames', 24)),
+            h=hw, w=hw, background=d.get('background', 'white'),
+            detail=bool(d.get('detail', False)), pair_capacity=gt_pairs,
+            chunk=int(cfg['raster']['chunk']), cache_dir=d.get('root'),
+            device=device)
+        return scene, meta, scene, None
+    ds = float(d.get('downscale', 1))
+    bg = d.get('background', 'white')
+    if kind == 'colmap':
+        scene, meta, pts, cols = load_colmap(
+            d['root'], images_dir=d.get('images_dir', 'images'),
+            downscale=ds, background=bg, device=device)
+        return scene, meta, scene, (pts, cols)
+    if kind == 'dnerf':
+        load = lambda split: load_dnerf(d['root'], d['scene'], split,
+                                        downscale=ds, background=bg,
+                                        device=device)
+        splits = ('train', 'val')
+    elif kind == 'wim':
+        fr = tuple(d.get('frame_ranges', (0, 50)))
+        load = lambda split: load_wim(d['root'], d['scene'], split,
+                                      downscale=ds, background=bg,
+                                      frame_ranges=fr, device=device)
+        splits = ('train', 'test')
+    elif kind == 'zju_pickled':
+        load = lambda pickle: load_zju_pickled(
+            d['root'], str(d['scene']), pickle_path=pickle,
+            frame_ranges=tuple(d.get('frame_ranges', (-1, -1))),
+            image_size=int(d.get('image_size', 512)),
+            compression=bool(d.get('compression', True)), background=bg,
+            device=device)
+        splits = (d.get('pickle_path', 'cache_train.pickle'),
+                  d.get('eval_pickle_path', 'cache_test.pickle'))
+    elif kind == 'zju':
+        load = lambda split: load_zju(d['root'], str(d['scene']), split,
+                                      downscale=int(ds), background=bg,
+                                      device=device)
+        splits = ('train', 'test')
+    else:
+        raise NotImplementedError(f'dataset kind {kind}')
+    scene, meta = load(splits[0])
+    try:
+        eval_scene, _ = load(splits[1])
+    except FileNotFoundError:
+        eval_scene = scene
+    return scene, meta, eval_scene, None
 
 
 def use_kernel(cfg: Dict[str, Any]) -> bool:

@@ -58,18 +58,26 @@ Not ported, and raising ``NotImplementedError``: the ``elastic``, ``acc``,
 ``arap`` and ``arap_p`` losses and the ``sp`` extras ``re_pos``,
 ``jp_dist``, ``sp_arap_t`` and ``sp_arap_ct`` (zero in the default
 weights); the time noise of nets that are not ``is_blender``;
-``batch_views > 1``, a device mesh, backgrounds composited per step,
-optimizers other than Adam.
+``batch_views > 1``, a device mesh, optimizers other than Adam.
+
+RGBA targets (the background types of ``data.base.DYNAMIC_BG``): each step
+composites the target and the render over one background
+(``data.base.sample_background``: a uniform colour a pixel or one uniform
+colour drawn from ``bg_gen``, a generator on the training device seeded
+with ``seed``; the target's own RGB; the checkerboard), as the JAX step
+does with its key (``trainer.py:626-640, 704-705``); the evaluation
+composites them over ``bg``, white or black (the board for 'checker').
 """
 from __future__ import annotations
 
+import logging
 from typing import Callable, Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
 
 from .. import convert, resolve_device
-from ..data.base import DYNAMIC_BG, Scene, SceneMeta
+from ..data.base import Scene, SceneMeta, sample_background
 from ..data.sampler import UniformSampler
 from ..models.gaussian_splatting import (densify_and_prune, expon_lr,
                                          gaussian_inputs, ndc_grad_norm,
@@ -92,6 +100,8 @@ from ..ops.knn import live_knn_index
 from ..render.render import composite_background, render
 from ..render.settings import GaussianInputs, RasterConfig
 from .evaluate import render_eval, split_metrics
+
+log = logging.getLogger(__name__)
 
 FAMILY = {'static': 'static', 'init_fix': 'init', 'init': 'init',
           'sp_fix': 'sp', 'sp': 'sp', 'sk_init': 'sk_init', 'sk_fix': 'sk',
@@ -182,9 +192,6 @@ class SKGSTrainer:
         if optimizer != 'adam':
             raise NotImplementedError(f'optimizer {optimizer!r} is not ported '
                                       "yet (only 'adam')")
-        if meta.background_type in DYNAMIC_BG or scene.images.shape[-1] != 3:
-            raise NotImplementedError('backgrounds composited per step (RGBA '
-                                      'targets) are not ported yet')
         self.device = resolve_device(device)
         self.cfg = cfg
         self.rcfg = rcfg
@@ -209,6 +216,8 @@ class SKGSTrainer:
             bg = np.ones(3, np.float32) if meta.background_type == 'white' \
                 else np.zeros(3, np.float32)
         self.bg = torch.as_tensor(bg, dtype=torch.float32).to(self.device)
+        # the backgrounds of RGBA targets, drawn on the device
+        self.bg_gen = torch.Generator(self.device).manual_seed(seed)
         self.step = 0
         self.best_psnr = -1.0
         self.snapshot_fn: Optional[Callable[[str], None]] = None
@@ -229,14 +238,15 @@ class SKGSTrainer:
     def ckpt_state(self) -> Dict[str, np.ndarray]:
         """A copy of the whole state as numpy arrays in the layout of the
         JAX trainer's ``ckpt_state()`` (``model/...``, ``opt/...``,
-        ``flags/...``), plus the port's noise generator (``port/...``)."""
+        ``flags/...``), plus the port's noise and background generators
+        (``port/...``)."""
         flags = {'skeleton_initialized': self.skeleton_initialized,
                  'sp_initialized': self.sp_initialized,
                  'reinit_done': self.reinit_done,
                  'best_psnr': self.best_psnr}
         return convert.trainer_state_to_flat(
             self.model, self.opt_state, flags, self.gs_knn_index,
-            self.noise_gen, self.seed)
+            self.noise_gen, self.bg_gen, self.seed)
 
     def restore(self, flat: Mapping[str, np.ndarray], step: int):
         """Resume from a checkpoint's arrays (``framework.checkpoint.load``;
@@ -263,9 +273,18 @@ class SKGSTrainer:
             if index is None else index.to(self.device, torch.int64)
         if 'state/flags/best_psnr' in flat:
             self.best_psnr = float(flat['state/flags/best_psnr'])
-        gen = flat.get('state/' + convert.NOISE_GEN_KEY)
-        if gen is not None:
-            self.noise_gen.set_state(torch.from_numpy(np.array(gen)))
+        for gen, key in ((self.noise_gen, convert.NOISE_GEN_KEY),
+                         (self.bg_gen, convert.BG_GEN_KEY)):
+            state = flat.get('state/' + key)
+            if state is None:
+                continue
+            if state.shape != tuple(gen.get_state().shape):
+                # a generator of the other device type (a card run resumed
+                # on the CPU, or back): its stream restarts from the seed
+                log.info('%s: the checkpoint holds another device type\'s '
+                         'generator; drawing from the seed again', key)
+                continue
+            gen.set_state(torch.from_numpy(np.array(state)))
         self.step = step
 
     # ------------------------------------------------------------ eval
@@ -502,18 +521,27 @@ class SKGSTrainer:
                 step: Optional[int] = None):
         """Forward from the deltas to the losses for view ``idx`` at step
         ``step`` (the step gates ``c_net``; ``self.step + 1`` when None):
-        returns (losses, deltas, render outputs, composited image)."""
+        returns (losses, deltas, render outputs, composited image, target).
+        An RGBA target and the render are composited over the step's
+        background (``trainer.py:626-640, 704-705``)."""
         cfg, model, scene = self.cfg, self.model, self.scene
         family = self.family(stage)
         step = self.step + 1 if step is None else step
-        image = scene.images[idx]
+        image, bg = scene.images[idx], self.bg
+        if image.shape[-1] == 4:
+            bg = sample_background(self.meta.background_type, self.bg_gen,
+                                   image.shape[0], image.shape[1],
+                                   checker=self.bg,
+                                   reference_rgb=image[..., :3])
+            alpha = image[..., 3:4]
+            image = image[..., :3] * alpha + bg * (1.0 - alpha)
         d = forward_deltas(cfg, model, scene.times[idx], stage,
                            time_id=scene.time_ids[idx], training=True)
         g = self.render_inputs(family, d)
         out = render(g, scene.view(idx), self.rcfg,
                      active_sh_degree=model.active_sh_degree,
                      means2d_offset=m2d_off)
-        img = composite_background(out['images'], out['opacity'], self.bg)
+        img = composite_background(out['images'], out['opacity'], bg)
         method = self.loss_w.cfg('image').get('method', 'l1')
         img_loss = mse_loss if method == 'mse' else l1_loss
         losses = {'rgb': self.loss_w.w('image') * img_loss(img, image),
@@ -530,7 +558,7 @@ class SKGSTrainer:
                 if family == 'init' else \
                 self.cnet_loss_sp(scene.times[idx], points_out, d.aux)
             losses['c_net'] = self.loss_weight('c_net', step) * c_net
-        return losses, d, out, img
+        return losses, d, out, img, image
 
     def sp_losses(self, d, t: torch.Tensor, step: int
                   ) -> Dict[str, torch.Tensor]:
@@ -717,7 +745,7 @@ class SKGSTrainer:
         Adam, statistics, the cache row (``sp_cache`` for the ``sp`` family,
         ``sk_cache`` for ``sk``), the ``sp`` family's ``p2sp`` ('largest')
         and joint cost mean, and the metrics."""
-        losses, d, out, img = fwd
+        losses, d, out, img, target = fwd
         model = self.model
         leaves = model.leaves()
         # a degenerate splat can give a non-finite gradient entry: zero the
@@ -751,7 +779,7 @@ class SKGSTrainer:
         alive = model.alive
         return {
             'loss': total.detach(),
-            'psnr': psnr(img, self.scene.images[idx]),
+            'psnr': psnr(img, target),
             'overflow': out['overflow'],
             'num_pairs': out['num_pairs'],
             'n_vis': torch.sum((out['radii'] > 0) & alive),

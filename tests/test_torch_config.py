@@ -134,8 +134,15 @@ def test_refused_knobs():
                              ['train.parallel={"n_view": 2, "n_gs": 1}'])
     with pytest.raises(NotImplementedError, match='parallel'):
         build.trainer_options(cfg)
-    cfg = config.make_config(str(ROOT / 'configs/d_nerf.yaml'))
-    with pytest.raises(NotImplementedError, match='1.7'):
+    # every dataset kind of the JAX package loads; another kind raises,
+    # and a missing dataset is not replaced by anything
+    cfg = config.make_config(str(ROOT / 'configs/d_nerf.yaml'),
+                             ['dataset.kind=nerf'])
+    with pytest.raises(NotImplementedError, match='kind nerf'):
+        build.build_scene(cfg, 'cpu')
+    cfg = config.make_config(str(ROOT / 'configs/d_nerf.yaml'),
+                             ['dataset.root=/nonexistent'])
+    with pytest.raises(FileNotFoundError):
         build.build_scene(cfg, 'cpu')
     cfg = config.make_config(str(ROOT / 'configs/synthetic_smoke.yaml'),
                              ['train.capacity_buckets=true'])

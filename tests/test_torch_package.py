@@ -1,4 +1,5 @@
-"""The port stands alone: it loads no JAX and nothing of sk_gs_tpu, its
+"""The port stands alone: it loads no JAX, nothing of sk_gs_tpu, and
+neither Pillow nor PyYAML (the card's machine has neither), its
 entry points default to the card and refuse to run on the CPU unasked, and
 chip_smoke.py fails (printing no result) where there is no card or no port
 beside it."""
@@ -18,7 +19,8 @@ from sk_gs_tpu_torch.render.tile_kernel import (KERNELS, tile_blend_bwd,
                                                 tile_blend_fwd)
 
 ROOT = Path(__file__).resolve().parents[1]
-FORBIDDEN = re.compile(r'^\s*(import|from)\s+(jax|sk_gs_tpu)\b', re.M)
+FORBIDDEN = re.compile(r'^\s*(import|from)\s+(jax|sk_gs_tpu|PIL|yaml)\b',
+                       re.M)
 
 _IMPORT_ALL = r"""
 import importlib, json, pkgutil, sys
@@ -29,7 +31,8 @@ for name in names:
     importlib.import_module(name)
 import chip_smoke
 bad = sorted(m for m in sys.modules
-             if m.split('.')[0] in ('jax', 'jaxlib', 'sk_gs_tpu'))
+             if m.split('.')[0] in ('jax', 'jaxlib', 'sk_gs_tpu', 'PIL',
+                                    'yaml'))
 print(json.dumps({'modules': names, 'bad': bad}))
 """
 
@@ -48,7 +51,10 @@ def test_importing_every_module_loads_no_jax():
     assert out.returncode == 0, out.stderr
     res = json.loads(out.stdout.strip().splitlines()[-1])
     for name in ('framework.evaluate', 'framework.trainer', 'data.synthetic',
-                 'models.optim', 'ops.knn', 'models.deform'):
+                 'models.optim', 'ops.knn', 'models.deform', 'data.dnerf',
+                 'data.wim', 'data.zju', 'data.colmap', 'utils.png',
+                 'utils.resize', 'framework.registry',
+                 'framework.lr_schedules'):
         assert 'sk_gs_tpu_torch.' + name in res['modules']
     assert res['bad'] == []
 

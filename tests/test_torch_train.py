@@ -390,9 +390,9 @@ def test_trainer_refuses_what_is_not_ported(tiny, jax_scene, tmp_path):
                {'optimizer': 'adan'}):
         with pytest.raises(NotImplementedError):
             SKGSTrainer(cfg, rcfg, scene, meta, model, device='cpu', **kw)
+    # RGBA targets are composited per step (tests/test_torch_background.py)
     rgba = scene._replace(images=torch.ones(FRAMES, 48, 64, 4))
-    with pytest.raises(NotImplementedError, match='RGBA'):
-        SKGSTrainer(cfg, rcfg, rgba, meta, model, device='cpu')
+    SKGSTrainer(cfg, rcfg, rgba, meta, model, device='cpu')
     with pytest.raises(ValueError, match='trainable'):
         SKGSTrainer(cfg, rcfg, scene, meta,
                     port_model(tiny, tmp_path, trainable=False),
