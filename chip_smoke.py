@@ -101,7 +101,41 @@ with the ``sk_init`` family (kernel #1). Phases, one JSON line each:
    ``joint_parents`` equal; the ``sp_W`` gradient's bar adds the float32
    rounding of its smooth-loss term, measured against float64 on each
    side;
-20. sk_init_event: the skeleton initialisation at full width on the
+20. train_reference_options: each option of the trainer on the card
+   against the CPU over 2 steps of a small model, both handed the same
+   draws (the regularizers' uniforms, the time noise): AdamW, SGD and
+   Adan, ``batch_views`` 3 (``sk`` steps), the init regularizers
+   (``elastic``, ``acc``, ``arap``, ``arap_p``) across the densify event
+   after step 100, the sp regularizers (``re_pos``, ``jp_dist``,
+   ``sp_arap_t``, ``sp_arap_ct``) across ``joint_update_interval[1]``
+   (19,999-20,000), a net that is not ``is_blender`` (the time noise), and
+   bf16 nets (losses 2e-3, gradients 2e-2, and the parameter rule's 1e-3
+   and 1% at 2e-2: both devices round the nets' products to bfloat16, in
+   another order, and the warped positions carry that into every leaf's
+   gradient), as 10 holds them; the small models' ``sp_deform`` heads
+   drawn at 2e-3 (the warp moves the Gaussians by ~0.02), and at 0.05
+   with the consistency loss off for the init regularizers (at 2e-3 the
+   edge-length variance and the stretch they read sit near the warped
+   points' rounding), the CPU taking their second step from the card's
+   state after the first (their ill-conditioned warp-net gradients part
+   the runs' first Adam steps by +-lr), the warp net's gradients at 1e-2
+   (those losses differentiate differences of warped points a few
+   thousand float32 steps apart) and its parameters at 2 lr a step, and
+   the warp bias's gradient against the warp weight's scale (their share
+   of it is large terms cancelling);
+21. sp_extras_train: 17's start with the weights of
+   configs/ablations/loss_re_pos/re_pos1.yaml and loss_sp_arap/sp_arap.yaml
+   against the same start without them, steps 13,999-14,001 in turns:
+   each step's ms and the added ms, the losses, peak memory, #1/#2 once a
+   step;
+22. init_reg_train: 14's flagship start with ``elastic``, ``acc``,
+   ``arap`` and ``arap_p`` on, steps 1-3 (chunk schedule): ms a step, the
+   losses, and ``arap_p``'s KNN over all 100,352 rows alone;
+23. init_bf16: the flagship start in float32 and with bf16 nets, steps 2-4
+   in turns (ms), then one profiled step of each: device time, the
+   matrix-product kernels by name and device time, and whether the bf16
+   run's are tensor-core kernels;
+24. sk_init_event: the skeleton initialisation at full width on the
    flagship's shape (no ``sk_init`` steps): the random sp-stage model of
    17 takes the last sp step (40,000), then step 40,001 runs the
    initialisation before it, both loops cut to ``SK_EVENT_CUT`` (500) of
@@ -111,26 +145,31 @@ with the ``sk_init`` family (kernel #1). Phases, one JSON line each:
    and per loop iteration, the loops' first and last losses, the root, the
    non-finite count of the skeleton (0), peak memory, the steps' metrics
    and launches;
-21. sk_init_train: the same model on the sk stages of
+25. sk_init_train: the same model on the sk stages of
    ``configs/synthetic_smoke.yaml`` (10 ``sk_init`` steps,
    ``joint_init_steps`` 50): the last sp step, then, with the launch
    counts at 0, the first 5 ``sk_init`` steps (the initialisation before
    the first), the counts read back (kernel #1 once a step, #2 never: the
    image losses are detached), the ``cmp_*`` losses finite;
-22. train_reference_sk_init: the skeleton initialisation (20 + 20
+26. train_reference_sk_init: the skeleton initialisation (20 + 20
    iterations, the loops checked for host syncs on the card) of a small
    model on the card and on the CPU: the tree, the frozen LBS and the
    caches equal or within 1e-5, the Adam-updated leaves as 10 holds
    parameters; then an ``sk_init`` and an ``sk`` step on both from the
    CPU's state after it, as 10 holds steps;
-23. cli_train_smoke: ``sk_gs_tpu_torch.cli.train`` (its ``main``, in this
+27. cli_train_smoke: ``sk_gs_tpu_torch.cli.train`` (its ``main``, in this
    process, into a temporary directory) on configs/synthetic_smoke.yaml,
    the whole 180-step schedule with the launch counts at 0: the seconds,
    the ms a step by stage from metrics.jsonl, the files written, the
    results (the JAX package's keys; finite, or null where the JAX
    package writes null), #1 once a step, a ground-truth frame and an
    evaluated view, #2 once a step but the ``sk_init`` steps';
-24. cli_test_fullscale: the random full-width model (80,000 alive) with
+28. cli_train_options: ``cli.train`` on configs/synthetic_smoke.yaml with
+   ``train.optimizer=adan train.batch_views=2 train.precision=bf16``, the
+   whole schedule, and ``cli.test`` on its ``last.npz``: ms a step by
+   stage and its ratio to 27's, #1 twice a step, #2 twice a step but the
+   ``sk_init`` steps';
+29. cli_test_fullscale: the random full-width model (80,000 alive) with
    its ``sk_cache`` filled at the 48 train frames as ``sk`` training fills
    it, saved through the port's checkpoint at step 40,010 with the
    skeleton initialised; ``cli.test`` on configs/synthetic_fullscale.yaml
@@ -138,16 +177,16 @@ with the ``sk_init`` family (kernel #1). Phases, one JSON line each:
    ``test_time_interpolate`` (the first also sweeping FPS over 1,000
    renders): the columns and FPS of each; at the 48 train times the two
    routes' deltas within 1e-4 and their renders at least 60 dB apart;
-25. cli_repose_fullscale: ``cli.render_repose`` of that checkpoint with
+30. cli_repose_fullscale: ``cli.render_repose`` of that checkpoint with
    ``--orbit --time-sweep --pose-json`` (two keyframes), 20 frames at 400
    px: ms a frame (render, copy to the host, PNG), each PNG decoded by
    the port's reader, #1 once a frame
    (and once a ground-truth frame); a zero pose delta renders as none;
-26. cli_train_fullscale: ``cli.train`` on configs/synthetic_fullscale.yaml
+31. cli_train_fullscale: ``cli.train`` on configs/synthetic_fullscale.yaml
    for 20 steps (the flagship start in 100,352 slots, 48 frames, 400 px):
    ms a step, the full-metric evaluation over the 48 views, the files
    written, peak memory;
-27. cli_train_dnerf: a D-NeRF-layout scene written at 800 px (the preset's
+32. cli_train_dnerf: a D-NeRF-layout scene written at 800 px (the preset's
    chain over 60 times, one orbit camera a time, unpremultiplied RGBA PNGs:
    50 train and 10 val views) and ``cli.train`` on configs/d_nerf.yaml for
    20 steps and the val split's evaluation: each split's load seconds and
@@ -157,19 +196,24 @@ with the ``sk_init`` family (kernel #1). Phases, one JSON line each:
    (1e-5), #2 once a step and #1 once a step and a view of each
    evaluation; then kernels_800: #1 and #2 on the first step of that
    scene against their plain versions, their device time;
-28. cli_train_dnerf_random: the same files through
+33. cli_train_dnerf_random: the same files through
    configs/d_nerf_400.yaml (downscale 2) with a 'random' background, 10
    steps, RGBA on the card; then 2 trainer steps with each of 'random2',
    'reference' and 'checker' on the first 10 views loaded with it: finite
    losses, #1 and #2 once a step;
-29. cli_train_wim: a WIM-layout scene written at 800 px (20 cameras, 4 of
+34. cli_train_wim: a WIM-layout scene written at 800 px (20 cameras, 4 of
    the 50 frames) and ``cli.train`` on configs/wim_512.yaml (512 px) for
    10 steps and the test split's evaluation: load seconds, the frame and
    camera ids as written, the launches;
-30. with ``--profile`` only: 20 at the flagship's 2,000 + 2,000
+35. cli_train_zju: a ZJU-MoCap ``annots.npy`` layout written at 1024 px
+   (23 orbit cameras, 2 frames, RGB PNGs and their masks) and ``cli.train``
+   on configs/zju.yaml (``is_blender`` false: the time noise live) for 10
+   steps: load seconds by split, the cameras as written, ms a step, the
+   noise's scale, the launches;
+36. with ``--profile`` only: 24 at the flagship's 2,000 + 2,000
    iterations (profile_sk_init_event); profile_sk_init, each loop's
    iteration on the host clock and under torch.profiler (device time,
-   busy share, top kernels) on that model after its initialisation; 22
+   busy share, top kernels) on that model after its initialisation; 26
    over 50 + 50 iterations, reported, not held; and one request's, one
    ``sk`` step's and one ``init`` step's (the flagship start's) stages
    timed with CUDA events, and torch.profiler windows over a few requests
@@ -197,7 +241,9 @@ with the ``sk_init`` family (kernel #1). Phases, one JSON line each:
 Then a ``kernels`` line (every ported kernel with its launches on its own
 training path and on each path, the CLI paths ``cli_train``,
 ``cli_test``, ``cli_repose``, ``cli_train_dnerf``,
-``cli_train_dnerf_random``, ``train_dynamic_bg`` and ``cli_train_wim``
+``cli_train_dnerf_random``, ``train_dynamic_bg``, ``cli_train_wim``,
+``cli_train_options`` and ``cli_train_zju`` and the options' paths
+``train_sp_extras``, ``train_init_reg`` and ``train_init_bf16``
 included, error, times and bound), the card's name
 and power limit as nvidia-smi prints them, and last ``{"ok": true,
 "device": {...}}``. Any failure raises and exits non-zero; with no CUDA
@@ -215,6 +261,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
@@ -247,12 +294,14 @@ from sk_gs_tpu_torch.models.gaussian_splatting import (gaussian_inputs,
                                                        init_from_pcd)
 from sk_gs_tpu_torch.models.losses import LossWeights, l1_loss, ssim_loss
 from sk_gs_tpu_torch.models.sk_gs import (forward_deltas, init_model,
-                                          lbs_weights)
+                                          lbs_weights, smooth_scale)
 from sk_gs_tpu_torch.models.sk_gs_ops import sample_trajectories
 from sk_gs_tpu_torch.models.skeleton import joint_cost_matrix
 from sk_gs_tpu_torch.models.superpoints import select_rows
 from sk_gs_tpu_torch.ops.knn import furthest_point_sampling
-from sk_gs_tpu_torch.ops.transforms import perspective_opencv
+from sk_gs_tpu_torch.ops.knn import knn as knn_op
+from sk_gs_tpu_torch.ops.transforms import (convert_coord_system,
+                                            perspective_opencv)
 from sk_gs_tpu_torch.render import prepare_blend
 from sk_gs_tpu_torch.render.binning import build_tile_lists, num_chunks
 from sk_gs_tpu_torch.render.blend import (ALPHA_MIN, OUTCOMES, assemble_image,
@@ -400,6 +449,33 @@ WIM_HW = 800
 WIM_CAMERAS = 20
 WIM_FRAMES = 4
 WIM_STEPS = 10
+# the trainer's options: the regularizers' weights (the two
+# ablations' own, configs/ablations/loss_re_pos/re_pos1.yaml and
+# loss_sp_arap/sp_arap.yaml; the init family's those of the JAX package's
+# tests/test_extra_losses.py), the steps of each full-width phase, the bf16
+# bar (losses and the nets' gradients: the nets round to bfloat16's 8
+# mantissa bits on both devices, in another order of accumulation) and the
+# ZJU-MoCap layout (ZJU-MoCap's frame size and camera count, 2 frames)
+SP_ABLATION_WEIGHTS = {'re_pos': 1.0, 'sp_arap_t': 0.01, 'sp_arap_ct': 0.01}
+SP_REG_WEIGHTS = {'re_pos': 0.5, 'jp_dist': 0.5, 'sp_arap_t': 0.01,
+                  'sp_arap_ct': 0.01}
+INIT_REG_WEIGHTS = {'elastic': 0.1, 'acc': 0.1, 'arap': 0.1, 'arap_p': 1.0}
+SP_EXTRAS_STEPS = (13999, 14000, 14001)
+INIT_REG_STEPS = (1, 2, 3)
+INIT_BF16_STEPS = (2, 3, 4)
+BF16_LOSS_TOL = 2e-3
+BF16_GRAD_TOL = 2e-2
+CLI_ZJU = 'configs/zju.yaml'
+ZJU_HW = 1024
+ZJU_CAMERAS = 23
+ZJU_FRAMES = 2
+ZJU_STEPS = 10
+CLI_OPTIONS = ('train.optimizer=adan', 'train.batch_views=2',
+               'train.precision=bf16')
+# kernel names of matrix products (cuBLAS / cuBLASLt / CUTLASS), and the
+# marks of a tensor-core one among them
+GEMM_MARKS = ('gemm', 'nvjet', 'xmma', 'cutlass')
+TENSOR_CORE_MARKS = ('bf16', 'tensorop', 'hmma', 'gmma', 'nvjet', '16816')
 CLI_METRIC_KEYS = {'PSNR', 'SSIM', 'SSIM (border-cropped)', 'MS-SSIM',
                    'LPIPS (alex)', 'LPIPS (vgg)', 'LPIPS weights',
                    'LPIPS (alex) [uncalibrated]',
@@ -997,25 +1073,31 @@ def phase_grad_path(trainer: SKGSTrainer, step: int):
           'err_over_max_by_leaf': worst})
 
 
-def params_over_tol(f_c, f_p, grads, lrs, steps: int, scale_of=None):
+def params_over_tol(f_c, f_p, grads, lrs, steps: int, scale_of=None,
+                    cut_of=None):
     """The worst parameter error over its bound and its leaf
     (tests/test_torch_train.py's bounds): where the gradient exceeded 1e-3
     of the leaf's max at every step (``grads``, one dict a step), 1e-5 of
     the leaf plus 1% of its Adam steps; elsewhere 2 lr a step, since Adam
     moves an entry whose gradient is near zero at any one step by up to
-    +-lr at that step. ``scale_of`` as for ``close_leaves``."""
-    scale_of = scale_of or {}
+    +-lr at that step. ``scale_of`` as for ``close_leaves``; ``cut_of``
+    raises the 1e-3 and the 1% of a leaf (by the name before its first
+    '/') to its gradient bar where that is larger: a relative gradient
+    error e moves an Adam step by ~e lr."""
+    scale_of, cut_of = scale_of or {}, cut_of or {}
     worst, worst_leaf = 0.0, None
     for name, lr in lrs.items():
         got, ref = f_c['params/' + name], f_p['params/' + name]
+        cut = max(1e-3, cut_of.get(name.split('/')[0], 0.0))
+        step_share = max(0.01, cut)
         big = np.ones(got.shape, bool)
         for step_grads in grads:
             g = step_grads[name].abs().numpy()
             top = float(step_grads[scale_of.get(name, name)].abs().max())
-            big &= g > 1e-3 * top
+            big &= g > cut * top
         err = np.abs(got - ref)
         scale = float(np.abs(ref).max())
-        tol_big = 1e-5 * scale + 0.01 * lr * steps + 1e-30
+        tol_big = 1e-5 * scale + step_share * lr * steps + 1e-30
         tol_all = 2 * lr * steps + 1e-5 * scale + 1e-30
         leaf = max(float(err[big].max(initial=0.0)) / tol_big,
                    float(err.max()) / tol_all)
@@ -2898,12 +2980,550 @@ def phase_cli_train_wim(tmp: Path, train) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------- options
+
+
+class HandedDraws:
+    """The trainers' random draws (the regularizers' uniforms, the time
+    noise) from one numpy generator: the k-th draw of a kind is the same
+    on every device it is handed to, as ``handed_backgrounds`` does for
+    the backgrounds."""
+
+    def __init__(self, seed: int):
+        self.rng = np.random.default_rng(seed)
+        self.draws = {}
+
+    def attach(self, trainer: SKGSTrainer):
+        counts = {}
+
+        def take(kind, make):
+            k = counts[kind] = counts.get(kind, -1) + 1
+            made = self.draws.setdefault(kind, [])
+            while len(made) <= k:
+                made.append(make())
+            return torch.from_numpy(made[k]).to(trainer.device)
+
+        trainer.draw_uniform = lambda n: take(('uniform', n), lambda: (
+            self.rng.uniform(size=n).astype(np.float32)))
+        trainer.draw_time_noise = lambda: take('normal', lambda: np.asarray(
+            self.rng.normal(), np.float32))
+
+
+def small_start(seed: int, family: str, dev: str, cfg, rcfg, train,
+                warp_head: float = None):
+    """A small model of ``family`` on ``dev`` and its trainer flags:
+    train_reference's random sk model, train_reference_init's flagship
+    start, train_reference_sp's random sp-stage model (every eighth
+    superpoint dead); the init and sp families' ``sp_deform`` net with
+    its position (and rotation) heads drawn at ``warp_head``
+    (``OPTION_WARP_HEAD`` by default), so that the warp, its time noise and
+    the motion regularizers move something (the ``canonical`` net keeps
+    its fresh heads)."""
+    heads = torch.Generator().manual_seed(seed)
+    warp_head = OPTION_WARP_HEAD if warp_head is None else warp_head
+    if family == 'init':
+        pts, cols = flagship_point_cloud(train)
+        base = init_from_pcd(pts, cols, cfg.gauss, device=dev)
+        times = np.linspace(0.0, 1.0, cfg.num_frames).astype(np.float32)
+        model = init_model(cfg, rcfg, base, times, seed=seed, device=dev)
+        with torch.no_grad():
+            model.sp_deform.warp.w.copy_(warp_head * torch.randn(
+                model.sp_deform.warp.w.shape, generator=heads))
+        return model, {}
+    flat = random_model_flat(cfg, seed + 1, n_alive=3000,
+                             log_scale_mean=-3.0, sp_stage=family == 'sp')
+    if family == 'sp':
+        flat['sp_alive'][::8] = False
+        for head in ('warp', 'rotation'):
+            key = f'params/sp_deform/{head}/w'
+            flat[key] = (warp_head * torch.randn(
+                flat[key].shape, generator=heads)).numpy()
+        flags = {'sp_initialized': True, 'reinit_done': True}
+    else:
+        flags = {'skeleton_initialized': True}
+    return convert.model_from_flat(flat, cfg, rcfg, device=dev,
+                                   trainable=True), flags
+
+
+# the spread of the small models' warp heads: a fresh net's 1e-5 moves the
+# Gaussians by ~1e-5 (the motion losses would be rounding), 0.05 by ~1,
+# and then the rounding of the warped points, which the canonical net
+# reads through its 2^9 frequency band, flips its ReLUs between devices;
+# 2e-3 moves them by ~0.02. The init regularizers take 0.05 with the
+# consistency loss off (the canonical net then trains on nothing): at
+# 2e-3 the variance of an edge's length over elastic's 8 times, and
+# arap's stretch, are within a few hundred float32 steps of the warped
+# points' rounding, and the card's and the CPU's first Adam steps part.
+# Even so their warp-net gradients part the two runs' first Adam steps
+# (+-lr where they round apart), so the CPU takes their second step from
+# the card's state after the first (tests/test_torch_sp.py's rule: each
+# step held from one state)
+OPTION_WARP_HEAD = 2e-3
+OPTION_REG_WARP_HEAD = 0.05
+# the warp net's gradient bar under the init regularizers: elastic's
+# self-normalised variance and arap's stretch differentiate differences of
+# warped points a few thousand float32 steps apart, so a last-bit change of
+# a warped point (the card's GEMMs against the CPU's) moves that gradient
+# by ~1e-3 of its size (5.2e-3 of its max on an H100)
+REG_NET_GRAD_TOL = 1e-2
+# each option of train_reference_options: its family, steps, trainer
+# options, extra loss weights and changes to the small model's config
+OPTION_CASES = {
+    'adamw': ('sk', None, {'optimizer': 'adamw'}, {}, {}),
+    'sgd': ('sk', None, {'optimizer': 'sgd'}, {}, {}),
+    'adan': ('sk', None, {'optimizer': 'adan'}, {}, {}),
+    'batch_views_3': ('sk', None, {'batch_views': 3}, {}, {}),
+    'init_regularizers': ('init', (100, 101), {},
+                          {**INIT_REG_WEIGHTS, 'c_net': 0.0},
+                          {'warp_head': OPTION_REG_WARP_HEAD,
+                           'from_one_state': True,
+                           'net_grad_tol': {'sp_deform': REG_NET_GRAD_TOL}}),
+    'sp_regularizers': ('sp', (19999, 20000), {},
+                        {**SP_REG_WEIGHTS, 'smooth': 0.0},
+                        {'sp_split_threshold': 0.0}),
+    'not_is_blender': ('init', (100, 101), {}, {}, {'is_blender': False}),
+    'bf16': ('init', (100, 101), {}, {}, {'bf16': True}),
+}
+
+
+def option_reference(seed: int, name: str) -> dict:
+    """One option of ``OPTION_CASES`` trained 2 steps on the card
+    (kernels) and on the CPU (plain versions) from the same small model,
+    both handed the same draws; compared as train_reference compares
+    (bf16 at its own bar)."""
+    family, steps, options, extra, change = OPTION_CASES[name]
+    cfg, rcfg, train = synthetic_fullscale()
+    net = cfg.net._replace(depth=4, width=64)
+    sk_net = cfg.sk_net._replace(width=64, depth=4, skips=(2,))
+    if change.get('is_blender') is False:
+        net = net._replace(is_blender=False)
+    bf16 = bool(change.get('bf16'))
+    if bf16:
+        net = net._replace(compute_dtype='bfloat16')
+        sk_net = sk_net._replace(compute_dtype='bfloat16')
+    cfg = cfg._replace(gauss=cfg.gauss._replace(capacity=4096),
+                       num_superpoints=64, num_frames=6, net=net,
+                       sk_net=sk_net, **{k: v for k, v in change.items()
+                                         if k in cfg._fields})
+    rcfg = rcfg._replace(image_width=96, image_height=80,
+                         pair_capacity=2 ** 16,
+                         schedule='chunk' if family == 'init' else 'tile')
+    steps = steps or (cfg.stages['sk'][0] + 1, cfg.stages['sk'][0] + 2)
+    loss = {**train.loss, **extra}
+    draws = HandedDraws(seed)
+    runs, card_states = {}, []
+    for dev in ('cuda', 'cpu'):
+        scene, meta, _ = make_synthetic_scene(
+            seed=seed, num_links=3, gauss_per_link=60, num_frames=6, h=80,
+            w=96, pair_capacity=2 ** 15, device=dev)
+        model, flags = small_start(seed, family, dev, cfg, rcfg, train,
+                                   change.get('warp_head'))
+        tr = SKGSTrainer(cfg, rcfg, scene, meta, model, LossWeights(loss),
+                         seed=seed, device=dev, **flags, **options)
+        draws.attach(tr)
+        metrics, grads = [], []
+        for i, step in enumerate(steps):
+            if dev == 'cpu' and change.get('from_one_state') and i:
+                # the CPU takes this step from the card's state before it
+                tr.restore({'state/' + k: v for k, v in
+                            card_states[i - 1].items()}, steps[i - 1])
+            m = tr.train_step(step)
+            if dev == 'cuda':
+                card_states.append(tr.ckpt_state())
+            metrics.append({k: float(v) for k, v in m.items()})
+            grads.append({k: p.grad.detach().cpu().clone()
+                          for k, p in tr.model.leaves().items()})
+        runs[dev] = (metrics, grads, convert.model_to_flat(tr.model),
+                     tr.lr_trees(steps[-1]))
+    (m_c, g_c, f_c, lrs), (m_p, g_p, f_p, _) = runs['cuda'], runs['cpu']
+    loss_tol = BF16_LOSS_TOL if bf16 else 2e-4
+    # bf16: every leaf at the bf16 bar, since the warped positions carry
+    # the nets' rounding (a bfloat16 step of d_xyz) into every gradient,
+    # its parameters' settled entries from that bar up; a case's own
+    # gradient bars by leaf (``net_grad_tol``) hold its parameters to the
+    # 2 lr a step bound alone (no entry's gradient is good to the 1e-3
+    # that the settled-entry rule needs)
+    bars = {k.split('/')[0]: BF16_GRAD_TOL for k in g_p[0]} if bf16 \
+        else dict(change.get('net_grad_tol', {}))
+    tol_of = {k: bars[k.split('/')[0]] for k in g_p[0]
+              if k.split('/')[0] in bars}
+    cut_of = bars if bf16 else {k: 1.0 for k in bars}
+    iso = {'rotation': 'xyz'} if family == 'init' else {}
+    if any(k in extra for k in INIT_REG_WEIGHTS):
+        # the warp bias moves every warped point alike, which the motion
+        # and point-ARAP losses do not see (they read differences of
+        # warped points): their share of its gradient is their large
+        # terms cancelling, held against the warp weight's scale
+        iso['sp_deform/warp/b'] = 'sp_deform/warp/w'
+    rel = lambda k: max(abs(a[k] - b[k]) / max(abs(b[k]), 1e-30)
+                        for a, b in zip(m_c, m_p))
+    loss_err = rel('loss')
+    try:
+        grad_worst = [max(close_leaves(a, b, 3e-4, scale_of=iso,
+                                       tol_of=tol_of).values())
+                      for a, b in zip(g_c, g_p)]
+        grads_ok = True
+    except AssertionError as e:
+        grad_worst, grads_ok = str(e), False
+    param_worst, worst_leaf = params_over_tol(f_c, f_p, g_p, lrs, 2,
+                                              scale_of=iso, cut_of=cut_of)
+    same = {k: bool(np.array_equal(f_c[k], f_p[k]))
+            for k in ('alive', 'sp_alive', 'joint_parents')}
+    return {'option': name, 'family': family, 'steps': list(steps),
+            'trainer_options': options, 'extra_loss_weights': extra,
+            'loss_cuda': [m['loss'] for m in m_c],
+            'loss_cpu': [m['loss'] for m in m_p],
+            'extra_losses_cuda': [{k: m[k] for k in extra if k in m}
+                                  for m in m_c],
+            'extra_losses_rel_err': {k: rel(k) for k in extra
+                                     if k in m_p[-1]},
+            'loss_rel_err': loss_err, 'loss_tolerance': loss_tol,
+            'grad_worst_err_over_max': grad_worst,
+            'grad_tolerance': {'default': 3e-4, **bars},
+            'grad_scale_of': iso,
+            'param_worst_over_tol': param_worst,
+            'param_worst_leaf': worst_leaf, 'equal': same,
+            'ok': bool(grads_ok and loss_err <= loss_tol
+                       and param_worst <= 1.0 and all(same.values()))}
+
+
+def phase_train_reference_options(seed: int):
+    """Every option of ``OPTION_CASES`` (AdamW, SGD, Adan, batch_views 3,
+    the init and sp regularizers, a net that is not is_blender, bf16) on
+    the card against the CPU, 2 steps each."""
+    failed = []
+    for name in OPTION_CASES:
+        rec = option_reference(seed, name)
+        emit({'phase': 'train_reference_options', **rec})
+        if not rec['ok']:
+            failed.append(name)
+    if failed:
+        raise AssertionError(f'card and CPU training differ: {failed}')
+
+
+def timed_step(trainer: SKGSTrainer, step: int, count: dict = None):
+    """``train_step(step)`` synchronised: (its metrics as floats, ms); the
+    launches it made are added to ``count``."""
+    before = {k.name: k.launches for k in KERNELS}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    m = trainer.train_step(step)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    if count is not None:
+        for k in KERNELS:
+            count[k.name] = count.get(k.name, 0) + k.launches \
+                - before[k.name]
+    return {k: float(v) for k, v in m.items()}, ms
+
+
+def phase_sp_extras_train(cfg, rcfg, train):
+    """The sp_train start (a random sp-stage model, 80,000 alive) with the
+    two ablations' weights (``SP_ABLATION_WEIGHTS``) against the same
+    start without them, steps ``SP_EXTRAS_STEPS`` taken in turns (plain,
+    extras; extras, plain; ...) after a warm-up step each; the launches of
+    the extras' steps only, counted from 0."""
+    scene, meta, _ = fullscale_scene(rcfg, train)
+    flat = random_model_flat(cfg, SEED, 80_000, sp_stage=True)
+    trainers = {}
+    for name, extra in (('plain', {}), ('extras', SP_ABLATION_WEIGHTS)):
+        model = convert.model_from_flat(flat, cfg, rcfg, device='cuda',
+                                        trainable=True)
+        trainers[name] = SKGSTrainer(
+            cfg, rcfg, scene, meta, model, LossWeights({**train.loss,
+                                                        **extra}),
+            seed=train.seed, sp_initialized=True, reinit_done=True,
+            device='cuda')
+        trainers[name].train_step(SP_EXTRAS_STEPS[0] - 1)
+    for k in KERNELS:
+        k.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    launches, records, peak = {}, [], {}
+    for i, step in enumerate(SP_EXTRAS_STEPS):
+        order = ('plain', 'extras') if i % 2 == 0 else ('extras', 'plain')
+        rec = {'step': step}
+        for name in order:
+            torch.cuda.reset_peak_memory_stats()
+            m, ms = timed_step(trainers[name], step,
+                               launches if name == 'extras' else None)
+            peak[name] = max(peak.get(name, 0),
+                             torch.cuda.max_memory_allocated())
+            rec[name + '_ms'] = ms
+            if name == 'extras':
+                rec['losses'] = {k: m[k] for k in ('loss',
+                                                   *SP_ABLATION_WEIGHTS)}
+                rec['overflow'] = bool(m['overflow'])
+        rec['added_ms'] = rec['extras_ms'] - rec['plain_ms']
+        records.append(rec)
+    added = sorted(r['added_ms'] for r in records)
+    n = len(SP_EXTRAS_STEPS)
+    expected = {k.name: n if k in (tile_blend_fwd, tile_blend_bwd) else 0
+                for k in KERNELS}
+    emit({'phase': 'sp_extras_train', 'weights': SP_ABLATION_WEIGHTS,
+          'steps': records, 'added_ms_median': added[len(added) // 2],
+          'max_memory_allocated': peak, 'launches': launches,
+          'expected_launches': expected})
+    for r in records:
+        if not all(math.isfinite(v) for v in r['losses'].values()) \
+                or r['overflow']:
+            raise AssertionError(f'bad sp_extras step: {r}')
+    if launches != expected:
+        raise AssertionError(f'sp_extras_train launches {launches} != '
+                             f'{expected}')
+    return launches
+
+
+def flagship_trainer(cfg, rcfg, train, scene, meta, loss) -> SKGSTrainer:
+    return SKGSTrainer(cfg, rcfg, scene, meta,
+                       flagship_model(cfg, rcfg, train, meta.train_times),
+                       LossWeights(loss), seed=train.seed,
+                       clip_norm=train.clip_norm, device='cuda')
+
+
+def phase_init_reg_train(cfg, rcfg, train):
+    """The flagship init start on the chunk schedule with the init
+    regularizers on (``INIT_REG_WEIGHTS``), steps ``INIT_REG_STEPS`` with
+    the counts from 0: ms a step, the losses, and arap_p's KNN over every
+    capacity row alone (CUDA events)."""
+    scene, meta, _ = fullscale_scene(rcfg, train)
+    tr = flagship_trainer(cfg, rcfg, train, scene, meta,
+                          {**train.loss, **INIT_REG_WEIGHTS})
+    for k in KERNELS:
+        k.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    launches, records = {}, []
+    for step in INIT_REG_STEPS:
+        m, ms = timed_step(tr, step, launches)
+        records.append({'step': step, 'stage': cfg.stage_at(step), 'ms': ms,
+                        **{k: m[k] for k in ('loss', *INIT_REG_WEIGHTS,
+                                             'num_pairs', 'overflow')}})
+    peak = torch.cuda.max_memory_allocated()
+    model = tr.model
+    with torch.no_grad():
+        pts = model.params['xyz'] + forward_deltas(
+            cfg, model, scene.times[0], 'init', training=True).d_xyz
+        far = torch.where(model.alive[:, None], pts, pts + 1e6)
+    knn_ms = cuda_ms(lambda: knn_op(far, far, tr.gs_knn_num + 1), 2, 1)
+    n = len(INIT_REG_STEPS)
+    expected = {k.name: n if k in (chunk_blend_fwd, chunk_blend_bwd) else 0
+                for k in KERNELS}
+    emit({'phase': 'init_reg_train', 'weights': INIT_REG_WEIGHTS,
+          'capacity': int(model.alive.shape[0]),
+          'n_alive': int(model.alive.sum()), 'steps': records,
+          'arap_p_knn_ms': knn_ms, 'max_memory_allocated': peak,
+          'launches': launches, 'expected_launches': expected})
+    for r in records:
+        if not all(math.isfinite(r[k]) for k in ('loss', *INIT_REG_WEIGHTS)):
+            raise AssertionError(f'bad init_reg step: {r}')
+    if launches != expected:
+        raise AssertionError(f'init_reg_train launches {launches} != '
+                             f'{expected}')
+    return launches
+
+
+def gemm_rows(on_dev) -> list:
+    """The matrix-product kernels of a profiler window (convolutions left
+    out), by device time."""
+    return [e for e in on_dev if any(g in e.key.lower() for g in GEMM_MARKS)
+            and 'conv' not in e.key.lower()]
+
+
+def phase_init_bf16(cfg, rcfg, train):
+    """The flagship init start in float32 and with the nets in bfloat16
+    (``train.precision: bf16``), one trainer each from the same start; a
+    warm-up step each, then steps ``INIT_BF16_STEPS`` in turns (ms, host
+    clock, synchronised); then one more step of each under torch.profiler:
+    its device time, and the matrix-product kernels by name and time (the
+    warp nets' GEMMs), whether the bf16 run's are tensor-core kernels."""
+    scene, meta, _ = fullscale_scene(rcfg, train)
+    bf16 = cfg._replace(
+        net=cfg.net._replace(compute_dtype='bfloat16'),
+        sk_net=cfg.sk_net._replace(compute_dtype='bfloat16'))
+    trainers = {'f32': flagship_trainer(cfg, rcfg, train, scene, meta,
+                                        train.loss),
+                'bf16': flagship_trainer(bf16, rcfg, train, scene, meta,
+                                         train.loss)}
+    for tr in trainers.values():
+        tr.train_step(INIT_BF16_STEPS[0] - 1)
+    for k in KERNELS:
+        k.launches = 0
+    launches = {}
+    ms = {name: [] for name in trainers}
+    loss = {name: [] for name in trainers}
+    for i, step in enumerate(INIT_BF16_STEPS):
+        order = ('f32', 'bf16') if i % 2 == 0 else ('bf16', 'f32')
+        for name in order:
+            m, t = timed_step(trainers[name], step,
+                              launches if name == 'bf16' else None)
+            ms[name].append(t)
+            loss[name].append(m['loss'])
+    step = INIT_BF16_STEPS[-1] + 1
+    prof = {}
+    for name, tr in trainers.items():
+        on_dev, wall = profile_window(lambda tr=tr: tr.train_step(step))
+        gemms = gemm_rows(on_dev)
+        prof[name] = {
+            'device_ms': sum(dev_us(e) for e in on_dev) * 1e-3,
+            'wall_ms': wall * 1e3,
+            'gemm_device_ms': sum(dev_us(e) for e in gemms) * 1e-3,
+            'gemm_kernels': [{'kernel': e.key[:160], 'launches': e.count,
+                              'device_ms': dev_us(e) * 1e-3}
+                             for e in gemms[:12]]}
+    f32_names = {g['kernel'] for g in prof['f32']['gemm_kernels']}
+    own = [g['kernel'] for g in prof['bf16']['gemm_kernels']
+           if g['kernel'] not in f32_names]
+    tensor_cores = any(mark in k.lower() for k in own
+                       for mark in TENSOR_CORE_MARKS)
+    n = len(INIT_BF16_STEPS)
+    expected = {k.name: n if k in (chunk_blend_fwd, chunk_blend_bwd) else 0
+                for k in KERNELS}
+    emit({'phase': 'init_bf16', 'steps': list(INIT_BF16_STEPS),
+          'ms': ms, 'loss': loss, 'profiled_step': step, 'profile': prof,
+          'bf16_gemm_kernels_not_in_f32': own,
+          'bf16_gemms_on_tensor_cores': tensor_cores,
+          'launches': launches, 'expected_launches': expected})
+    if not all(math.isfinite(v) for v in loss['bf16']) \
+            or launches != expected:
+        raise AssertionError(f'init_bf16: loss {loss}, launches '
+                             f'{launches} != {expected}')
+    return launches
+
+
+def zju_extrinsics(Tv2w_cv: np.ndarray):
+    """(R [3, 3], T [3, 1] in millimetres) of ZJU-MoCap's ``annots.npy``
+    for an OpenCV camera-to-world matrix: the world-to-view matrix the
+    loader reads in OpenGL axes, which it converts to COLMAP's."""
+    to_colmap = convert_coord_system(np.eye(4), 'opengl', 'colmap')
+    Tw2v_gl = np.linalg.inv(to_colmap) @ np.linalg.inv(Tv2w_cv)
+    return Tw2v_gl[:3, :3], Tw2v_gl[:3, 3:] * 1e3
+
+
+def write_zju(root: Path, train) -> dict:
+    """A ZJU-MoCap ``annots.npy`` layout (tests/test_torch_loaders.py's
+    ``write_zju_annots``) at ZJU_HW px: the preset's chain over ZJU_FRAMES
+    frames seen by ZJU_CAMERAS orbit cameras (intrinsics and poses that put
+    it in view), each image an RGB PNG with its mask beside it."""
+    ds = train.dataset
+    gt = make_chain_gt(np.random.default_rng(train.seed), ds.num_links,
+                       ds.gauss_per_link, ZJU_FRAMES)
+    Tv2w, fovx = orbit_views(ZJU_CAMERAS, h=ZJU_HW, w=ZJU_HW)
+    focal = ZJU_HW / 2 / math.tan(fovx / 2)
+    scene_root = root / 'CoreView_377'
+    (scene_root / 'imgs').mkdir(parents=True)
+    (scene_root / 'mask').mkdir()
+    K = np.tile(np.array([[focal, 0, ZJU_HW / 2], [0, focal, ZJU_HW / 2],
+                          [0, 0, 1]], np.float32), (ZJU_CAMERAS, 1, 1))
+    RT = [zju_extrinsics(Tv2w[c]) for c in range(ZJU_CAMERAS)]
+    frames, paths, ims = [], [], []
+    for f in range(ZJU_FRAMES):
+        names = []
+        for c in range(ZJU_CAMERAS):
+            rgba = render_rgba(gt, f, Tv2w[c], fovx, ZJU_HW)
+            name = f'imgs/f{f:02d}_c{c:02d}.png'
+            frames += [rgba[..., :3], rgba[..., 3:].expand(-1, -1, 3)]
+            paths += [scene_root / name,
+                      scene_root / 'mask' / f'f{f:02d}_c{c:02d}.png']
+            names.append(name)
+        ims.append({'ims': names})
+    np.save(scene_root / 'annots.npy', {'cams': {
+        'K': K, 'R': np.stack([r for r, _ in RT]).astype(np.float32),
+        'T': np.stack([t for _, t in RT]).astype(np.float32)}, 'ims': ims})
+    return {'write_s': write_pngs(paths, frames), 'Tv2w': Tv2w,
+            'fovx': fovx}
+
+
+def phase_cli_train_zju(tmp: Path, train) -> dict:
+    """``cli.train`` on configs/zju.yaml (widths not cut; ``is_blender``
+    false: the time noise live) on a ZJU-MoCap layout written at ZJU_HW px
+    (ZJU_CAMERAS cameras, ZJU_FRAMES frames) for ZJU_STEPS steps: load
+    seconds by split, ms a step, the time noise's scale at those steps,
+    the cameras as written, the launches."""
+    written = write_zju(tmp / 'zju', train)
+    cfg = make_config(CLI_ZJU, [f'dataset.root={tmp / "zju"}'])
+    skcfg, _ = build.build_model_cfg(cfg, types.SimpleNamespace(
+        num_frames=ZJU_FRAMES), (ZJU_HW, ZJU_HW))
+    rec, launches, loads = train_cli_on(
+        'cli_train_zju', CLI_ZJU, [f'dataset.root={tmp / "zju"}'],
+        ZJU_STEPS, 'load_zju', tmp / 'zju_out')
+    scene = loads[0]['scene']
+    Tv2w = written['Tv2w'][scene.camera_ids.cpu().numpy()]
+    cams_ok = bool(np.allclose(scene.Tw2v.cpu().numpy(),
+                               np.linalg.inv(Tv2w), atol=1e-4))
+    n_eval = loads[1]['views']
+    expected = expected_launches(ZJU_STEPS, n_eval)
+    logged = [json.loads(line) for line in (
+        tmp / 'zju_out' / cfg['exp_name'] / 'metrics.jsonl'
+    ).read_text().splitlines()]
+    rec.update({'hw': ZJU_HW, 'cameras': ZJU_CAMERAS, 'frames': ZJU_FRAMES,
+                'png_write_s': written['write_s'],
+                'is_blender': skcfg.net.is_blender,
+                'time_noise_scale': [smooth_scale(skcfg, s)
+                                     for s in range(1, ZJU_STEPS + 1)],
+                'overflow_logged': [bool(r.get('overflow', False))
+                                    for r in logged],
+                'cameras_as_written': cams_ok,
+                'expected_launches': expected})
+    emit(rec)
+    if skcfg.net.is_blender or not cams_ok or launches != expected:
+        raise AssertionError(f'cli_train_zju: is_blender '
+                             f'{skcfg.net.is_blender}, cameras {cams_ok}, '
+                             f'launches {launches} != {expected}')
+    return launches
+
+
+def phase_cli_train_options(tmp: Path, smoke_ms: dict) -> dict:
+    """``cli.train`` on configs/synthetic_smoke.yaml with Adan, two views
+    a step and bf16 nets (``CLI_OPTIONS``), its whole schedule, then
+    ``cli.test`` on its ``last.npz``: ms a step by stage beside the
+    one-view run's (``smoke_ms``), the results, #1 twice a step and once
+    a view of each render, #2 twice a step but the ``sk_init`` steps'."""
+    cfg = make_config(CLI_SMOKE, list(CLI_OPTIONS))
+    res, launches, secs = cli_run(cli_train.main, [
+        '-c', CLI_SMOKE, '--device', 'cuda', '--set', f'output_dir={tmp}',
+        f'dataset.root={tmp}', *CLI_OPTIONS])
+    out = tmp / cfg['exp_name']
+    check_results(json.loads((out / 'results.json').read_text()),
+                  CLI_TRAIN_KEYS, 'cli_train_options')
+    sched = cfg['train_schedule']
+    steps = sum(sched.values())
+    k = int(cfg['train']['batch_views'])
+    views = cfg['dataset']['num_frames']
+    evals = steps // cfg['train']['eval_interval'] + (
+        steps % cfg['train']['eval_interval'] > 0) + 1
+    expected = {tile_blend_fwd.name: k * steps + views * (1 + evals),
+                tile_blend_bwd.name: k * (steps - sched['sk_init']),
+                chunk_blend_fwd.name: 0, chunk_blend_bwd.name: 0}
+    by_stage = ms_by_stage(out)
+    tested, test_launches, test_s = cli_run(cli_test.main, [
+        '-c', str(out / 'config.yaml'), '--load',
+        str(out / 'checkpoints/last.npz'), '--device', 'cuda', '--out',
+        str(tmp / 'test_options.json')])
+    emit({'phase': 'cli_train_options', 'options': CLI_OPTIONS,
+          'seconds': secs, 'steps': steps, 'ms_per_step_by_stage': by_stage,
+          'ratio_to_one_view_by_stage': {
+              s: by_stage[s] / smoke_ms[s] for s in by_stage
+              if s in smoke_ms},
+          'results': res, 'launches': launches,
+          'expected_launches': expected, 'test_seconds': test_s,
+          'test': {k: tested[k] for k in ('PSNR', 'SSIM', 'FPS', 'stage',
+                                          'step')}})
+    check_results(tested, CLI_TEST_KEYS, 'cli_train_options test')
+    if launches != expected or tested['step'] != steps:
+        raise AssertionError(f'cli_train_options: launches {launches} != '
+                             f'{expected}')
+    return launches
+
+
 def phase_clis(sweep: bool) -> dict:
     """The CLI phases in one temporary directory; returns their launches
     by path."""
     with tempfile.TemporaryDirectory(prefix='chip_smoke_cli_') as d:
         tmp = Path(d)
         paths = {'cli_train': phase_cli_train_smoke(tmp / 'smoke')}
+        smoke_ms = ms_by_stage(tmp / 'smoke' / make_config(CLI_SMOKE)[
+            'exp_name'])
+        paths['cli_train_options'] = phase_cli_train_options(
+            tmp / 'options', smoke_ms)
         ckpt, paths['cli_test'] = phase_cli_test_fullscale(tmp / 'test',
                                                            sweep)
         paths['cli_repose'] = phase_cli_repose_fullscale(tmp / 'test', ckpt)
@@ -2916,6 +3536,7 @@ def phase_clis(sweep: bool) -> dict:
         paths['cli_train_dnerf_random'] = rnd['cli']
         paths['train_dynamic_bg'] = rnd['dynamic']
         paths['cli_train_wim'] = phase_cli_train_wim(tmp / 'data', train)
+        paths['cli_train_zju'] = phase_cli_train_zju(tmp / 'data', train)
     return paths
 
 
@@ -2976,6 +3597,13 @@ def main(argv=None) -> int:
     phase_grad_path_sp(sp_trainer, s_sp)
     phase_train_reference_sp(SEED)
 
+    # the trainer's options: card against CPU, the regularizers at full
+    # width, the bf16 nets
+    phase_train_reference_options(SEED)
+    sp_extras_launches = phase_sp_extras_train(cfg, rcfg, train)
+    init_reg_launches = phase_init_reg_train(cfg, init_rcfg, train)
+    init_bf16_launches = phase_init_bf16(cfg, init_rcfg, train)
+
     # the skeleton initialisation and the sk_init family
     phase_sk_init_event(cfg._replace(joint_init_steps=SK_EVENT_CUT), rcfg,
                         train)
@@ -3014,7 +3642,10 @@ def main(argv=None) -> int:
 
     paths = {'serve': serve_launches, 'train': train_launches,
              'train_init': init_launches, 'train_sp': sp_launches,
-             'train_sk_init': sk_init_launches, **cli_paths}
+             'train_sk_init': sk_init_launches,
+             'train_sp_extras': sp_extras_launches,
+             'train_init_reg': init_reg_launches,
+             'train_init_bf16': init_bf16_launches, **cli_paths}
     for row in rows:
         own = 'train_init' if row['name'].startswith('chunk') else 'train'
         row['launches'] = paths[own][row['name']]

@@ -8,9 +8,12 @@ sit under ``state/model/``, which is found and stripped here.
 
 Weights keep the JAX layout (linear ``w`` is [in, out]), so the skeleton
 net's leaves map one to one: ``params/sk_deform/layers/3/w`` ->
-``sk_deform.layers.3.w``. ``adam_from_flat`` reads a trainer checkpoint's
-Adam moments (``state/opt/mu/...``, ``state/opt/nu/...``,
-``state/opt/count``) and ``adam_to_flat`` writes them; ``model_to_flat``
+``sk_deform.layers.3.w``. ``optimizer_from_flat`` reads a trainer
+checkpoint's optimizer state in the JAX names (``state/opt/<field>/<leaf>``
+for each of the state's fields: Adam and AdamW ``mu`` / ``nu``, SGD ``mu``,
+Adan ``mu`` / ``delta`` / ``nu`` / ``prev_grad``; and
+``state/opt/count``) and ``optimizer_to_flat`` writes it;
+``model_to_flat``
 writes the port's model back in the JAX names. ``trainer_flags_from_flat``
 reads a trainer checkpoint's stage flags and the smooth loss's KNN
 (``state/flags/...``) as the JAX trainer's ``restore`` does, so that a run
@@ -23,7 +26,7 @@ Carried: every leaf of ``SKGSModel.leaves`` (the Gaussian and skeleton
 leaves, ``hyper``, ``sp_points``, ``sp_hyper`` and ``joint_pos`` when the
 arrays have them, the skeleton net, and the warp nets ``sp_deform`` and
 ``canonical`` under ``params/sp_deform/...`` and ``params/canonical/...``
-when present) and their Adam moments, the buffers the port reads
+when present) and their optimizer state, the buffers the port reads
 (``AUX_BUFFERS``) and the training state it updates (``STAT_BUFFERS``:
 ``max_radii2d``, ``xyz_grad_accum``, ``denom``, ``sk_cache``, ``sp_cache``,
 ``joint_cost``, ``p2sp``, the frozen LBS of the sk stages, ``sp_weights``
@@ -43,7 +46,7 @@ from torch import nn
 
 from .models.deform import (DeformNet, DeformNetConfig, SkeletonNetConfig,
                             skeleton_net)
-from .models.optim import AdamState
+from .models.optim import make_optimizer
 from .models.sk_gs import (AUX_BUFFERS, DEFORM_NETS, GAUSS_LEAVES, SK_LEAVES,
                            SP_LEAVES, STAT_BUFFERS, SKGSConfig, SKGSModel)
 from .ops.knn import live_knn_index
@@ -58,11 +61,15 @@ _BUFFER_DTYPES = {'alive': torch.bool, 'active_sh_degree': torch.int32,
 # the trainer's stage flags in a JAX ``ckpt_state()``
 TRAINER_FLAGS = ('sp_initialized', 'reinit_done', 'skeleton_initialized')
 # the port's own trainer state: the CPU generator of the split noise and of
-# the skeleton initialisation's frames, and a mark that the smooth loss's
-# KNN is the trainer's own (an all-zero one included, which the JAX
-# ``restore`` would rebuild as a checkpoint's that lacks it)
+# the skeleton initialisation's frames, the training device's generators of
+# the backgrounds, of the time noise and of the regularizers' draws, and a
+# mark that the smooth loss's KNN is the trainer's own (an all-zero one
+# included, which the JAX ``restore`` would rebuild as a checkpoint's that
+# lacks it)
 NOISE_GEN_KEY = 'port/noise_gen_state'
 BG_GEN_KEY = 'port/bg_gen_state'
+TIME_GEN_KEY = 'port/time_gen_state'
+REG_GEN_KEY = 'port/reg_gen_state'
 KNN_OWN_KEY = 'port/gs_knn_index_own'
 
 
@@ -125,23 +132,27 @@ def model_from_flat(flat: Mapping[str, np.ndarray], cfg: SKGSConfig,
                      **warp_nets)
 
 
-def adam_from_flat(flat: Mapping[str, np.ndarray],
-                   model: SKGSModel) -> AdamState:
-    """The Adam state of a trainer checkpoint for the leaves ``model``
+def optimizer_from_flat(flat: Mapping[str, np.ndarray], model: SKGSModel,
+                        optimizer: str):
+    """The state of the optimizer ``optimizer`` (a name of
+    ``optim.OPTIMIZERS``) in a trainer checkpoint, for the leaves ``model``
     holds, on the model's device."""
     if model_prefix(flat) != 'state/model/':
         raise KeyError('no trainer checkpoint (arrays under "state/model/")')
     leaves = {k: p.detach() for k, p in model.leaves().items()}
-    moments = {}
-    for moment in ('mu', 'nu'):
-        moments[moment] = {}
+    template = make_optimizer(optimizer)[0]({})
+    fields = {}
+    for field in template._fields:
+        if field == 'count':
+            fields[field] = int(np.asarray(flat['state/opt/count']))
+            continue
+        fields[field] = {}
         for name, p in leaves.items():
-            key = f'state/opt/{moment}/{name}'
+            key = f'state/opt/{field}/{name}'
             if key not in flat:
                 raise KeyError(f'missing optimizer array {key!r}')
-            moments[moment][name] = _tensor(flat[key], p.device)
-    return AdamState(mu=moments['mu'], nu=moments['nu'],
-                     count=int(np.asarray(flat['state/opt/count'])))
+            fields[field][name] = _tensor(flat[key], p.device)
+    return type(template)(**fields)
 
 
 def trainer_flags_from_flat(flat: Mapping[str, np.ndarray], cfg: SKGSConfig,
@@ -195,12 +206,12 @@ def model_to_flat(model: SKGSModel) -> Dict[str, np.ndarray]:
     return out
 
 
-def adam_to_flat(state: AdamState) -> Dict[str, np.ndarray]:
-    """``opt/mu/<leaf>``, ``opt/nu/<leaf>`` and ``opt/count`` (int32), as
-    the JAX ``AdamState`` flattens."""
-    out = {f'opt/{moment}/{k}': np.array(v.detach().cpu())
-           for moment, tree in (('mu', state.mu), ('nu', state.nu))
-           for k, v in tree.items()}
+def optimizer_to_flat(state) -> Dict[str, np.ndarray]:
+    """``opt/<field>/<leaf>`` for each per-leaf field of an optimizer state
+    and ``opt/count`` (int32), as the JAX state types flatten."""
+    out = {f'opt/{field}/{k}': np.array(v.detach().cpu())
+           for field in state._fields if field != 'count'
+           for k, v in getattr(state, field).items()}
     out['opt/count'] = np.asarray(state.count, np.int32)
     return out
 
@@ -212,25 +223,25 @@ def jax_key(seed: int) -> np.ndarray:
                       np.uint32)
 
 
-def trainer_state_to_flat(model: SKGSModel, opt_state: AdamState,
-                          flags: Mapping, gs_knn_index: torch.Tensor,
-                          noise_gen: torch.Generator,
-                          bg_gen: torch.Generator, seed: int
-                          ) -> Dict[str, np.ndarray]:
+def trainer_state_to_flat(model: SKGSModel, opt_state, flags: Mapping,
+                          gs_knn_index: torch.Tensor,
+                          generators: Mapping[str, torch.Generator],
+                          seed: int) -> Dict[str, np.ndarray]:
     """A trainer's state in the layout of the JAX trainer's ``ckpt_state()``
     (``model/...``, ``opt/...``, ``flags/...``: the three stage flags,
     ``best_psnr``, ``key`` and ``gs_knn_index``, in the JAX dtypes) and the
-    port's own keys (``port/...``). ``flags/key`` is the JAX key of
-    ``seed``: the port draws nothing from it."""
+    port's own keys (``port/...``: the state of each of ``generators``, by
+    its key). ``flags/key`` is the JAX key of ``seed``: the port draws
+    nothing from it."""
     out = {'model/' + k: v for k, v in model_to_flat(model).items()}
-    out.update(adam_to_flat(opt_state))
+    out.update(optimizer_to_flat(opt_state))
     for k in TRAINER_FLAGS:
         out['flags/' + k] = np.asarray(bool(flags[k]))
     out['flags/best_psnr'] = np.asarray(flags['best_psnr'], np.float32)
     out['flags/key'] = jax_key(seed)
     out['flags/gs_knn_index'] = np.array(gs_knn_index.cpu(), np.int32)
-    out[NOISE_GEN_KEY] = noise_gen.get_state().numpy().copy()
-    out[BG_GEN_KEY] = bg_gen.get_state().numpy().copy()
+    for key, gen in generators.items():
+        out[key] = gen.get_state().numpy().copy()
     out[KNN_OWN_KEY] = np.asarray(True)
     return out
 

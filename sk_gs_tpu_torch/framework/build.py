@@ -8,9 +8,11 @@ The YAML keys map one to one onto the same fields as in the JAX package.
 true) is the kernel on CUDA tensors and the plain version on CPU tensors,
 false the plain version everywhere.
 
-Refused, as the trainer refuses them: ``train.precision: bf16``, a
-``train.parallel`` mesh of more than one device, ``train.batch_views`` > 1
-and optimizers other than Adam. ``train.capacity_buckets``
+``train.precision`` bf16 (or bfloat16) computes the warp and skeleton nets
+in bfloat16 (``compute_dtype``), as the JAX package's ``train.py`` does;
+``train.optimizer`` and ``train.batch_views`` go to the trainer. Refused,
+as the trainer refuses it: a ``train.parallel`` mesh of more than one
+device. ``train.capacity_buckets``
 (recompile-driven capacity buckets, a TPU choice) is logged and ignored:
 a bucketed run and a padded one compute the same function.
 """
@@ -133,9 +135,7 @@ def build_model_cfg(cfg: Dict[str, Any], meta, image_size: Tuple[int, int]
     if ac:
         raise KeyError(f'unknown adaptive_control keys: {sorted(ac)}')
     precision = str(cfg['train'].get('precision', 'f32'))
-    if precision in ('bf16', 'bfloat16'):
-        raise NotImplementedError('train.precision bf16 is not ported (the '
-                                  'port computes in float32)')
+    cdt = 'bfloat16' if precision in ('bf16', 'bfloat16') else 'float32'
     net_cfg = m['net']
     depth = int(net_cfg.get('depth', 8))
     width = int(net_cfg.get('width', 256))
@@ -144,7 +144,7 @@ def build_model_cfg(cfg: Dict[str, Any], meta, image_size: Tuple[int, int]
         pos_degree=int(net_cfg.get('pos_degree', 10)),
         t_degree=int(net_cfg.get('t_degree', 6)),
         is_blender=bool(m.get('is_blender', True)),
-        sep_rot=bool(m.get('sep_rot', False)))
+        sep_rot=bool(m.get('sep_rot', False)), compute_dtype=cdt)
     which_rotation = str(m.get('which_rotation', 'quaternion'))
     r_dim = {'lie': 3, 'quaternion': 4}[which_rotation]
     sk_feature_dim = int(m.get('sk_feature_dim', 0))
@@ -156,7 +156,8 @@ def build_model_cfg(cfg: Dict[str, Any], meta, image_size: Tuple[int, int]
         net=net,
         sk_net=SkeletonNetConfig(
             out_dims=(r_dim, 4, 3), width=width, depth=depth,
-            skips=(max(1, depth // 2),), p_in_channels=3 + sk_feature_dim),
+            skips=(max(1, depth // 2),), p_in_channels=3 + sk_feature_dim,
+            compute_dtype=cdt),
         which_rotation=which_rotation,
         sk_feature_dim=sk_feature_dim,
         train_schedule=sched,
@@ -240,8 +241,9 @@ def build_sampler(cfg: Dict[str, Any], scene, skcfg: SKGSConfig):
 
 def trainer_options(cfg: Dict[str, Any]) -> Dict[str, Any]:
     """The ``SKGSTrainer`` keyword arguments of ``cfg['train']`` (seed,
-    gradient clipping, views a step, optimizer); refuses a device mesh and
-    logs that capacity buckets are not carried."""
+    gradient clipping, views a step, optimizer); refuses only a device mesh
+    of more than one device, and logs that capacity buckets are not
+    carried."""
     t = cfg['train']
     par = t.get('parallel') or {}
     n_dev = int(par.get('n_view', 1)) * int(par.get('n_gs', 1))

@@ -58,7 +58,7 @@ def capacity_of(path) -> int:
 
 def per_gaussian_keys(flat: Mapping[str, np.ndarray]) -> List[str]:
     """The keys of ``flat`` with one row per Gaussian slot: the model's
-    (under ``state/model/``), their Adam moments and the smooth loss's
+    (under ``state/model/``), their optimizer state and the smooth loss's
     KNN."""
     names = tuple('params/' + k for k in GAUSS_LEAVES) + PER_GAUSSIAN
     leaves = {n.split('/', 1)[1] for n in names if n.startswith('params/')}
@@ -67,7 +67,7 @@ def per_gaussian_keys(flat: Mapping[str, np.ndarray]) -> List[str]:
         rest = k.split('state/', 1)[-1]
         if rest.startswith('model/') and rest[len('model/'):] in names:
             out.append(k)
-        elif rest.startswith(('opt/mu/', 'opt/nu/')) and \
+        elif rest.startswith('opt/') and rest.count('/') >= 2 and \
                 rest.split('/', 2)[2] in leaves:
             out.append(k)
         elif rest == 'flags/gs_knn_index':

@@ -4,8 +4,8 @@ stage of the schedule).
 
 One step (``train_step``, ``trainer.py:1376-1436``) runs the stage events
 due before it, rebuilds the smooth loss's Gaussian KNN on its interval
-(``sp`` steps), samples a view with the step-keyed sampler, runs the step
-body (``_core``, single device, one view: ``trainer.py:595-984``), updates
+(``sp`` steps), samples ``batch_views`` views with the step-keyed sampler,
+runs the step body (``_core``, single device: ``trainer.py:595-984``), updates
 the joint tree on its interval (``sp`` steps), and then runs the adaptive
 control due after it. The body: the stage's deltas (none for ``static``;
 the ``sp_deform`` warp net for the ``init`` family, detached in
@@ -17,15 +17,26 @@ blend goes
 through ``TileBlend`` or ``ChunkBlend`` (the hand-written kernels on the
 card) by ``RasterConfig.schedule``, l1 (or mse) and SSIM image losses; for
 the ``sp`` family the LBS weights' sparsity and smoothness, the joint
-costs and the guided skeleton losses; for ``sk_init`` the image losses
-and the colours and opacities detached, and the skeleton's deltas held to
-the frozen LBS blend of the cached superpoint motion (``cmp_t``,
-``cmp_r``, ``cmp_s``); the canonical-net consistency
-``c_net`` (``init`` and ``sp``), ``backward``, non-finite gradient entries
-zeroed and counted (``n_bad_grad``), Adam with per-leaf learning rates, the
-densification statistics, and the per-frame cache row (``sp_cache`` or
-``sk_cache``), the ``p2sp`` assignment ('largest') and the joint cost's
-running mean.
+costs, the superpoint regularizers (``re_pos``, ``jp_dist``, ``sp_arap_t``,
+``sp_arap_ct``) and the guided skeleton losses; for ``sk_init`` the image
+losses and the colours and opacities detached, and the skeleton's deltas
+held to the frozen LBS blend of the cached superpoint motion (``cmp_t``,
+``cmp_r``, ``cmp_s``); the point ARAP ``arap_p`` (``init`` family); the
+motion regularizers ``elastic``, ``acc`` and ``arap`` on the warp net's
+trajectories of the superpoints (``sp``) or of ``num_superpoints`` random
+live Gaussians (``init``); the canonical-net consistency ``c_net``
+(``init`` and ``sp``); ``backward``. Each loss is computed only when its
+weight is ever non-zero, as the JAX step builds it. With ``batch_views`` K
+> 1 the body runs K forwards and backwards, each on its own view,
+background and time noise, and divides the summed loss, parameter
+gradients and means2d gradient by K (``trainer.py:866-893``). Then, once:
+non-finite gradient entries zeroed and counted (``n_bad_grad``), the
+optimizer (``optimizer``: 'adam', 'adamw', 'sgd' or 'adan', per-leaf
+learning rates), the densification statistics of the K views (any seen,
+max radius, summed count), the per-frame cache rows of the K frames
+(``sp_cache`` or ``sk_cache``), the ``p2sp`` assignment of the last view
+('largest') and the joint cost's running mean of the mean of the K costs;
+the metrics are means over the K views (max / any for the counts).
 
 Stage events (``maybe_stage_events``, ``trainer.py:1061-1155``): the
 superpoint initialisation before ``init_sampling_step``, the restart from
@@ -54,11 +65,15 @@ set, is called with 'init.npz' after the restart from the point cloud and
 with 'sk_init.npz' after the skeleton initialisation. ``evaluate`` scores a
 split (``framework.evaluate.split_metrics``).
 
-Not ported, and raising ``NotImplementedError``: the ``elastic``, ``acc``,
-``arap`` and ``arap_p`` losses and the ``sp`` extras ``re_pos``,
-``jp_dist``, ``sp_arap_t`` and ``sp_arap_ct`` (zero in the default
-weights); the time noise of nets that are not ``is_blender``;
-``batch_views > 1``, a device mesh, optimizers other than Adam.
+Random draws come from the trainer's generators, on the training device
+(no host sync) and carried in the checkpoint: ``time_gen``, the standard
+normal time noise of a net that is not ``is_blender`` (``init`` and ``sp``
+families, one draw a view: ``sk_gs.noisy_time``; ``draw_time_noise``);
+``reg_gen``, the uniforms of the motion regularizers, drawn once a step and
+shared by its views as the JAX step shares its key (the init family's
+random live rows, the times of ``elastic`` and ``arap``:
+``regularizer_draws``). Not ported, and raising ``NotImplementedError``: a
+device mesh.
 
 RGBA targets (the background types of ``data.base.DYNAMIC_BG``): each step
 composites the target and the render over one background
@@ -82,21 +97,23 @@ from ..data.sampler import UniformSampler
 from ..models.gaussian_splatting import (densify_and_prune, expon_lr,
                                          gaussian_inputs, ndc_grad_norm,
                                          reset_opacity)
+from ..models import regularizers as reg
 from ..models import sk_gs_ops
-from ..models.deform import skeleton_net_apply
+from ..models.deform import deform_net_apply, skeleton_net_apply
 from ..models.losses import (LossWeights, l1_loss, masked_mean, mse_loss,
                              psnr, ssim_loss)
-from ..models.optim import AdamState, adam_init, adam_update
+from ..models.optim import make_optimizer
 from ..models.sk_gs import (DEFORM_NETS, SK_STAGES, SKGSConfig, SKGSModel,
                             forward_deltas, init_stage, skeleton_net_input,
-                            sk_rot_activation, sp_stage, split_sp_cache,
-                            take_frame)
-from ..models.superpoints import (blend_attr, dense_lbs_rows,
-                                  warp_blend_dense, warp_points)
+                            sk_rot_activation, smooth_scale, sp_stage,
+                            split_sp_cache, take_frame)
+from ..models.superpoints import (blend_attr, calc_lbs_weight,
+                                  dense_lbs_rows, get_superpoint_features,
+                                  masked_knn, warp_blend_dense, warp_points)
 from ..models.skeleton import (joint_cost_matrix, kinematic_transforms,
                                update_joint)
 from ..ops import se3
-from ..ops.knn import live_knn_index
+from ..ops.knn import knn, live_knn_index
 from ..render.render import composite_background, render
 from ..render.settings import GaussianInputs, RasterConfig
 from .evaluate import render_eval, split_metrics
@@ -114,12 +131,16 @@ DEFAULT_LOSS = {'image': {'method': 'l1', 'lambda': 0.8}, 'ssim': 0.2,
                 'sparse': 0.1, 'smooth': 0.1, 'joint': 1.0,
                 'joint_all': 1.0, 'c_net': 1.0, 'cmp_p': 1.0, 'cmp_t': 0.01,
                 'cmp_r': 0.01, 'cmp_s': 0.01}
-# losses of the init and sp families the port does not compute
-UNPORTED_INIT_LOSSES = ('elastic', 'acc', 'arap', 'arap_p')
-UNPORTED_SP_LOSSES = ('elastic', 'acc', 'arap', 're_pos', 'jp_dist',
-                      'sp_arap_t', 'sp_arap_ct')
 # losses gated to 0 before joint_update_interval[1] (trainer.py:1395-1401)
 JOINT_LOSSES = ('joint', 'joint_all', 'jp_dist')
+# the motion regularizers of the init and sp families (trainer.py:508-556)
+MOTION_LOSSES = ('elastic', 'acc', 'arap')
+# the sp family's superpoint regularizers (trainer.py:429-472)
+SP_EXTRA_LOSSES = ('re_pos', 'jp_dist', 'sp_arap_t', 'sp_arap_ct')
+# the time samples of elastic and arap, and the neighbours of arap's graph
+ELASTIC_SAMPLES = 8
+ARAP_SAMPLES = 2
+ARAP_KNN = 10
 
 
 def smooth_loss(w: torch.Tensor, index: torch.Tensor, alive: torch.Tensor
@@ -153,8 +174,10 @@ class SKGSTrainer:
 
     ``model`` must be trainable (``convert.model_from_flat(...,
     trainable=True)`` or ``sk_gs.init_model``); it and ``scene`` are moved
-    to ``device`` (CUDA unless asked otherwise). ``opt_state`` resumes Adam
-    (``convert.adam_from_flat``); fresh moments otherwise. ``pcd`` =
+    to ``device`` (CUDA unless asked otherwise). ``optimizer`` names an
+    entry of ``optim.OPTIMIZERS``; ``opt_state`` resumes its state
+    (``convert.optimizer_from_flat``), fresh otherwise. ``batch_views``
+    views are averaged a step. ``pcd`` =
     (points, colours) is the point cloud of the restart before ``sp_fix``.
     The flags ``sp_initialized``, ``reinit_done`` and
     ``skeleton_initialized`` mean what the JAX trainer's do: a trainer
@@ -178,20 +201,20 @@ class SKGSTrainer:
                  loss_weights: Optional[LossWeights] = None, sampler=None,
                  seed: int = 0, clip_norm: float = 0.0,
                  batch_views: int = 1, optimizer: str = 'adam', mesh=None,
-                 opt_state: Optional[AdamState] = None,
+                 opt_state=None,
                  pcd: Optional[Tuple[np.ndarray, np.ndarray]] = None,
                  gs_knn_index: Optional[torch.Tensor] = None,
                  sp_initialized: bool = False, reinit_done: bool = False,
                  skeleton_initialized: bool = False,
                  eval_scene: Optional[Scene] = None, device='cuda'):
-        if batch_views != 1:
-            raise NotImplementedError('batch_views > 1 is not ported yet')
         if mesh is not None:
             raise NotImplementedError('training on a device mesh is not '
                                       'ported yet')
-        if optimizer != 'adam':
-            raise NotImplementedError(f'optimizer {optimizer!r} is not ported '
-                                      "yet (only 'adam')")
+        if batch_views < 1:
+            raise ValueError(f'batch_views {batch_views} < 1')
+        self.opt_init, self.opt_update = make_optimizer(optimizer)
+        self.optimizer = optimizer
+        self.batch_views = batch_views
         self.device = resolve_device(device)
         self.cfg = cfg
         self.rcfg = rcfg
@@ -207,7 +230,7 @@ class SKGSTrainer:
         self.loss_w = loss_weights or LossWeights(DEFAULT_LOSS)
         self.sampler = sampler or UniformSampler(scene.num_views, seed)
         self.clip_norm = clip_norm
-        self.opt_state = opt_state or adam_init(
+        self.opt_state = opt_state or self.opt_init(
             {k: p.detach() for k, p in leaves.items()})
         self.seed = seed
         self.noise_gen = torch.Generator().manual_seed(seed)
@@ -216,8 +239,11 @@ class SKGSTrainer:
             bg = np.ones(3, np.float32) if meta.background_type == 'white' \
                 else np.zeros(3, np.float32)
         self.bg = torch.as_tensor(bg, dtype=torch.float32).to(self.device)
-        # the backgrounds of RGBA targets, drawn on the device
+        # the backgrounds of RGBA targets, the time noise and the
+        # regularizers' uniforms, drawn on the device
         self.bg_gen = torch.Generator(self.device).manual_seed(seed)
+        self.time_gen = torch.Generator(self.device).manual_seed(seed + 1)
+        self.reg_gen = torch.Generator(self.device).manual_seed(seed + 2)
         self.step = 0
         self.best_psnr = -1.0
         self.snapshot_fn: Optional[Callable[[str], None]] = None
@@ -238,30 +264,38 @@ class SKGSTrainer:
     def ckpt_state(self) -> Dict[str, np.ndarray]:
         """A copy of the whole state as numpy arrays in the layout of the
         JAX trainer's ``ckpt_state()`` (``model/...``, ``opt/...``,
-        ``flags/...``), plus the port's noise and background generators
-        (``port/...``)."""
+        ``flags/...``), plus the port's generators (``port/...``)."""
         flags = {'skeleton_initialized': self.skeleton_initialized,
                  'sp_initialized': self.sp_initialized,
                  'reinit_done': self.reinit_done,
                  'best_psnr': self.best_psnr}
         return convert.trainer_state_to_flat(
             self.model, self.opt_state, flags, self.gs_knn_index,
-            self.noise_gen, self.bg_gen, self.seed)
+            self.generators(), self.seed)
+
+    def generators(self) -> Dict[str, torch.Generator]:
+        """The trainer's generators by their checkpoint keys."""
+        return {convert.NOISE_GEN_KEY: self.noise_gen,
+                convert.BG_GEN_KEY: self.bg_gen,
+                convert.TIME_GEN_KEY: self.time_gen,
+                convert.REG_GEN_KEY: self.reg_gen}
 
     def restore(self, flat: Mapping[str, np.ndarray], step: int):
         """Resume from a checkpoint's arrays (``framework.checkpoint.load``;
         written by either package) taken after step ``step``, as the JAX
         trainer's ``restore`` does: the model at the checkpoint's capacity,
-        Adam (fresh moments when the checkpoint has none), the stage flags
-        OR-ed with what the schedule implies at ``step``, ``best_psnr``, and
-        the smooth loss's KNN (rebuilt when a JAX checkpoint's is all zeros
-        inside ``sp_fix`` / ``sp``: ``convert.trainer_flags_from_flat``);
-        the port's noise generator when the checkpoint has it."""
+        the optimizer's state (fresh when the checkpoint has none), the
+        stage flags OR-ed with what the schedule implies at ``step``,
+        ``best_psnr``, and the smooth loss's KNN (rebuilt when a JAX
+        checkpoint's is all zeros inside ``sp_fix`` / ``sp``:
+        ``convert.trainer_flags_from_flat``); the port's generators when
+        the checkpoint has them."""
         self.model = convert.model_from_flat(flat, self.cfg, self.rcfg,
                                              self.device, trainable=True)
         leaves = {k: p.detach() for k, p in self.model.leaves().items()}
-        self.opt_state = convert.adam_from_flat(flat, self.model) \
-            if 'state/opt/count' in flat else adam_init(leaves)
+        self.opt_state = convert.optimizer_from_flat(
+            flat, self.model, self.optimizer) \
+            if 'state/opt/count' in flat else self.opt_init(leaves)
         kw = convert.trainer_flags_from_flat(flat, self.cfg, step,
                                              self.device)
         for k in convert.TRAINER_FLAGS:
@@ -273,8 +307,7 @@ class SKGSTrainer:
             if index is None else index.to(self.device, torch.int64)
         if 'state/flags/best_psnr' in flat:
             self.best_psnr = float(flat['state/flags/best_psnr'])
-        for gen, key in ((self.noise_gen, convert.NOISE_GEN_KEY),
-                         (self.bg_gen, convert.BG_GEN_KEY)):
+        for key, gen in self.generators().items():
             state = flat.get('state/' + key)
             if state is None:
                 continue
@@ -362,21 +395,8 @@ class SKGSTrainer:
             m.active_sh_degree.add_(1)
 
     def family(self, stage: str) -> str:
-        """The step family of ``stage``; raises where its losses are not
-        ported."""
-        family = FAMILY[stage]
-        unported = {'init': UNPORTED_INIT_LOSSES,
-                    'sp': UNPORTED_SP_LOSSES}.get(family)
-        if unported:
-            if not self.cfg.net.is_blender:
-                raise NotImplementedError(
-                    'the time noise of nets that are not is_blender '
-                    '(smooth_scale) is not ported yet')
-            bad = [n for n in unported if self.loss_w.ever_nonzero(n)]
-            if bad:
-                raise NotImplementedError(f'the {family}-family losses {bad} '
-                                          'are not ported yet')
-        return family
+        """The step family of ``stage``."""
+        return FAMILY[stage]
 
     def maybe_stage_events(self, step: int):
         """The stage events due before step ``step`` (``trainer.py:
@@ -493,8 +513,8 @@ class SKGSTrainer:
         self.update_sh_degree(step)
         if stage == 'sp':
             self.update_gs_knn(step)
-        idx = self.sampler.sample(step)
-        metrics = self._step(stage, idx, self.lr_trees(step), step)
+        idxs = [self.sampler.sample(step) for _ in range(self.batch_views)]
+        metrics = self._step(stage, idxs, self.lr_trees(step), step)
         event = {}
         if stage == 'sp' and check_interval_v2(
                 step, *cfg.joint_update_interval, close='[)'):
@@ -517,16 +537,47 @@ class SKGSTrainer:
             return 0.0
         return self.loss_w.w(name)
 
+    def draw_time_noise(self) -> torch.Tensor:
+        """A standard normal 0-d draw of ``time_gen`` on the device."""
+        return torch.randn((), generator=self.time_gen, device=self.device)
+
+    def draw_uniform(self, n: int) -> torch.Tensor:
+        """n uniform draws in [0, 1) of ``reg_gen`` on the device."""
+        return torch.rand(n, generator=self.reg_gen, device=self.device)
+
+    def regularizer_draws(self, family: str) -> Optional[Dict]:
+        """The motion regularizers' draws of one step (``trainer.py:
+        516-550``), None when none has weight: the init family's uniform
+        per capacity row ('rows'), elastic's ('elastic') and arap's
+        ('arap') time samples, in that order, each when it is used."""
+        lw = self.loss_w
+        if family not in ('init', 'sp') or not any(
+                lw.ever_nonzero(n) for n in MOTION_LOSSES):
+            return None
+        draws = {}
+        if family == 'init':
+            draws['rows'] = self.draw_uniform(self.model.alive.shape[0])
+        if lw.ever_nonzero('elastic'):
+            draws['elastic'] = self.draw_uniform(ELASTIC_SAMPLES)
+        if lw.ever_nonzero('arap'):
+            draws['arap'] = self.draw_uniform(ARAP_SAMPLES)
+        return draws
+
     def _losses(self, stage: str, idx: int, m2d_off: torch.Tensor,
-                step: Optional[int] = None):
+                step: Optional[int] = None, draws: Optional[Dict] = None):
         """Forward from the deltas to the losses for view ``idx`` at step
-        ``step`` (the step gates ``c_net``; ``self.step + 1`` when None):
-        returns (losses, deltas, render outputs, composited image, target).
-        An RGBA target and the render are composited over the step's
-        background (``trainer.py:626-640, 704-705``)."""
+        ``step`` (the step gates the weights and sets the time noise's
+        scale; ``self.step + 1`` when None): returns (losses, deltas,
+        render outputs, composited image, target). An RGBA target and the
+        render are composited over the view's background
+        (``trainer.py:626-640, 704-705``); a net that is not ``is_blender``
+        warps at a noisy time (one ``draw_time_noise`` a view). ``draws``
+        are the step's ``regularizer_draws`` (drawn here when None)."""
         cfg, model, scene = self.cfg, self.model, self.scene
         family = self.family(stage)
         step = self.step + 1 if step is None else step
+        if draws is None:
+            draws = self.regularizer_draws(family)
         image, bg = scene.images[idx], self.bg
         if image.shape[-1] == 4:
             bg = sample_background(self.meta.background_type, self.bg_gen,
@@ -535,8 +586,15 @@ class SKGSTrainer:
                                    reference_rgb=image[..., :3])
             alpha = image[..., 3:4]
             image = image[..., :3] * alpha + bg * (1.0 - alpha)
-        d = forward_deltas(cfg, model, scene.times[idx], stage,
-                           time_id=scene.time_ids[idx], training=True)
+        noise, noise_scale = None, 0.0
+        if family in ('init', 'sp') and not cfg.net.is_blender:
+            noise_scale = smooth_scale(cfg, step)
+            if noise_scale > 0:
+                noise = self.draw_time_noise()
+        t = scene.times[idx]
+        d = forward_deltas(cfg, model, t, stage, time_id=scene.time_ids[idx],
+                           training=True, noise=noise,
+                           noise_scale=noise_scale)
         g = self.render_inputs(family, d)
         out = render(g, scene.view(idx), self.rcfg,
                      active_sh_degree=model.active_sh_degree,
@@ -547,16 +605,20 @@ class SKGSTrainer:
         losses = {'rgb': self.loss_w.w('image') * img_loss(img, image),
                   'ssim': self.loss_w.w('ssim') * ssim_loss(img, image)}
         if family == 'sp':
-            losses.update(self.sp_losses(d, scene.times[idx], step))
+            losses.update(self.sp_losses(d, t, step))
         if family == 'sk_init':
             losses = {k: v.detach() for k, v in losses.items()}
             losses.update(self.sk_init_losses(d, scene.time_ids[idx], step))
+        if family == 'init' and self.loss_w.ever_nonzero('arap_p'):
+            losses['arap_p'] = self.loss_weight('arap_p', step) \
+                * self.points_arap(d)
+        if draws is not None:
+            losses.update(self.motion_reg_losses(family, t, draws, step))
         if family in ('init', 'sp') and cfg.use_canonical_net \
                 and self.loss_w.ever_nonzero('c_net'):
             points_out = model.params['xyz'] + d.d_xyz
-            c_net = self.cnet_loss(scene.times[idx], points_out) \
-                if family == 'init' else \
-                self.cnet_loss_sp(scene.times[idx], points_out, d.aux)
+            c_net = self.cnet_loss(t, points_out) if family == 'init' else \
+                self.cnet_loss_sp(t, points_out, d.aux)
             losses['c_net'] = self.loss_weight('c_net', step) * c_net
         return losses, d, out, img, image
 
@@ -568,9 +630,10 @@ class SKGSTrainer:
         ``gs_knn_index`` (``smooth``, autograd of the plain form), the
         joint costs (``joint`` over the tree's edges, ``joint_all`` over
         every live pair; the superpoint transforms detached with
-        ``sp_guided_detach``), and, when they have weight, the guided
-        skeleton losses ``g_cmp_*``. The cost matrix goes into ``d.aux``
-        as 'joint_cost_now' for the running mean."""
+        ``sp_guided_detach``), and, when they have weight, the superpoint
+        regularizers (``sp_extra_losses``) and the guided skeleton losses
+        ``g_cmp_*``. The cost matrix goes into ``d.aux`` as
+        'joint_cost_now' for the running mean."""
         cfg, model = self.cfg, self.model
         params = model.params
         lw = lambda name: self.loss_weight(name, step)
@@ -597,10 +660,133 @@ class SKGSTrainer:
         out['joint_all'] = lw('joint_all') * masked_mean(
             cost_f, sp_alive[:, None] & sp_alive[None, :])
         d.aux['joint_cost_now'] = cost_f.detach()
+        if any(self.loss_w.ever_nonzero(n) for n in SP_EXTRA_LOSSES):
+            out.update(self.sp_extra_losses(d, a, b, is_root, step))
         if cfg.guided_step_start >= 0 and any(
                 self.loss_w.ever_nonzero(n) for n in ('cmp_t', 'cmp_r',
                                                       'cmp_s')):
             out.update(self.guided_losses(d, t, step))
+        return out
+
+    def sp_extra_losses(self, d, a: torch.Tensor, b: torch.Tensor,
+                        is_root: torch.Tensor, step: int
+                        ) -> Dict[str, torch.Tensor]:
+        """The sp family's superpoint regularizers (``trainer.py:429-472``),
+        each when its weight is ever non-zero (``sp_arap_t`` and
+        ``sp_arap_ct`` together): ``re_pos``, each live superpoint's
+        warped position against the LBS-weighted mean of its warped
+        Gaussians (``get_superpoint_features``); ``jp_dist``, each joint
+        pivot ``joint_pos[a, b]`` warped by its parent b against both ends'
+        warped (detached) superpoints, the root and dead superpoints left
+        out; ``sp_arap_t``, the SE3 log of each superpoint's transform
+        relative to its ``sk_knn_num`` nearest live neighbours' (canonical
+        KNN), and ``sp_arap_ct``, the change of their squared distances."""
+        cfg, model = self.cfg, self.model
+        params = model.params
+        lw = lambda name: self.loss_weight(name, step)
+        ever = self.loss_w.ever_nonzero
+        spT = d.aux['spT']
+        sp_pts = params['sp_points'][..., :3]
+        alive = model.sp_alive
+        out = {}
+        if ever('re_pos'):
+            points_t = params['xyz'] + d.d_xyz
+            re_sp = get_superpoint_features(points_t, d.aux['knn_i'],
+                                            d.aux['knn_w'],
+                                            cfg.num_superpoints)
+            sp_t = se3.se3_act(spT, sp_pts)
+            out['re_pos'] = lw('re_pos') * masked_mean(
+                torch.square(sp_t - re_sp), alive[:, None])
+        if ever('jp_dist'):
+            sp_t = se3.se3_act(spT, sp_pts).detach()
+            joints_w = se3.se3_act(spT[b], params['joint_pos'][a, b])
+            mask_j = (alive & ~is_root)[:, None]
+            out['jp_dist'] = lw('jp_dist') * (
+                masked_mean(torch.square(joints_w - sp_t[a]), mask_j)
+                + masked_mean(torch.square(joints_w - sp_t[b]), mask_j))
+        if ever('sp_arap_t') or ever('sp_arap_ct'):
+            sp_c = sp_pts.detach()
+            _, nn = masked_knn(sp_c, sp_c, alive, cfg.sk_knn_num + 1)
+            nn = nn[:, 1:].to(torch.int64)                # self dropped
+            rel = se3.se3_mul(se3.se3_inv(spT[:, None]), spT[nn])
+            pair_alive = alive[:, None] & alive[nn]
+            out['sp_arap_t'] = lw('sp_arap_t') * masked_mean(torch.sqrt(
+                torch.sum(torch.square(se3.se3_log(rel)), -1) + 1e-12),
+                pair_alive)
+            sp_t = se3.se3_act(spT, sp_c)
+            d_c = torch.sum(torch.square(sp_c[:, None] - sp_c[nn]), -1)
+            d_t = torch.sum(torch.square(sp_t[:, None] - sp_t[nn]), -1)
+            out['sp_arap_ct'] = lw('sp_arap_ct') * masked_mean(
+                torch.abs(d_c - d_t), pair_alive)
+        return out
+
+    def points_arap(self, d) -> torch.Tensor:
+        """The point ARAP of the init family (``trainer.py:800-823``): the
+        squared distances of each live Gaussian to its ``gs_knn_num``
+        nearest warped live Gaussians (KNN over the whole capacity, dead
+        rows pushed 1e6 away, detached) kept through the warp."""
+        model = self.model
+        xyz, alive = model.params['xyz'], model.alive
+        pts_t = xyz + d.d_xyz
+        with torch.no_grad():
+            far = torch.where(alive[:, None], pts_t, pts_t + 1e6)
+            _, nn = knn(far, far, self.gs_knn_num + 1)
+        return reg.points_arap_loss(xyz, pts_t, nn[:, 1:], alive)
+
+    def motion_reg_losses(self, family: str, t: torch.Tensor, draws: Dict,
+                          step: int) -> Dict[str, torch.Tensor]:
+        """``elastic``, ``acc`` and ``arap`` (``trainer.py:508-556``), each
+        when its weight is ever non-zero, on the ``sp_deform`` net's
+        trajectories of the (detached) superpoints, or in the init family
+        of ``num_superpoints`` live Gaussians picked by the smallest of
+        ``draws['rows']`` (dead rows + 1e9). ``elastic``: the edge-length
+        variance over 8 times uniform in t +- dt / 2 on the 2 nearest
+        nodes in (xyz, sp_hyper) space; ``acc``: the acceleration at (t -
+        3 dt, t, t + 3 dt); ``arap``: the ARAP energy between 2 such times
+        on a 10-NN graph of the first. The warp net runs once over all the
+        times of a loss (a [times x M] batch)."""
+        cfg, model = self.cfg, self.model
+        params = model.params
+        lw = lambda name: self.loss_weight(name, step)
+        ever = self.loss_w.ever_nonzero
+        if family == 'init':
+            r = draws['rows'] + torch.where(model.alive, 0.0, 1e9)
+            idx = torch.argsort(r, stable=True)[:cfg.num_superpoints]
+            sp_pts = params['xyz'].detach()[idx]
+            mask = model.alive[idx]
+        else:
+            sp_pts = params['sp_points'][..., :3].detach()
+            mask = model.sp_alive
+        m, dt = sp_pts.shape[0], cfg.time_interval
+        tq = t.reshape(())
+
+        def warp_at(ts: torch.Tensor) -> torch.Tensor:        # [S, M, 3]
+            s = ts.shape[0]
+            x = sp_pts.repeat(s, 1)
+            out = deform_net_apply(model.sp_deform, cfg.net, x,
+                                   ts.repeat_interleave(m)[:, None])
+            return out['d_xyz'].reshape(s, m, 3) + sp_pts
+
+        out = {}
+        if ever('elastic'):
+            ts = draws['elastic'] * dt + tq - 0.5 * dt
+            nodes_t = warp_at(ts).transpose(0, 1)               # [M, S, 3]
+            w_e, idx_e = calc_lbs_weight(
+                sp_pts, sp_pts, mask, 3, 'dist', hyper=params['sp_hyper'],
+                sp_hyper=params['sp_hyper'])
+            out['elastic'] = lw('elastic') * reg.elastic_loss(
+                nodes_t, idx_e[:, 1:], w_e[:, 1:])
+        if ever('acc'):
+            dt3 = 3.0 * dt
+            nodes3 = warp_at(torch.stack([tq - dt3, tq, tq + dt3]))
+            out['acc'] = lw('acc') * reg.acc_loss(nodes3.transpose(0, 1),
+                                                  mask.to(torch.float32))
+        if ever('arap'):
+            ts = draws['arap'] * dt + tq - 0.5 * dt
+            nodes_seq = warp_at(ts)
+            nn_idx, w_a, _ = reg.arap_connectivity(nodes_seq[0], mask,
+                                                   k=ARAP_KNN)
+            out['arap'] = lw('arap') * reg.arap_error(nodes_seq, nn_idx, w_a)
         return out
 
     def guided_losses(self, d, t: torch.Tensor, step: int
@@ -721,13 +907,39 @@ class SKGSTrainer:
         return masked_mean(torch.square(points_t - points_out.detach()),
                            model.alive[:, None])
 
-    def _step(self, stage: str, idx: int, lrs: Dict[str, float],
+    def _step(self, stage: str, idxs, lrs: Dict[str, float],
               step: Optional[int] = None) -> Dict[str, torch.Tensor]:
+        """The forward and backward of each view of ``idxs``, the gradients
+        summed into the leaves and the means2d offset, then ``_update``."""
+        family = FAMILY[stage]
         m2d_off = self.zero_grads()
-        fwd = self._losses(stage, idx, m2d_off, step)
-        total = sum(fwd[0].values())
-        total.backward()
-        return self._update(FAMILY[stage], idx, lrs, total, fwd, m2d_off)
+        draws = self.regularizer_draws(family)
+        views = []
+        for idx in idxs:
+            losses, d, out, img, target = self._losses(stage, idx, m2d_off,
+                                                       step, draws)
+            total = sum(losses.values())
+            total.backward()
+            views.append(self._view_record(family, idx, total, losses, d,
+                                           out, img, target))
+        return self._update(family, lrs, views, m2d_off)
+
+    def _view_record(self, family: str, idx: int, total: torch.Tensor,
+                     losses, d, out, img, target) -> Dict:
+        """What ``_update`` reads of one view's forward, detached."""
+        alive = self.model.alive
+        rec = {'loss': total.detach(),
+               'losses': {k: v.detach() for k, v in losses.items()},
+               'psnr': psnr(img, target), 'radii': out['radii'],
+               'overflow': out['overflow'], 'num_pairs': out['num_pairs'],
+               'n_vis': torch.sum((out['radii'] > 0) & alive),
+               'dxyz_max': torch.amax(torch.abs(torch.where(
+                   alive[:, None], d.d_xyz, torch.zeros_like(d.d_xyz)))),
+               'time_id': self.scene.time_ids[idx]}
+        for key in ('cache_row', 'p2sp', 'joint_cost_now'):
+            if key in d.aux:
+                rec[key] = d.aux[key].detach()
+        return rec
 
     def zero_grads(self) -> torch.Tensor:
         """Clear the leaves' gradients; returns a fresh zero means2d offset
@@ -738,16 +950,17 @@ class SKGSTrainer:
                            requires_grad=True)
 
     @torch.no_grad()
-    def _update(self, family: str, idx: int, lrs: Dict[str, float],
-                total: torch.Tensor, fwd, m2d_off: torch.Tensor
-                ) -> Dict[str, torch.Tensor]:
-        """After the backward of a ``family`` step: sanitise the gradients,
-        Adam, statistics, the cache row (``sp_cache`` for the ``sp`` family,
-        ``sk_cache`` for ``sk``), the ``sp`` family's ``p2sp`` ('largest')
-        and joint cost mean, and the metrics."""
-        losses, d, out, img, target = fwd
+    def _update(self, family: str, lrs: Dict[str, float], views,
+                m2d_off: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """After the backward of the K views ``views`` of a ``family``
+        step: the gradients divided by K, sanitised, the optimizer, the
+        statistics, the cache rows (``sp_cache`` for the ``sp`` family,
+        ``sk_cache`` for ``sk``, in view order), the ``sp`` family's
+        ``p2sp`` of the last view ('largest') and joint cost mean, and the
+        metrics."""
         model = self.model
         leaves = model.leaves()
+        k = len(views)
         # a degenerate splat can give a non-finite gradient entry: zero the
         # entries, count them, keep every healthy gradient
         n_bad = torch.zeros((), dtype=torch.int64, device=self.device)
@@ -756,52 +969,61 @@ class SKGSTrainer:
                 # a leaf this family does not read steps on a zero gradient,
                 # as in the JAX package's dense gradient trees
                 p.grad = torch.zeros_like(p)
-            else:
-                bad = ~torch.isfinite(p.grad)
-                n_bad += bad.sum()
-                p.grad.masked_fill_(bad, 0.0)
-        grads = {k: p.grad for k, p in leaves.items()}
-        self.opt_state = adam_update(grads, self.opt_state, leaves, lrs,
-                                     clip_norm=self.clip_norm)
+                continue
+            if k > 1:
+                p.grad.div_(k)
+            bad = ~torch.isfinite(p.grad)
+            n_bad += bad.sum()
+            p.grad.masked_fill_(bad, 0.0)
+        grads = {name: p.grad for name, p in leaves.items()}
+        self.opt_state = self.opt_update(grads, self.opt_state, leaves, lrs,
+                                         clip_norm=self.clip_norm)
         # sk_init has no image gradient: its statistics take a zero one
-        self._stats_update(out['radii'], torch.zeros_like(m2d_off)
-                           if m2d_off.grad is None else m2d_off.grad)
-        tid = self.scene.time_ids[idx]
+        m2d_grad = torch.zeros_like(m2d_off) if m2d_off.grad is None \
+            else m2d_off.grad / k
+        self._stats_update([v['radii'] for v in views], m2d_grad)
+        cache = {'sp': model.sp_cache, 'sk': model.sk_cache}.get(family)
+        if cache is not None:
+            for v in views:
+                cache.index_copy_(0, v['time_id'].reshape(1).to(torch.int64),
+                                  v['cache_row'][None])
         if family == 'sp':
-            model.sp_cache[tid] = d.aux['cache_row']
             if self.cfg.warp_method == 'largest':
-                model.p2sp.copy_(d.aux['p2sp'])
+                model.p2sp.copy_(views[-1]['p2sp'])
             mom = self.cfg.sk_momentum
-            model.joint_cost.copy_(model.joint_cost * mom
-                                   + d.aux['joint_cost_now'] * (1 - mom))
-        elif family == 'sk':
-            model.sk_cache[tid] = d.aux['cache_row']
-        alive = model.alive
+            cost = torch.stack([v['joint_cost_now'] for v in views]).sum(0) / k
+            model.joint_cost.copy_(model.joint_cost * mom + cost * (1 - mom))
+        mean = lambda xs: torch.stack(xs).sum(0) / k
         return {
-            'loss': total.detach(),
-            'psnr': psnr(img, target),
-            'overflow': out['overflow'],
-            'num_pairs': out['num_pairs'],
-            'n_vis': torch.sum((out['radii'] > 0) & alive),
+            'loss': mean([v['loss'] for v in views]),
+            'psnr': mean([v['psnr'] for v in views]),
+            'overflow': torch.stack([v['overflow'] for v in views]).any(),
+            'num_pairs': torch.stack([v['num_pairs'] for v in views]).amax(),
+            'n_vis': torch.stack([v['n_vis'] for v in views]).amax(),
             'n_bad_grad': n_bad,
-            'dxyz_max': torch.amax(torch.abs(torch.where(
-                alive[:, None], d.d_xyz, torch.zeros_like(d.d_xyz)))),
-            **{k: v.detach() for k, v in losses.items()},
+            'dxyz_max': torch.stack([v['dxyz_max'] for v in views]).amax(),
+            **{name: mean([v['losses'][name] for v in views])
+               for name in views[0]['losses']},
         }
 
-    def _stats_update(self, radii: torch.Tensor, m2d_grad: torch.Tensor):
+    def _stats_update(self, radii, m2d_grad: torch.Tensor):
         """max screen radius, NDC position-gradient norm and view count of
-        every Gaussian the view saw (``trainer.py:986-1002``)."""
+        every Gaussian the views saw, from each view's radii [N] of the
+        list ``radii`` and the mean means2d gradient
+        (``trainer.py:986-1002``)."""
         m = self.model
-        seen = radii > 0
+        radii = torch.stack(radii)
+        seen_k = radii > 0
+        seen = seen_k.any(0)
         m.max_radii2d.copy_(torch.where(
-            seen, torch.maximum(m.max_radii2d, radii.to(torch.float32)),
+            seen, torch.maximum(m.max_radii2d,
+                                radii.amax(0).to(torch.float32)),
             m.max_radii2d))
         gnorm = ndc_grad_norm(m2d_grad, (self.rcfg.image_width,
                                          self.rcfg.image_height), eps=1e-24)
         m.xyz_grad_accum.copy_(torch.where(seen, m.xyz_grad_accum + gnorm,
                                            m.xyz_grad_accum))
-        m.denom.add_(seen.to(torch.float32))
+        m.denom.add_(seen_k.sum(0).to(torch.float32))
 
     # ------------------------------------------------------------ control
 

@@ -7,6 +7,15 @@ Weights keep the JAX layout ([in, out]) and the JAX leaf names
 one to one onto the JAX leaves. Initial weights come from a
 ``torch.Generator`` with the JAX package's distributions (its random
 streams cannot be matched).
+
+``compute_dtype`` 'bfloat16' is the JAX package's mixed precision
+(``deform.py:98-123, 164-175``): the weights stay float32 (the optimizer's
+master copy) and are cast to bfloat16 inside the forward, the frequency
+encoders run in float32 (sin(2^k x) needs the input's whole mantissa) and
+their output is cast, the trunk and heads compute in bfloat16 (bias adds,
+ReLUs and concatenations included: explicit casts, not ``torch.autocast``,
+which would keep some of them in float32), and the outputs are returned in
+float32.
 """
 from __future__ import annotations
 
@@ -18,6 +27,15 @@ from torch import nn
 
 from ..ops.encoders import FreqEncoder
 from ..ops.mlp import MLP, Linear, linear_apply, mlp_apply
+
+COMPUTE_DTYPES = {'float32': torch.float32, 'bfloat16': torch.bfloat16}
+
+
+def compute_dtype(name: str) -> torch.dtype:
+    if name not in COMPUTE_DTYPES:
+        raise ValueError(f'compute_dtype {name!r}: one of '
+                         f'{sorted(COMPUTE_DTYPES)}')
+    return COMPUTE_DTYPES[name]
 
 
 class DeformNetConfig(NamedTuple):
@@ -58,9 +76,7 @@ class DeformNet(nn.Module):
 
     def __init__(self, cfg: DeformNetConfig, device=None):
         super().__init__()
-        if cfg.compute_dtype != 'float32':
-            raise NotImplementedError('the port computes the deform net in '
-                                      'float32')
+        compute_dtype(cfg.compute_dtype)
         self.cfg = cfg
         p_dim = cfg.pos_enc.output_dim
         t_dim = cfg.time_out if cfg.is_blender else cfg.t_enc.output_dim
@@ -109,13 +125,15 @@ def deform_net_init(cfg: DeformNetConfig, generator: torch.Generator,
 def deform_net_apply(net: DeformNet, cfg: DeformNetConfig, x: torch.Tensor,
                      t: torch.Tensor) -> Dict[str, torch.Tensor]:
     """x [N, 3], t a scalar or [N, 1] -> {'d_xyz', 'd_rotation',
-    'd_scaling', 'hidden'} (and 'g_rotation' with ``sep_rot``)."""
+    'd_scaling', 'hidden'} (and 'g_rotation' with ``sep_rot``), float32,
+    computed in ``cfg.compute_dtype``."""
+    dt = compute_dtype(cfg.compute_dtype)
     t = torch.broadcast_to(torch.reshape(t, (-1, 1)), (x.shape[0], 1))
-    t_emb = cfg.t_enc(t)
+    t_emb = cfg.t_enc(t).to(dt)
     if cfg.is_blender:
         h = torch.relu(linear_apply(net.timenet[0], t_emb))
         t_emb = linear_apply(net.timenet[1], h)
-    x_emb = cfg.pos_enc(x)
+    x_emb = cfg.pos_enc(x).to(dt)
     h = torch.cat([x_emb, t_emb], dim=-1)
     for i, layer in enumerate(net.trunk):
         h = torch.relu(linear_apply(layer, h))
@@ -129,6 +147,8 @@ def deform_net_apply(net: DeformNet, cfg: DeformNetConfig, x: torch.Tensor,
            'd_scaling': scaling, 'hidden': h}
     if hasattr(net, 'local_rotation'):
         out['g_rotation'] = linear_apply(net.local_rotation, h)
+    if dt != torch.float32:
+        out = {k: v.to(torch.float32) for k, v in out.items()}
     return out
 
 
@@ -153,8 +173,7 @@ class SkeletonNetConfig(NamedTuple):
 
 def skeleton_net(cfg: SkeletonNetConfig, device=None) -> MLP:
     """The joint net's module (weights zero; load them with ``convert``)."""
-    if cfg.compute_dtype != 'float32':
-        raise NotImplementedError('the port computes the skeleton net in float32')
+    compute_dtype(cfg.compute_dtype)
     return MLP(cfg.pos_enc.output_dim + cfg.t_enc.output_dim, cfg.width,
                cfg.depth, out_channels=cfg.out_dims, skips=cfg.skips,
                device=device)
@@ -182,7 +201,12 @@ def skeleton_net_init(cfg: SkeletonNetConfig, generator: torch.Generator,
 
 def skeleton_net_apply(params: MLP, cfg: SkeletonNetConfig,
                        joints: torch.Tensor, t: torch.Tensor):
-    """joints [M, C] + scalar t -> (R, d_rot, d_scale) per joint."""
+    """joints [M, C] + scalar t -> (R, d_rot, d_scale) per joint, float32,
+    computed in ``cfg.compute_dtype`` (the encoders in float32)."""
+    dt = compute_dtype(cfg.compute_dtype)
     t = torch.broadcast_to(torch.reshape(t, (-1, 1)), (joints.shape[0], 1))
-    inp = torch.cat([cfg.pos_enc(joints), cfg.t_enc(t)], dim=-1)
-    return mlp_apply(params, inp, skips=cfg.skips, multi_head=True)
+    inp = torch.cat([cfg.pos_enc(joints), cfg.t_enc(t)], dim=-1).to(dt)
+    outs = mlp_apply(params, inp, skips=cfg.skips, multi_head=True)
+    if dt != torch.float32:
+        outs = tuple(o.to(torch.float32) for o in outs)
+    return outs

@@ -16,6 +16,9 @@ frozen LBS ``sp_weights`` / ``sp_knn`` that the skeleton initialisation
 writes (``sk_gs_ops.init_skeleton``). Served with ``test_time_interpolate``,
 the ``sk`` family reads the skeleton net's outputs from the per-frame
 ``sk_cache`` instead of running the net; ``sk_r_delta`` reposes the joints.
+Nets that are not ``is_blender`` (real captures) train the ``init`` and
+``sp`` families at a noisy time t + n dt s, n a standard normal draw the
+caller hands in and s the annealed ``smooth_scale`` of the step.
 """
 from __future__ import annotations
 
@@ -281,11 +284,40 @@ def init_model(cfg: SKGSConfig, rcfg: RasterConfig, base: GaussianModel,
                      canonical=canonical)
 
 
+def smooth_scale(cfg: SKGSConfig, step: int) -> float:
+    """The time noise's scale at ``step`` (``sk_gs.py:234-246``): ``f_s``
+    falling linearly to 1e-15 over ``annealing_steps``, counted from the
+    start of ``sp_fix`` once it has started. Host-side."""
+    sp_fix_start = cfg.stages['sp_fix'][0]
+    s = step if step <= sp_fix_start else step - sp_fix_start
+    lr_init, lr_final = cfg.f_s, 1e-15
+    lr_delay_steps, lr_delay_mult = 0.01, 1.0
+    if s < 0 or (lr_init == 0.0 and lr_final == 0.0):
+        return 0.0
+    delay_rate = lr_delay_mult + (1 - lr_delay_mult) * np.sin(
+        0.5 * np.pi * np.clip(s / lr_delay_steps, 0, 1))
+    t = np.clip(s / cfg.annealing_steps, 0, 1)
+    return float(delay_rate * (lr_init * (1 - t) + lr_final * t))
+
+
+def noisy_time(cfg: SKGSConfig, t: torch.Tensor,
+               noise: Optional[torch.Tensor], noise_scale: float
+               ) -> torch.Tensor:
+    """t + noise * time_interval * noise_scale for a net that is not
+    ``is_blender``, given a draw ``noise`` and a scale > 0; else t."""
+    if not cfg.net.is_blender and noise is not None and noise_scale > 0:
+        return t + noise * cfg.time_interval * noise_scale
+    return t
+
+
 def init_stage(cfg: SKGSConfig, model: SKGSModel, points: torch.Tensor,
-               t: torch.Tensor, use_canonical: bool = False) -> StageOutputs:
+               t: torch.Tensor, use_canonical: bool = False,
+               noise: Optional[torch.Tensor] = None,
+               noise_scale: float = 0.0) -> StageOutputs:
     """One warp field on all Gaussians (``sk_gs.py:293-302``): the
-    ``sp_deform`` net (or ``canonical``) at (points, t), the points
-    detached. The rotation and scale deltas are zero."""
+    ``sp_deform`` net (or ``canonical``) at (points, ``noisy_time``), the
+    points detached. The rotation and scale deltas are zero."""
+    t = noisy_time(cfg, t, noise, noise_scale)
     net = model.canonical if use_canonical else model.sp_deform
     if net is None:
         raise ValueError('the model has no '
@@ -354,10 +386,13 @@ def sp_stage(cfg: SKGSConfig, model: SKGSModel, points: torch.Tensor,
              t: torch.Tensor, use_canonical: bool = False,
              frozen_weights: Optional[torch.Tensor] = None,
              frozen_knn: Optional[torch.Tensor] = None,
-             sp_points: Optional[torch.Tensor] = None) -> StageOutputs:
+             sp_points: Optional[torch.Tensor] = None,
+             noise: Optional[torch.Tensor] = None,
+             noise_scale: float = 0.0) -> StageOutputs:
     """Superpoint-driven LBS warp (``sk_gs.py:305-352``): the warp net
     (``canonical`` with ``use_canonical``, which needs the frozen weights)
-    at the superpoints (``sp_points`` when given) and time t gives one SE3
+    at the superpoints (``sp_points`` when given) and time t
+    (``noisy_time``) gives one SE3
     per superpoint; the points (detached) take the blend of their K
     superpoints' transforms by their LBS weights, or their heaviest
     superpoint's alone with ``warp_method`` 'largest'. ``frozen_weights``
@@ -369,6 +404,7 @@ def sp_stage(cfg: SKGSConfig, model: SKGSModel, points: torch.Tensor,
     points = points.detach()
     sp_points_ = params['sp_points'][..., :3] if sp_points is None \
         else sp_points
+    t = noisy_time(cfg, t, noise, noise_scale)
     if use_canonical:
         if model.canonical is None:
             raise ValueError('the model has no canonical net')
@@ -516,18 +552,23 @@ def sk_stage(cfg: SKGSConfig, model: SKGSModel, points: torch.Tensor,
 
 def forward_deltas(cfg: SKGSConfig, model: SKGSModel, t: torch.Tensor,
                    stage: str, time_id=None, sk_r_delta=None,
-                   training: bool = False) -> StageOutputs:
-    """Stage-dispatched deformation deltas."""
+                   training: bool = False,
+                   noise: Optional[torch.Tensor] = None,
+                   noise_scale: float = 0.0) -> StageOutputs:
+    """Stage-dispatched deformation deltas; ``noise`` / ``noise_scale``
+    are the time noise of the init and sp families (``noisy_time``)."""
     if stage == 'static':
         zero = torch.zeros((), device=model.device)
         return StageOutputs(zero, zero, zero, {})
     if stage in ('init', 'init_fix'):
-        out = init_stage(cfg, model, model.params['xyz'], t)
+        out = init_stage(cfg, model, model.params['xyz'], t, noise=noise,
+                         noise_scale=noise_scale)
         if stage == 'init_fix':
             out = out._replace(d_xyz=out.d_xyz.detach())
         return out
     if stage in ('sp', 'sp_fix'):
-        out = sp_stage(cfg, model, model.params['xyz'], t)
+        out = sp_stage(cfg, model, model.params['xyz'], t, noise=noise,
+                       noise_scale=noise_scale)
         if stage == 'sp_fix':
             out = out._replace(d_xyz=out.d_xyz.detach(),
                                d_rotation=out.d_rotation.detach(),

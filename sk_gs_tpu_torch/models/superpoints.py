@@ -154,6 +154,20 @@ def segment_sum(values: torch.Tensor, ids: torch.Tensor, n: int
     return out.index_add_(0, ids.to(torch.int64), values)
 
 
+def get_superpoint_features(value: torch.Tensor, neighbor: torch.Tensor,
+                            g: torch.Tensor, num_sp: int) -> torch.Tensor:
+    """The weighted mean [num_sp, C] of the per-point ``value`` [N, C] on
+    each superpoint, a point's share the LBS weight ``g`` [N, K] of its
+    superpoints ``neighbor`` [N, K] (``superpoints.py:193-202``): two
+    ``segment_sum`` calls, whose backward is a gather."""
+    c = value.shape[-1]
+    src = (value[:, None, :] * g[:, :, None]).reshape(-1, c)
+    idx = neighbor.reshape(-1)
+    vsum = segment_sum(src, idx, num_sp)
+    wsum = segment_sum(g.reshape(-1), idx, num_sp)
+    return vsum / torch.clamp(wsum[:, None], min=1e-5)
+
+
 def superpoint_prune_split_masks(
         weights: torch.Tensor, indices: torch.Tensor, sp_alive: torch.Tensor,
         xyz_grad_accum: torch.Tensor, denom: torch.Tensor,

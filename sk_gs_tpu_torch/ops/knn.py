@@ -28,7 +28,7 @@ def knn(queries: torch.Tensor, points: torch.Tensor, k: int,
     tie exactly)."""
     d2, idx = [], []
     for q in torch.split(queries, chunk):
-        d, i = _smallest_k(sq_cdist(q, points), k)
+        d, i = smallest_k(sq_cdist(q, points), k)
         d2.append(d)
         idx.append(i)
     return torch.cat(d2), torch.cat(idx)
@@ -47,7 +47,7 @@ def live_knn_index(points: torch.Tensor, alive: torch.Tensor, k: int,
     return idx[:, 1:]
 
 
-def _smallest_k(d2: torch.Tensor, k: int) -> Tuple[torch.Tensor,
+def smallest_k(d2: torch.Tensor, k: int) -> Tuple[torch.Tensor,
                                                    torch.Tensor]:
     """The k smallest entries of each row by (value, column): every entry
     below the row's k-th value, then the lowest columns equal to it."""

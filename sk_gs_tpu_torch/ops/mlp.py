@@ -26,7 +26,12 @@ class Linear(nn.Module):
 
 
 def linear_apply(p, x: torch.Tensor) -> torch.Tensor:
-    return x @ p.w + p.b
+    """x @ w + b in the dtype of ``x``: float32 weights are cast to it (the
+    float32 master weights of a bfloat16 net)."""
+    w, b = p.w, p.b
+    if w.dtype != x.dtype:
+        w, b = w.to(x.dtype), b.to(x.dtype)
+    return x @ w + b
 
 
 class MLP(nn.Module):

@@ -26,6 +26,7 @@ import sk_gs_tpu_torch.render.binning as tbin
 import sk_gs_tpu_torch.render.blend as tblend
 from sk_gs_tpu.render import preprocess as jpreprocess
 from sk_gs_tpu_torch.render.tile_kernel import chunk_blend_bwd, tile_blend_bwd
+from tests.test_torch_cli import one_torch_thread  # noqa: F401
 from tests.test_render import CFG, build_inputs, make_view
 from tests.test_torch_render import (close_groups, port_blend_inputs,
                                      port_cfg, port_pre, to_np)

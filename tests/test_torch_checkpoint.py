@@ -93,6 +93,8 @@ def test_port_checkpoint_loads_into_jax(smoke, tmp_path):
     extra = set(written) - set(template)
     assert extra == {'state/' + convert.NOISE_GEN_KEY,
                      'state/' + convert.BG_GEN_KEY,
+                     'state/' + convert.TIME_GEN_KEY,
+                     'state/' + convert.REG_GEN_KEY,
                      'state/' + convert.KNN_OWN_KEY}
     assert set(template) <= set(written)
     loaded = flat_of(jckpt.load_into_pytree(jax_template(jt), path))

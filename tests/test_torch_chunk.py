@@ -29,6 +29,7 @@ from sk_gs_tpu_torch.render.render import render as trender
 from sk_gs_tpu_torch.render.tile_kernel import (KERNELS, ChunkBlend,
                                                 chunk_blend_bwd,
                                                 chunk_blend_fwd)
+from tests.test_torch_cli import one_torch_thread  # noqa: F401
 from tests.test_render import CFG, build_inputs, make_view
 from tests.test_torch_render import (close_groups, port_blend_inputs,
                                      port_cfg, port_inputs, port_pre,

@@ -5,7 +5,9 @@ the skeleton initialisation at 50 + 50 iterations, ``sk_init`` and ``sk``)
 and writes the JAX package's files; a run resumed from its step-100
 checkpoint (inside ``sp``, before the skeleton initialisation) reaches the
 uninterrupted run's ``last.npz`` bit for bit: the stage flags, Adam, the
-smooth loss's KNN and the noise generator all come back."""
+smooth loss's KNN and the noise generator all come back; and so does a run
+with Adan, two views a step, bf16 nets, the time noise and every
+regularizer (their generators and Adan's state come back too)."""
 import json
 import math
 
@@ -118,6 +120,30 @@ def test_resume_reaches_the_same_last_checkpoint(smoke_run, tmp_path):
         np.testing.assert_array_equal(a[k], b[k], err_msg=k)
     assert resumed['PSNR'] == result['PSNR']
     assert resumed['best_PSNR'] == result['best_PSNR']
+    # the same with Adan (its four moment fields), two views a step, the
+    # nets in bfloat16, the time noise of a net that is not is_blender and
+    # every regularizer on (the time and regularizer generators): 120
+    # steps straight, and from step 100 to 120 (the skeleton
+    # initialisation before step 111 included)
+    options = ['train.optimizer=adan', 'train.batch_views=2',
+               'train.precision=bf16', 'model.is_blender=false',
+               *(f'loss.{k}=0.1' for k in ('elastic', 'acc', 'arap',
+                                           'arap_p', 're_pos', 'jp_dist',
+                                           'sp_arap_t', 'sp_arap_ct'))]
+    runs = {}
+    for name, extra in (('straight', []), ('resumed', ['--resume'])):
+        root = tmp_path / name
+        if extra:
+            extra = extra + [str(tmp_path / 'straight/synthetic_smoke/'
+                                 'checkpoints/checkpoint_00000100.npz')]
+        cli_train.main(train_args(root, *options, '--steps', '120',
+                                  *extra))
+        runs[name] = load(root / 'synthetic_smoke/checkpoints/last.npz')
+    a, b = runs['straight'], runs['resumed']
+    assert set(a) == set(b) and 'state/opt/prev_grad/xyz' in a
+    assert 'state/port/time_gen_state' in a and step_of(a) == 120
+    for k in a:
+        np.testing.assert_array_equal(a[k], b[k], err_msg=k)
 
 
 def test_truncated_run(tmp_path):

@@ -126,10 +126,14 @@ def test_fullscale_preset_matches_its_yaml():
 
 
 def test_refused_knobs():
+    # bf16 is the nets' compute dtype, as the JAX package builds it
+    from train import build_model_cfg
     cfg = config.make_config(str(ROOT / 'configs/synthetic_smoke.yaml'),
                              ['train.precision=bf16'])
-    with pytest.raises(NotImplementedError, match='bf16'):
-        build.build_model_cfg(cfg, META, (48, 48))
+    got, _ = build.build_model_cfg(cfg, META, (48, 48))
+    ref, _ = build_model_cfg(cfg, META, (48, 48))
+    assert got.net.compute_dtype == got.sk_net.compute_dtype == 'bfloat16'
+    assert _as_dict(got) == _as_dict(ref)
     cfg = config.make_config(str(ROOT / 'configs/synthetic_smoke.yaml'),
                              ['train.parallel={"n_view": 2, "n_gs": 1}'])
     with pytest.raises(NotImplementedError, match='parallel'):

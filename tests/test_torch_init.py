@@ -50,6 +50,7 @@ from sk_gs_tpu_torch.models import losses as tlosses
 from sk_gs_tpu_torch.models import optim as toptim
 from sk_gs_tpu_torch.models import sk_gs as tsk_gs
 from sk_gs_tpu_torch.ops import knn as tknn
+from tests.test_torch_cli import one_torch_thread  # noqa: F401
 from tests.test_torch_render import port_cfg, to_np
 from tests.test_torch_slice import FRAMES, tiny_cfg, to_port_cfg_fields
 from tests.test_torch_train import SCENE, close_rel, port_scene
@@ -144,8 +145,11 @@ def test_deform_net_matches_jax(rng, variant):
             assert np.abs(np.asarray(ref[name])).max() > 1e-3, name
             np.testing.assert_allclose(to_np(got[name]), np.asarray(ref[name]),
                                        atol=1e-5, err_msg=name)
-    with pytest.raises(NotImplementedError, match='float32'):
-        tdeform.DeformNet(tcfg._replace(compute_dtype='bfloat16'))
+    # bfloat16 builds (its parity: test_torch_train_options.py); a dtype the
+    # JAX package's nets do not compute in is refused
+    tdeform.DeformNet(tcfg._replace(compute_dtype='bfloat16'))
+    with pytest.raises(ValueError, match='compute_dtype'):
+        tdeform.DeformNet(tcfg._replace(compute_dtype='float16'))
 
 
 def test_deform_net_init_distributions():
@@ -484,7 +488,7 @@ def test_init_adam_state_reads_from_a_trainer_checkpoint(three_init_steps):
     model = convert.model_from_flat(flat, tt.model.cfg, tt.model.rcfg,
                                     device='cpu', trainable=True)
     assert set(model.nets()) == {'sk_deform', 'sp_deform', 'canonical'}
-    state = convert.adam_from_flat(flat, model)
+    state = convert.optimizer_from_flat(flat, model, 'adam')
     assert state.count == 3
     for name in ('sp_deform/trunk/1/w', 'canonical/timenet/0/w', 'hyper',
                  'sp_W'):
@@ -496,19 +500,23 @@ def test_init_adam_state_reads_from_a_trainer_checkpoint(three_init_steps):
 
 
 def test_trainer_refuses_the_init_parts_not_ported(three_init_steps):
+    """Nothing of the init family is refused any more: each of its
+    regularizers is computed when it has weight, and a net that is not
+    is_blender trains (its noisy time, and the parity of both with the JAX
+    trainer: test_torch_regularizers.py and test_torch_train_options.py)."""
     _, tt, _, _ = three_init_steps
-    for name in ttrainer.UNPORTED_INIT_LOSSES:
-        tt.loss_w = tlosses.LossWeights({**LOSS, name: 0.1})
-        with pytest.raises(NotImplementedError, match=name):
-            tt.family('init')
-    tt.loss_w = tlosses.LossWeights(LOSS)
-    # the time noise of nets that are not is_blender, in the init and sp
-    # families
     blender = tt.cfg
-    tt.cfg = blender._replace(net=blender.net._replace(is_blender=False))
     try:
-        for stage in ('init', 'sp'):
-            with pytest.raises(NotImplementedError, match='is_blender'):
-                tt.family(stage)
+        for name in ('elastic', 'acc', 'arap', 'arap_p'):
+            tt.loss_w = tlosses.LossWeights({**LOSS, name: 0.1})
+            assert tt.family('init') == 'init'
+            losses = tt._losses('init', 0, tt.zero_grads(), 4)[0]
+            value = losses[name].detach()
+            assert torch.isfinite(value) and float(value) > 0
+        tt.loss_w = tlosses.LossWeights(LOSS)
+        tt.cfg = blender._replace(net=blender.net._replace(is_blender=False))
+        for stage in ('init_fix', 'init', 'sp'):
+            assert tt.family(stage) in ('init', 'sp')
     finally:
+        tt.loss_w = tlosses.LossWeights(LOSS)
         tt.cfg = blender

@@ -29,6 +29,7 @@ from sk_gs_tpu_torch.render.settings import (GaussianInputs, RasterConfig,
                                              ViewParams)
 from sk_gs_tpu_torch.render.tile_kernel import (TileBlend, tile_blend_bwd,
                                                 tile_blend_fwd)
+from tests.test_torch_cli import one_torch_thread  # noqa: F401
 from tests.test_render import CFG, build_inputs, make_view
 
 # the render packages re-export functions named like these modules

@@ -40,6 +40,7 @@ from sk_gs_tpu_torch import convert
 from sk_gs_tpu_torch.models import optim as toptim
 from sk_gs_tpu_torch.models import sk_gs as tsk_gs
 from sk_gs_tpu_torch.models import sk_gs_ops as tops
+from tests.test_torch_cli import one_torch_thread  # noqa: F401
 from tests.test_torch_init import jax_rcfg
 from tests.test_torch_render import port_cfg, to_np
 from tests.test_torch_slice import FRAMES, tiny_cfg, to_port_cfg_fields

@@ -39,6 +39,7 @@ from sk_gs_tpu_torch import convert
 from sk_gs_tpu_torch.framework.evaluate import evaluate, render_eval
 from sk_gs_tpu_torch.framework.presets import synthetic_fullscale
 from sk_gs_tpu_torch.models import sk_gs as tsk_gs
+from tests.test_torch_cli import one_torch_thread  # noqa: F401
 from tests.test_render import make_view
 from tests.test_torch_render import port_cfg, port_view
 

@@ -5,7 +5,7 @@ saved and converted), on the tile schedule with Pallas in interpret mode
 (chunk 256 holds each tile's list, see test_torch_slice.py).
 
 Before each step the port's trainer resumes from the JAX trainer's
-checkpoint (``convert.model_from_flat``, ``adam_from_flat`` and
+checkpoint (``convert.model_from_flat``, ``optimizer_from_flat`` and
 ``trainer_flags_from_flat``: the model, the moments, the stage flags and
 the smooth loss's KNN) and takes that step; so each step and its events are
 held from the same state, without the drift of two runs apart (Adam moves
@@ -60,6 +60,7 @@ from sk_gs_tpu_torch.framework import trainer as ttrainer
 from sk_gs_tpu_torch.framework.presets import synthetic_fullscale
 from sk_gs_tpu_torch.models import losses as tlosses
 from sk_gs_tpu_torch.models import sk_gs as tsk_gs
+from tests.test_torch_cli import one_torch_thread  # noqa: F401
 from tests.test_torch_init import jax_rcfg
 from tests.test_torch_render import port_cfg, to_np
 from tests.test_torch_slice import tiny_cfg, to_port_cfg_fields
@@ -136,7 +137,8 @@ def port_trainer(jt, tmp, pcd, step):
                   background=meta.background,
                   cameras_extent=meta.cameras_extent),
         model, tlosses.LossWeights(LOSS),
-        opt_state=convert.adam_from_flat(flat, model), pcd=pcd, device='cpu',
+        opt_state=convert.optimizer_from_flat(flat, model, 'adam'), pcd=pcd,
+        device='cpu',
         **flags)
     tt.gs_knn_update_interval = jt.gs_knn_update_interval
     return tt
@@ -446,17 +448,24 @@ def test_sk_step_needs_the_skeleton(sp_run):
 
 
 def test_sp_parts_not_ported_raise(sp_run):
+    """Nothing of the sp family raises any more: each of its regularizers
+    is computed when it has weight (finite), and a net that is not
+    is_blender trains (its noisy time, and the parity of both with the JAX
+    trainer: test_torch_regularizers.py and test_torch_train_options.py)."""
     tt = sp_run[STEPS[-1]]['trainer']
-    for name in ttrainer.UNPORTED_SP_LOSSES:
-        tt.loss_w = tlosses.LossWeights({**LOSS, name: 0.1})
-        with pytest.raises(NotImplementedError, match=name):
-            tt.family('sp')
-    tt.loss_w = tlosses.LossWeights(LOSS)
-    assert tt.family('sk_init') == 'sk_init'
+    step = STEPS[-1]
     blender = tt.cfg
-    tt.cfg = blender._replace(net=blender.net._replace(is_blender=False))
     try:
-        with pytest.raises(NotImplementedError, match='is_blender'):
-            tt.family('sp_fix')
+        for name in ('elastic', 'acc', 'arap', 're_pos', 'jp_dist',
+                     'sp_arap_t', 'sp_arap_ct'):
+            tt.loss_w = tlosses.LossWeights({**LOSS, name: 0.1})
+            assert tt.family('sp') == 'sp'
+            losses = tt._losses('sp', 0, tt.zero_grads(), step)[0]
+            assert torch.isfinite(losses[name]), name
+        tt.loss_w = tlosses.LossWeights(LOSS)
+        assert tt.family('sk_init') == 'sk_init'
+        tt.cfg = blender._replace(net=blender.net._replace(is_blender=False))
+        assert tt.family('sp_fix') == 'sp'
     finally:
+        tt.loss_w = tlosses.LossWeights(LOSS)
         tt.cfg = blender

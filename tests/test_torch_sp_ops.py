@@ -34,6 +34,7 @@ from sk_gs_tpu_torch.models import superpoints as tsp
 from sk_gs_tpu_torch.ops import knn as tknn
 from sk_gs_tpu_torch.ops import quaternion as tquat
 from sk_gs_tpu_torch.ops import se3 as tse3
+from tests.test_torch_cli import one_torch_thread  # noqa: F401
 from tests.test_torch_render import port_cfg, to_np
 from tests.test_torch_slice import make_view_cfg, tiny_cfg, to_port_cfg_fields
 
@@ -218,7 +219,7 @@ def port_of(cfg, model, opt, tmp_path):
     tmodel = convert.model_from_flat(
         flat, tsk_gs.SKGSConfig(**to_port_cfg_fields(cfg)),
         port_cfg(make_view_cfg()), device='cpu', trainable=True)
-    return tmodel, convert.adam_from_flat(flat, tmodel)
+    return tmodel, convert.optimizer_from_flat(flat, tmodel, 'adam')
 
 
 def check_state(tmodel, topt, model, opt, names=None, atol=ATOL):

@@ -51,6 +51,7 @@ from sk_gs_tpu_torch.models import optim as toptim
 from sk_gs_tpu_torch.models import sk_gs as tsk_gs
 from sk_gs_tpu_torch.render import GaussianInputs
 from sk_gs_tpu_torch.render.render import composite_background, render
+from tests.test_torch_cli import one_torch_thread  # noqa: F401
 from tests.test_render import make_view
 from tests.test_torch_render import port_cfg, port_view, to_np
 from tests.test_torch_slice import FRAMES, tiny_jax_model, to_port_cfg_fields
@@ -338,7 +339,7 @@ def test_train_step_matches_jax(three_steps, steps):
 def test_adam_state_reads_from_a_trainer_checkpoint(three_steps):
     _, tt, _, ckpt = three_steps
     flat = convert.load_npz(ckpt)
-    state = convert.adam_from_flat(flat, tt.model)
+    state = convert.optimizer_from_flat(flat, tt.model, 'adam')
     assert state.count == tt.opt_state.count == 3
     for name in tt.model.leaves():
         np.testing.assert_array_equal(
@@ -353,7 +354,7 @@ def test_adam_state_reads_from_a_trainer_checkpoint(three_steps):
     bare = {k[len('state/model/'):]: v for k, v in flat.items()
             if k.startswith('state/model/')}
     with pytest.raises(KeyError, match='trainer checkpoint'):
-        convert.adam_from_flat(bare, model)
+        convert.optimizer_from_flat(bare, model, 'adam')
 
 
 # ---------------------------------------------------------------- port alone
@@ -386,10 +387,17 @@ def test_trainer_refuses_what_is_not_ported(tiny, jax_scene, tmp_path):
     meta = SceneMeta(background=np.ones(3, np.float32))
     model = port_model(tiny, tmp_path)
     cfg, rcfg = model.cfg, model.rcfg
-    for kw in ({'batch_views': 2}, {'mesh': object()},
-               {'optimizer': 'adan'}):
-        with pytest.raises(NotImplementedError):
-            SKGSTrainer(cfg, rcfg, scene, meta, model, device='cpu', **kw)
+    # a device mesh alone is refused; batch_views and the optimizers of
+    # the JAX registry are ported (tests/test_torch_train_options.py)
+    with pytest.raises(NotImplementedError, match='mesh'):
+        SKGSTrainer(cfg, rcfg, scene, meta, model, device='cpu',
+                    mesh=object())
+    for kw in ({'batch_views': 2}, {'optimizer': 'adan'},
+               {'optimizer': 'sgd'}, {'optimizer': 'adamw'}):
+        SKGSTrainer(cfg, rcfg, scene, meta, model, device='cpu', **kw)
+    with pytest.raises(KeyError, match='rmsprop'):
+        SKGSTrainer(cfg, rcfg, scene, meta, model, device='cpu',
+                    optimizer='rmsprop')
     # RGBA targets are composited per step (tests/test_torch_background.py)
     rgba = scene._replace(images=torch.ones(FRAMES, 48, 64, 4))
     SKGSTrainer(cfg, rcfg, rgba, meta, model, device='cpu')
