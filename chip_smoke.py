@@ -8,7 +8,8 @@ preset: 100,352 Gaussian slots, 512 joints, 400 x 400, random weights from
 seed 0) through the entry points a user calls, and checks them: the
 command-line entry points ``sk_gs_tpu_torch.cli.train``, ``.test`` and
 ``.render_repose`` from a YAML config to a checkpoint and back, on the
-synthetic scene and on D-NeRF- and WIM-layout scenes it writes; serving
+synthetic scene and on D-NeRF-, WIM- and ZJU-MoCap-layout scenes it
+writes (PNG and JPEG frames), and ``.viewer``'s HTTP server; serving
 through ``framework.evaluate`` (80,000 alive); training the ``sk`` stage
 through ``framework.trainer.SKGSTrainer.train_step`` on the preset's
 synthetic scene, made on the card (the ``tile`` schedule, kernels #1/#2);
@@ -19,8 +20,11 @@ with the ``sk_init`` family (kernel #1). Phases, one JSON line each:
 
 1. device: the card, the device count and its power limit;
 2. build: every hand-written kernel compiled from ``sk_gs_tpu_torch/csrc``
-   (one nvcc each, started together), with ptxas' register and shared
-   memory lines;
+   (one nvcc each, started together, beside the host C++ build of the JPEG
+   decoder), with ptxas' register and shared memory lines; then jpeg: the
+   port's JPEG decoder on each committed fixture (tests/fixtures/jpeg)
+   against its committed Pillow decode (max abs difference 0), and one
+   1024-px 4:2:0 and one 800-px 4:4:4 decode timed;
 3. kernel: the forward kernel (#1) against its plain PyTorch version on
    the inputs of the first request, error, the kernel's device time by
    torch.profiler, the wrapper's and the plain version's by CUDA events,
@@ -116,13 +120,16 @@ with the ``sk_init`` family (kernel #1). Phases, one JSON line each:
    drawn at 2e-3 (the warp moves the Gaussians by ~0.02), and at 0.05
    with the consistency loss off for the init regularizers (at 2e-3 the
    edge-length variance and the stretch they read sit near the warped
-   points' rounding), the CPU taking their second step from the card's
-   state after the first (their ill-conditioned warp-net gradients part
-   the runs' first Adam steps by +-lr), the warp net's gradients at 1e-2
-   (those losses differentiate differences of warped points a few
-   thousand float32 steps apart) and its parameters at 2 lr a step, and
-   the warp bias's gradient against the warp weight's scale (their share
-   of it is large terms cancelling);
+   points' rounding); the init regularizers' warp-net gradients at 3e-4
+   of each leaf's max plus the float32 rounding of ``elastic`` and
+   ``arap`` measured on each side in the same step against a float64
+   twin of the net and state (``reg_net_rounding``, as 19 measures
+   ``sp_W``'s), TF32 off in the step, its parameters at 2 lr a step, the
+   CPU taking the second step from the card's state after the first
+   passed that bar (where rounding parts the gradients, the runs' first
+   Adam steps part by up to +-lr), and the warp bias's gradient against
+   the warp weight's scale (their share of it is large terms
+   cancelling);
 21. sp_extras_train: 17's start with the weights of
    configs/ablations/loss_re_pos/re_pos1.yaml and loss_sp_arap/sp_arap.yaml
    against the same start without them, steps 13,999-14,001 in turns:
@@ -208,9 +215,20 @@ with the ``sk_init`` family (kernel #1). Phases, one JSON line each:
 35. cli_train_zju: a ZJU-MoCap ``annots.npy`` layout written at 1024 px
    (23 orbit cameras, 2 frames, RGB PNGs and their masks) and ``cli.train``
    on configs/zju.yaml (``is_blender`` false: the time noise live) for 10
-   steps: load seconds by split, the cameras as written, ms a step, the
-   noise's scale, the launches;
-36. with ``--profile`` only: 24 at the flagship's 2,000 + 2,000
+   steps: load seconds by split and a view, the cameras as written, ms a
+   step, the noise's scale, the launches; cli_train_zju_jpeg: the same
+   layout with the frames as baseline 4:2:0 JPEG files at quality 90
+   (``encode_jpeg``, a numpy baseline encoder; the masks PNG), decoded by
+   the port at least 30 dB from the rendered frames, load seconds beside
+   the PNG layout's of the same call;
+36. viewer: ``cli.viewer``'s server (127.0.0.1, port 0, a thread) on the
+   full-width checkpoint of 29: 20 ``/render`` requests in each mode, 20
+   ``/pick``, 20 ``/skeleton`` and ``/info`` by urllib, ms by endpoint,
+   #1 exactly once a ``/render``, the ``rgb`` PNG equal to the render
+   called directly (``render_eval``'s frame at a zero pose), the
+   ``render_topk`` device ms at full width, and ``render_topk`` on the
+   card against the CPU on a small scene (ids equal, weights 1e-5);
+37. with ``--profile`` only: 24 at the flagship's 2,000 + 2,000
    iterations (profile_sk_init_event); profile_sk_init, each loop's
    iteration on the host clock and under torch.profiler (device time,
    busy share, top kernels) on that model after its initialisation; 26
@@ -242,7 +260,8 @@ Then a ``kernels`` line (every ported kernel with its launches on its own
 training path and on each path, the CLI paths ``cli_train``,
 ``cli_test``, ``cli_repose``, ``cli_train_dnerf``,
 ``cli_train_dnerf_random``, ``train_dynamic_bg``, ``cli_train_wim``,
-``cli_train_options`` and ``cli_train_zju`` and the options' paths
+``cli_train_options``, ``cli_train_zju``, ``cli_train_zju_jpeg`` and
+``viewer`` and the options' paths
 ``train_sp_extras``, ``train_init_reg`` and ``train_init_bf16``
 included, error, times and bound), the card's name
 and power limit as nvidia-smi prints them, and last ``{"ok": true,
@@ -254,15 +273,19 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import copy
 import functools
 import json
 import math
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 import types
+import urllib.request
 from concurrent.futures import ThreadPoolExecutor
+from http.server import ThreadingHTTPServer
 from pathlib import Path
 
 import numpy as np
@@ -272,6 +295,7 @@ from sk_gs_tpu_torch import convert
 from sk_gs_tpu_torch.cli import render_repose as cli_repose
 from sk_gs_tpu_torch.cli import test as cli_test
 from sk_gs_tpu_torch.cli import train as cli_train
+from sk_gs_tpu_torch.cli import viewer as cli_viewer
 from sk_gs_tpu_torch.cuda_build import build_all
 from sk_gs_tpu_torch.data.sampler import UniformSampler
 from sk_gs_tpu_torch.data.synthetic import (gt_frame_gaussians,
@@ -300,7 +324,7 @@ from sk_gs_tpu_torch.models.skeleton import joint_cost_matrix
 from sk_gs_tpu_torch.models.superpoints import select_rows
 from sk_gs_tpu_torch.ops.knn import furthest_point_sampling
 from sk_gs_tpu_torch.ops.knn import knn as knn_op
-from sk_gs_tpu_torch.ops.transforms import (convert_coord_system,
+from sk_gs_tpu_torch.ops.transforms import (convert_coord_system, look_at,
                                             perspective_opencv)
 from sk_gs_tpu_torch.render import prepare_blend
 from sk_gs_tpu_torch.render.binning import build_tile_lists, num_chunks
@@ -308,12 +332,14 @@ from sk_gs_tpu_torch.render.blend import (ALPHA_MIN, OUTCOMES, assemble_image,
                                           chunk_waves)
 from sk_gs_tpu_torch.render.preprocess import preprocess
 from sk_gs_tpu_torch.render.render import (blend_tiles, composite_background,
-                                           render)
-from sk_gs_tpu_torch.render.settings import RasterConfig, ViewParams
+                                           render, render_topk)
+from sk_gs_tpu_torch.render.settings import (GaussianInputs, RasterConfig,
+                                             ViewParams)
 from sk_gs_tpu_torch.render.tile_kernel import (KERNELS, chunk_blend_bwd,
                                                 chunk_blend_fwd,
                                                 tile_blend_bwd, tile_blend_fwd)
-from sk_gs_tpu_torch.utils.png import read_png, write_png
+from sk_gs_tpu_torch.utils import jpeg
+from sk_gs_tpu_torch.utils.png import read_png, to_uint8, write_png
 
 # published H100 SXM peaks (NVIDIA data sheet): float32 outside the tensor
 # cores, and HBM3 bandwidth
@@ -470,6 +496,20 @@ ZJU_HW = 1024
 ZJU_CAMERAS = 23
 ZJU_FRAMES = 2
 ZJU_STEPS = 10
+# the ZJU layout's frames as baseline 4:2:0 JPEG (cli_train_zju_jpeg), the
+# decoded frames at least this far from the rendered ones
+ZJU_JPEG_QUALITY = 90
+JPEG_MIN_PSNR = 30.0
+JPEG_FIXTURES = Path(__file__).resolve().parent / 'tests' / 'fixtures' / 'jpeg'
+# the decodes timed by phase jpeg: (name, side, luma sampling), 4:2:0 and
+# 4:4:4, a median of JPEG_TIMED_REPS each
+JPEG_TIMED = (('1024_420', 1024, (2, 2)), ('800_444', 800, (1, 1)))
+JPEG_TIMED_REPS = 10
+# the viewer: requests of each kind, the render modes, topk_weights'
+# card-vs-CPU bar on the weights
+VIEWER_REQUESTS = 20
+VIEWER_MODES = ('rgb', 'opacity', 'superpoints')
+TOPK_TOL = 1e-5
 CLI_OPTIONS = ('train.optimizer=adan', 'train.batch_views=2',
                'train.precision=bf16')
 # kernel names of matrix products (cuBLAS / cuBLASLt / CUTLASS), and the
@@ -2980,6 +3020,246 @@ def phase_cli_train_wim(tmp: Path, train) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------- JPEG
+
+# ITU-T T.81 Annex K: the example quantisation tables (natural order) and
+# the typical Huffman tables (code counts by length 1-16, symbols), which
+# libjpeg writes by default
+JPEG_QUANT = (
+    np.array([16, 11, 10, 16, 24, 40, 51, 61, 12, 12, 14, 19, 26, 58, 60, 55,
+              14, 13, 16, 24, 40, 57, 69, 56, 14, 17, 22, 29, 51, 87, 80, 62,
+              18, 22, 37, 56, 68, 109, 103, 77, 24, 35, 55, 64, 81, 104, 113,
+              92, 49, 64, 78, 87, 103, 121, 120, 101, 72, 92, 95, 98, 112,
+              100, 103, 99]),
+    np.array([17, 18, 24, 47, 99, 99, 99, 99, 18, 21, 26, 66, 99, 99, 99, 99,
+              24, 26, 56, 99, 99, 99, 99, 99, 47, 66, 99, 99, 99, 99, 99, 99]
+             + [99] * 32))
+JPEG_HUFF = {  # (class, table): (counts, symbols); class 0 DC, 1 AC
+    (0, 0): ((0, 1, 5, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0, 0, 0), range(12)),
+    (0, 1): ((0, 3, 1, 1, 1, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0), range(12)),
+    (1, 0): ((0, 2, 1, 3, 3, 2, 4, 3, 5, 5, 4, 4, 0, 0, 1, 125), bytes.fromhex(
+        '01020300041105122131410613516107227114328191a1082342b1c11552d1f0'
+        '2433627282090a161718191a25262728292a3435363738393a43444546474849'
+        '4a535455565758595a636465666768696a737475767778797a83848586878889'
+        '8a92939495969798999aa2a3a4a5a6a7a8a9aab2b3b4b5b6b7b8b9bac2c3c4c5'
+        'c6c7c8c9cad2d3d4d5d6d7d8d9dae1e2e3e4e5e6e7e8e9eaf1f2f3f4f5f6f7f8'
+        'f9fa')),
+    (1, 1): ((0, 2, 1, 2, 4, 4, 3, 4, 7, 5, 4, 4, 0, 1, 2, 119), bytes.fromhex(
+        '000102031104052131061241510761711322328108144291a1b1c109233352f0'
+        '156272d10a162434e125f11718191a262728292a35363738393a434445464748'
+        '494a535455565758595a636465666768696a737475767778797a828384858687'
+        '88898a92939495969798999aa2a3a4a5a6a7a8a9aab2b3b4b5b6b7b8b9bac2c3'
+        'c4c5c6c7c8c9cad2d3d4d5d6d7d8d9dae2e3e4e5e6e7e8e9eaf2f3f4f5f6f7f8'
+        'f9fa')),
+}
+JPEG_ZIGZAG = np.array([
+    0, 1, 8, 16, 9, 2, 3, 10, 17, 24, 32, 25, 18, 11, 4, 5, 12, 19, 26, 33,
+    40, 48, 41, 34, 27, 20, 13, 6, 7, 14, 21, 28, 35, 42, 49, 56, 57, 50, 43,
+    36, 29, 22, 15, 23, 30, 37, 44, 51, 58, 59, 52, 45, 38, 31, 39, 46, 53,
+    60, 61, 54, 47, 55, 62, 63])  # zigzag position -> natural position
+# the orthonormal 8-point DCT-II: JPEG's FDCT is D x D^T
+_U, _X = np.mgrid[0:8, 0:8]
+JPEG_DCT = np.where(_U == 0, np.sqrt(1 / 8), np.sqrt(2 / 8)) \
+    * np.cos((2 * _X + 1) * _U * np.pi / 16)
+
+
+def jpeg_quant_tables(quality: int):
+    """libjpeg's jpeg_quality_scaling of the Annex K tables, 1..255."""
+    scale = 5000 // quality if quality < 50 else 200 - 2 * quality
+    return [np.clip((q * scale + 50) // 100, 1, 255) for q in JPEG_QUANT]
+
+
+def _huff_codes(counts, symbols):
+    """(code [256], length [256]) of each symbol of a canonical table."""
+    code = np.zeros(256, np.int64)
+    length = np.zeros(256, np.int64)
+    c, i, symbols = 0, 0, list(symbols)
+    for n_bits, count in enumerate(counts, start=1):
+        for _ in range(count):
+            code[symbols[i]], length[symbols[i]] = c, n_bits
+            c, i = c + 1, i + 1
+        c <<= 1
+    return code, length
+
+
+def _segment(marker: int, body: bytes) -> bytes:
+    return bytes([0xFF, marker]) + (len(body) + 2).to_bytes(2, 'big') + body
+
+
+def _block_planes(img: np.ndarray, sampling, mcu_w: int, mcu_h: int):
+    """Each component's samples [mcu_h 8 v, mcu_w 8 h] (the image padded
+    by edge replication to whole MCUs, chroma averaged over its boxes)."""
+    h_img, w_img = img.shape[:2]
+    if img.ndim == 2:
+        planes = [img.astype(np.float64)]
+    else:
+        r, g, b = (img[..., i].astype(np.float64) for i in range(3))
+        planes = [0.299 * r + 0.587 * g + 0.114 * b,
+                  -0.168736 * r - 0.331264 * g + 0.5 * b + 128,
+                  0.5 * r - 0.418688 * g - 0.081312 * b + 128]
+    max_h = max(h for h, _ in sampling)
+    max_v = max(v for _, v in sampling)
+    full_h, full_w = mcu_h * 8 * max_v, mcu_w * 8 * max_h
+    out = []
+    for plane, (h, v) in zip(planes, sampling):
+        plane = np.clip(np.round(plane), 0, 255)
+        plane = np.pad(plane, ((0, full_h - h_img), (0, full_w - w_img)),
+                       mode='edge')
+        fy, fx = max_v // v, max_h // h
+        plane = plane.reshape(full_h // fy, fy, full_w // fx, fx) \
+            .mean(axis=(1, 3))
+        out.append(np.round(plane) - 128.0)
+    return out
+
+
+def _bits_of(values: np.ndarray, lengths: np.ndarray) -> np.ndarray:
+    """The bytes of the codes ``values`` of ``lengths`` bits, MSB first,
+    packed back to back and padded with 1 bits, 0xFF stuffed."""
+    starts = np.cumsum(lengths) - lengths
+    item = np.repeat(np.arange(len(values)), lengths)
+    j = np.arange(int(lengths.sum())) - starts[item]
+    bits = ((values[item] >> (lengths[item] - 1 - j)) & 1).astype(np.uint8)
+    bits = np.concatenate([bits, np.ones(-len(bits) % 8, np.uint8)])
+    data = np.packbits(bits)
+    return np.insert(data, np.nonzero(data == 0xFF)[0] + 1, 0)
+
+
+def _entropy(coefs: np.ndarray, comp: np.ndarray, tables) -> np.ndarray:
+    """Huffman-coded bytes of the blocks ``coefs`` [B, 64] (zigzag order,
+    in scan order) of components ``comp`` [B], every code and length at
+    once: each block's DC difference, its AC run/size symbols (ZRL for
+    each 16 zeros of a run) and an EOB unless its last coefficient is
+    non-zero."""
+    n_blocks = len(coefs)
+    dc = coefs[:, 0]
+    diff = np.empty_like(dc)
+    for c in np.unique(comp):
+        sel = np.nonzero(comp == c)[0]
+        diff[sel] = np.diff(dc[sel], prepend=0)
+    b_ac, k_ac = np.nonzero(coefs[:, 1:])
+    k_ac = k_ac + 1
+    first = np.ones(len(b_ac), bool)
+    first[1:] = b_ac[1:] != b_ac[:-1]
+    prev = np.where(first, 0, np.concatenate([[0], k_ac[:-1]]))
+    run = k_ac - prev - 1
+    val = coefs[b_ac, k_ac]
+    last = np.zeros(n_blocks, np.int64)
+    ends = np.ones(len(b_ac), bool)   # each block's last non-zero AC
+    ends[:-1] = b_ac[1:] != b_ac[:-1]
+    last[b_ac[ends]] = k_ac[ends]
+    eob = np.nonzero(last < 63)[0]
+    n_zrl = run // 16
+    zrl = np.repeat(np.arange(len(b_ac)), n_zrl)
+
+    def size_extra(v):
+        size = np.frexp(np.abs(v).astype(np.float64))[1].astype(np.int64)
+        extra = np.where(v > 0, v, v + (1 << size) - 1) & ((1 << size) - 1)
+        return size, extra
+
+    dc_size, dc_extra = size_extra(diff)
+    ac_size, ac_extra = size_extra(val)
+    blocks = np.concatenate([np.arange(n_blocks), b_ac[zrl], b_ac, eob])
+    order = np.concatenate([np.zeros(n_blocks, np.int64), 2 * k_ac[zrl] - 1,
+                            2 * k_ac, np.full(len(eob), 200)])
+    symbol = np.concatenate([dc_size, np.full(len(zrl), 0xF0),
+                             ((run % 16) << 4) | ac_size,
+                             np.zeros(len(eob), np.int64)])
+    extra = np.concatenate([dc_extra, np.zeros(len(zrl), np.int64),
+                            ac_extra, np.zeros(len(eob), np.int64)])
+    extra_len = np.concatenate([dc_size, np.zeros(len(zrl), np.int64),
+                                ac_size, np.zeros(len(eob), np.int64)])
+    is_ac = np.concatenate([np.zeros(n_blocks, bool),
+                            np.ones(len(zrl) + len(b_ac) + len(eob), bool)])
+    comps = comp[blocks]
+    code = np.zeros(len(blocks), np.int64)
+    code_len = np.zeros(len(blocks), np.int64)
+    for c in np.unique(comp):
+        for cls in (0, 1):
+            sel = (comps == c) & (is_ac == bool(cls))
+            codes, lens = tables[cls][min(int(c), 1)]
+            code[sel], code_len[sel] = codes[symbol[sel]], lens[symbol[sel]]
+    idx = np.lexsort((order, blocks))
+    return _bits_of((code[idx] << extra_len[idx]) | extra[idx],
+                    code_len[idx] + extra_len[idx])
+
+
+def encode_jpeg(img: np.ndarray, quality: int = 90,
+                sampling=((2, 2), (1, 1), (1, 1)), restart_interval: int = 0,
+                interleaved: bool = True) -> bytes:
+    """A baseline JPEG file (JFIF, Annex K tables) of ``img`` [H, W, 3]
+    uint8 RGB (YCbCr, components sampled at ``sampling``, (h, v) each) or
+    [H, W] greyscale; ``restart_interval`` MCUs between RSTn markers (0:
+    none); ``interleaved`` False writes one scan per component. The
+    port's chip run writes frames with it (the card's machine has no
+    encoder)."""
+    h_img, w_img = img.shape[:2]
+    if img.ndim == 2:
+        sampling = ((1, 1),)
+    n_comp = len(sampling)
+    max_h = max(h for h, _ in sampling)
+    max_v = max(v for _, v in sampling)
+    mcu_w = -(-w_img // (8 * max_h))
+    mcu_h = -(-h_img // (8 * max_v))
+    quant = jpeg_quant_tables(quality)
+    tables = [[_huff_codes(*JPEG_HUFF[(cls, t)]) for t in (0, 1)]
+              for cls in (0, 1)]
+    coefs = []
+    for c, plane in enumerate(_block_planes(img, sampling, mcu_w, mcu_h)):
+        by, bx = plane.shape[0] // 8, plane.shape[1] // 8
+        blocks = plane.reshape(by, 8, bx, 8).transpose(0, 2, 1, 3)
+        f = JPEG_DCT @ blocks @ JPEG_DCT.T
+        q = quant[min(c, 1)].reshape(8, 8)
+        zz = np.round(f / q).astype(np.int64).reshape(by, bx, 64)
+        coefs.append(zz[..., JPEG_ZIGZAG])
+    head = b'\xff\xd8' + _segment(0xE0, b'JFIF\x00\x01\x01\x00\x00\x01'
+                                  b'\x00\x01\x00\x00')
+    for t in range(min(n_comp, 2)):
+        head += _segment(0xDB, bytes([t]) + bytes(
+            quant[t][JPEG_ZIGZAG].astype(np.uint8)))
+    head += _segment(0xC0, bytes([8]) + h_img.to_bytes(2, 'big')
+                     + w_img.to_bytes(2, 'big') + bytes([n_comp]) + b''.join(
+                         bytes([c + 1, (h << 4) | v, min(c, 1)])
+                         for c, (h, v) in enumerate(sampling)))
+    for (cls, t), (counts, symbols) in JPEG_HUFF.items():
+        if t < min(n_comp, 2):
+            head += _segment(0xC4, bytes([(cls << 4) | t, *counts,
+                                          *symbols]))
+    if restart_interval:
+        head += _segment(0xDD, restart_interval.to_bytes(2, 'big'))
+    scans = [list(range(n_comp))] if interleaved and n_comp > 1 else \
+        [[c] for c in range(n_comp)]
+    out = [head]
+    for scan in scans:
+        if len(scan) == 1:  # its own blocks only, in raster order
+            c = scan[0]
+            h, v = sampling[c]
+            wib = -(-(-(-w_img * h // max_h)) // 8)
+            hib = -(-(-(-h_img * v // max_v)) // 8)
+            units = [coefs[c][:hib, :wib].reshape(-1, 1, 64)]
+            comp_of = np.array([c])
+        else:  # each MCU's blocks, component by component, row-major
+            units = [coefs[c].reshape(mcu_h, v, mcu_w, h, 64)
+                     .transpose(0, 2, 1, 3, 4).reshape(mcu_h * mcu_w, h * v,
+                                                        64)
+                     for c, (h, v) in enumerate(sampling)]
+            comp_of = np.concatenate([np.full(h * v, c) for c, (h, v)
+                                      in enumerate(sampling)])
+        mcus = np.concatenate(units, axis=1)            # [n_mcu, per, 64]
+        out.append(_segment(0xDA, bytes([len(scan)]) + b''.join(
+            bytes([c + 1, (min(c, 1) << 4) | min(c, 1)]) for c in scan)
+            + b'\x00\x3f\x00'))
+        step = restart_interval or len(mcus)
+        for i, s0 in enumerate(range(0, len(mcus), step)):
+            if i:
+                out.append(bytes([0xFF, 0xD0 + (i - 1) % 8]))
+            part = mcus[s0:s0 + step]
+            out.append(_entropy(part.reshape(-1, 64),
+                                np.tile(comp_of, len(part)), tables)
+                       .tobytes())
+    out.append(b'\xff\xd9')
+    return b''.join(out)
+
+
 # ---------------------------------------------------------------- options
 
 
@@ -3053,19 +3333,11 @@ def small_start(seed: int, family: str, dev: str, cfg, rcfg, train,
 # consistency loss off (the canonical net then trains on nothing): at
 # 2e-3 the variance of an edge's length over elastic's 8 times, and
 # arap's stretch, are within a few hundred float32 steps of the warped
-# points' rounding, and the card's and the CPU's first Adam steps part.
-# Even so their warp-net gradients part the two runs' first Adam steps
-# (+-lr where they round apart), so the CPU takes their second step from
-# the card's state after the first (tests/test_torch_sp.py's rule: each
-# step held from one state)
+# points' rounding
 OPTION_WARP_HEAD = 2e-3
 OPTION_REG_WARP_HEAD = 0.05
-# the warp net's gradient bar under the init regularizers: elastic's
-# self-normalised variance and arap's stretch differentiate differences of
-# warped points a few thousand float32 steps apart, so a last-bit change of
-# a warped point (the card's GEMMs against the CPU's) moves that gradient
-# by ~1e-3 of its size (5.2e-3 of its max on an H100)
-REG_NET_GRAD_TOL = 1e-2
+# the losses whose float32 rounding ``reg_net_rounding`` measures
+ROUNDED_REG_LOSSES = ('elastic', 'arap')
 # each option of train_reference_options: its family, steps, trainer
 # options, extra loss weights and changes to the small model's config
 OPTION_CASES = {
@@ -3077,7 +3349,7 @@ OPTION_CASES = {
                           {**INIT_REG_WEIGHTS, 'c_net': 0.0},
                           {'warp_head': OPTION_REG_WARP_HEAD,
                            'from_one_state': True,
-                           'net_grad_tol': {'sp_deform': REG_NET_GRAD_TOL}}),
+                           'rounded_net': 'sp_deform'}),
     'sp_regularizers': ('sp', (19999, 20000), {},
                         {**SP_REG_WEIGHTS, 'smooth': 0.0},
                         {'sp_split_threshold': 0.0}),
@@ -3086,19 +3358,101 @@ OPTION_CASES = {
 }
 
 
-def option_reference(seed: int, name: str) -> dict:
-    """One option of ``OPTION_CASES`` trained 2 steps on the card
-    (kernels) and on the CPU (plain versions) from the same small model,
-    both handed the same draws; compared as train_reference compares
-    (bf16 at its own bar)."""
+@contextlib.contextmanager
+def recorded(module, name: str, log: list):
+    """``module.name`` recording each call's (arguments, outputs) in
+    ``log``."""
+    fn = getattr(module, name)
+
+    def spy(*args, **kwargs):
+        out = fn(*args, **kwargs)
+        log.append((args, out))
+        return out
+    setattr(module, name, spy)
+    try:
+        yield
+    finally:
+        setattr(module, name, fn)
+
+
+def reg_net_rounding(trainer: SKGSTrainer, family: str, t, draws: dict,
+                     step: int) -> dict:
+    """The float32 rounding of the ``sp_deform`` net's gradients of the
+    weighted ``ROUNDED_REG_LOSSES`` (elastic, arap) on the trainer's
+    device, as ``smooth_rounding`` measures ``sp_W``'s: the losses through
+    ``trainer.motion_reg_losses`` (``models/regularizers.py``) at the
+    step's state and draws, on a float32 copy of the net and on a float64
+    copy of it and of the state the losses read; per net leaf max |g32 -
+    g64| ('rounding'; 'rounding_by_loss' of each loss alone), both
+    gradients ('g32', 'g64', on the host), and
+    whether the two made the same discrete choices (elastic's KNN, arap's
+    neighbours and kept edges): were they to differ, the difference would
+    be no rounding. 'relu_sign_flips' counts the warp net's ReLUs whose
+    pre-activation the float32 rounding puts on the other side of 0 than
+    float64 does (a kink: the gradient through that unit appears or
+    vanishes), with the largest such |pre-activation| in float64."""
+    model = trainer.model
+    grads, choices, pre_acts = {}, {}, {}
+    for dtype in (torch.float32, torch.float64):
+        net = copy.deepcopy(model.sp_deform).to(dtype)
+        twin = types.SimpleNamespace(
+            params={k: model.params[k].detach().to(dtype)
+                    for k in ('xyz', 'sp_hyper', 'sp_points')
+                    if k in model.params},
+            alive=model.alive, sp_alive=model.sp_alive, sp_deform=net)
+        view = types.SimpleNamespace(
+            cfg=trainer.cfg, model=twin, loss_weight=trainer.loss_weight,
+            loss_w=trainer.loss_w)
+        knn, graph, relu = [], [], []
+        with recorded(trainer_mod, 'calc_lbs_weight', knn), \
+                recorded(trainer_mod.reg, 'arap_connectivity', graph), \
+                recorded(torch, 'relu', relu):
+            out = SKGSTrainer.motion_reg_losses(
+                view, family, t.to(dtype),
+                {k: v.to(dtype) for k, v in draws.items()}, step)
+        pre_acts[dtype] = [args[0].detach() for args, _ in relu]
+        names = [f'sp_deform/{n.replace(".", "/")}'
+                 for n, _ in net.named_parameters()]
+        grads[dtype] = {}
+        for part in ROUNDED_REG_LOSSES + ('sum',):
+            loss = sum(out[k] for k in ROUNDED_REG_LOSSES) \
+                if part == 'sum' else out[part]
+            g = torch.autograd.grad(loss, list(net.parameters()),
+                                    allow_unused=True, retain_graph=True)
+            grads[dtype][part] = {
+                n: (torch.zeros_like(p) if gi is None else gi).detach()
+                .to(torch.float64).cpu()
+                for n, p, gi in zip(names, net.parameters(), g)}
+        choices[dtype] = [idx.cpu() for _, (_, idx) in knn] + [
+            torch.cat([idx.cpu(), keep.cpu().to(idx.dtype)])
+            for _, (idx, _, keep) in graph]
+    same = all(torch.equal(a, b) for a, b in
+               zip(choices[torch.float32], choices[torch.float64]))
+    diff = {part: {k: float((g32 - grads[torch.float64][part][k]).abs()
+                            .max()) for k, g32 in leaves.items()}
+            for part, leaves in grads[torch.float32].items()}
+    flips = [(a.to(torch.float64) > 0) != (b > 0) for a, b in
+             zip(pre_acts[torch.float32], pre_acts[torch.float64])]
+    at_flips = [b[f].abs() for b, f in zip(pre_acts[torch.float64], flips)
+                if bool(f.any())]
+    return {'rounding': diff.pop('sum'), 'rounding_by_loss': diff,
+            'g32': grads[torch.float32]['sum'],
+            'g64': grads[torch.float64]['sum'], 'choices_equal': same,
+            'relu_sign_flips': int(sum(int(f.sum()) for f in flips)),
+            'relu_flip_max_abs_preact64': max(
+                (float(x.max()) for x in at_flips), default=None)}
+
+
+def option_setup(seed: int, name: str):
+    """(family, steps, options, extra, change, cfg, rcfg, train) of the
+    option ``name`` of ``OPTION_CASES``: its small model's configs."""
     family, steps, options, extra, change = OPTION_CASES[name]
     cfg, rcfg, train = synthetic_fullscale()
     net = cfg.net._replace(depth=4, width=64)
     sk_net = cfg.sk_net._replace(width=64, depth=4, skips=(2,))
     if change.get('is_blender') is False:
         net = net._replace(is_blender=False)
-    bf16 = bool(change.get('bf16'))
-    if bf16:
+    if change.get('bf16'):
         net = net._replace(compute_dtype='bfloat16')
         sk_net = sk_net._replace(compute_dtype='bfloat16')
     cfg = cfg._replace(gauss=cfg.gauss._replace(capacity=4096),
@@ -3109,6 +3463,24 @@ def option_reference(seed: int, name: str) -> dict:
                          pair_capacity=2 ** 16,
                          schedule='chunk' if family == 'init' else 'tile')
     steps = steps or (cfg.stages['sk'][0] + 1, cfg.stages['sk'][0] + 2)
+    return family, steps, options, extra, change, cfg, rcfg, train
+
+
+def option_reference(seed: int, name: str) -> dict:
+    """One option of ``OPTION_CASES`` trained 2 steps on the card
+    (kernels) and on the CPU (plain versions) from the same small model,
+    both handed the same draws; compared as train_reference compares
+    (bf16 at its own bar). A case with a ``rounded_net`` holds that net's
+    gradients at 3e-4 of each leaf's max plus the float32 rounding of
+    ``ROUNDED_REG_LOSSES`` measured on each side in the same step
+    (``reg_net_rounding``), its parameters at 2 lr a step; with
+    ``from_one_state`` the CPU takes the second step from the card's state
+    after the first, which the first step's bar justifies: where the
+    rounding parts the gradients, Adam's first steps part by up to +-lr."""
+    family, steps, options, extra, change, cfg, rcfg, train = \
+        option_setup(seed, name)
+    bf16 = bool(change.get('bf16'))
+    rounded = change.get('rounded_net')
     loss = {**train.loss, **extra}
     draws = HandedDraws(seed)
     runs, card_states = {}, []
@@ -3121,6 +3493,13 @@ def option_reference(seed: int, name: str) -> dict:
         tr = SKGSTrainer(cfg, rcfg, scene, meta, model, LossWeights(loss),
                          seed=seed, device=dev, **flags, **options)
         draws.attach(tr)
+        rounding = []
+        if rounded:
+            def spy(family, t, d, step, _tr=tr, _fn=tr.motion_reg_losses,
+                    _out=rounding):
+                _out.append(reg_net_rounding(_tr, family, t, d, step))
+                return _fn(family, t, d, step)
+            tr.motion_reg_losses = spy
         metrics, grads = [], []
         for i, step in enumerate(steps):
             if dev == 'cpu' and change.get('from_one_state') and i:
@@ -3130,24 +3509,27 @@ def option_reference(seed: int, name: str) -> dict:
             m = tr.train_step(step)
             if dev == 'cuda':
                 card_states.append(tr.ckpt_state())
+                if torch.backends.cuda.matmul.allow_tf32 \
+                        or torch.backends.cudnn.allow_tf32:
+                    raise AssertionError(f'{name}: TF32 is on in the step')
             metrics.append({k: float(v) for k, v in m.items()})
             grads.append({k: p.grad.detach().cpu().clone()
                           for k, p in tr.model.leaves().items()})
         runs[dev] = (metrics, grads, convert.model_to_flat(tr.model),
-                     tr.lr_trees(steps[-1]))
-    (m_c, g_c, f_c, lrs), (m_p, g_p, f_p, _) = runs['cuda'], runs['cpu']
+                     tr.lr_trees(steps[-1]), rounding)
+    (m_c, g_c, f_c, lrs, r_c), (m_p, g_p, f_p, _, r_p) = \
+        runs['cuda'], runs['cpu']
     loss_tol = BF16_LOSS_TOL if bf16 else 2e-4
     # bf16: every leaf at the bf16 bar, since the warped positions carry
     # the nets' rounding (a bfloat16 step of d_xyz) into every gradient,
-    # its parameters' settled entries from that bar up; a case's own
-    # gradient bars by leaf (``net_grad_tol``) hold its parameters to the
-    # 2 lr a step bound alone (no entry's gradient is good to the 1e-3
-    # that the settled-entry rule needs)
-    bars = {k.split('/')[0]: BF16_GRAD_TOL for k in g_p[0]} if bf16 \
-        else dict(change.get('net_grad_tol', {}))
-    tol_of = {k: bars[k.split('/')[0]] for k in g_p[0]
-              if k.split('/')[0] in bars}
-    cut_of = bars if bf16 else {k: 1.0 for k in bars}
+    # its parameters' settled entries from that bar up; a rounded net's
+    # leaves at 3e-4 of their max plus both sides' measured rounding, a
+    # bar by step, its parameters held to the 2 lr a step bound alone
+    # (no entry's gradient is good to the 1e-3 that the settled-entry
+    # rule needs)
+    bars = {k.split('/')[0]: BF16_GRAD_TOL for k in g_p[0]} if bf16 else {}
+    tol_of = [{k: bars[k.split('/')[0]] for k in g_p[0]
+               if k.split('/')[0] in bars} for _ in steps]
     iso = {'rotation': 'xyz'} if family == 'init' else {}
     if any(k in extra for k in INIT_REG_WEIGHTS):
         # the warp bias moves every warped point alike, which the motion
@@ -3155,36 +3537,71 @@ def option_reference(seed: int, name: str) -> dict:
         # warped points): their share of its gradient is their large
         # terms cancelling, held against the warp weight's scale
         iso['sp_deform/warp/b'] = 'sp_deform/warp/w'
+    rounding_over_max = []
+    if rounded:
+        for i, (a, b) in enumerate(zip(r_c, r_p)):
+            top = {k: float(g_p[i][iso.get(k, k)].abs().max())
+                   for k in a['rounding']}
+            rounding_over_max.append({
+                dev: {'sum': max(r['rounding'][k] / max(top[k], 1e-30)
+                                 for k in top),
+                      **{part: max(v[k] / max(top[k], 1e-30) for k in top)
+                         for part, v in r['rounding_by_loss'].items()},
+                      'relu_sign_flips': r['relu_sign_flips'],
+                      'relu_flip_max_abs_preact64':
+                          r['relu_flip_max_abs_preact64']}
+                for dev, r in (('cuda', a), ('cpu', b))})
+            tol_of[i].update({k: 3e-4 + (a['rounding'][k]
+                                         + b['rounding'][k])
+                              / max(top[k], 1e-30) for k in top})
+    cut_of = bars if bf16 else ({rounded: 1.0} if rounded else {})
     rel = lambda k: max(abs(a[k] - b[k]) / max(abs(b[k]), 1e-30)
                         for a, b in zip(m_c, m_p))
     loss_err = rel('loss')
-    try:
-        grad_worst = [max(close_leaves(a, b, 3e-4, scale_of=iso,
-                                       tol_of=tol_of).values())
-                      for a, b in zip(g_c, g_p)]
-        grads_ok = True
-    except AssertionError as e:
-        grad_worst, grads_ok = str(e), False
+    grad_worst, grads_ok = [], True
+    for a, b, tol in zip(g_c, g_p, tol_of):
+        try:
+            worst = close_leaves(a, b, 3e-4, scale_of=iso, tol_of=tol)
+            grad_worst.append(max(worst.values()))
+            if rounded:
+                grad_worst[-1] = {'all': grad_worst[-1], rounded: max(
+                    v for k, v in worst.items()
+                    if k.startswith(rounded + '/'))}
+        except AssertionError as e:
+            grad_worst.append(str(e))
+            grads_ok = False
+    choices_equal = all(r['choices_equal'] for r in r_c + r_p)
     param_worst, worst_leaf = params_over_tol(f_c, f_p, g_p, lrs, 2,
                                               scale_of=iso, cut_of=cut_of)
     same = {k: bool(np.array_equal(f_c[k], f_p[k]))
             for k in ('alive', 'sp_alive', 'joint_parents')}
-    return {'option': name, 'family': family, 'steps': list(steps),
-            'trainer_options': options, 'extra_loss_weights': extra,
-            'loss_cuda': [m['loss'] for m in m_c],
-            'loss_cpu': [m['loss'] for m in m_p],
-            'extra_losses_cuda': [{k: m[k] for k in extra if k in m}
-                                  for m in m_c],
-            'extra_losses_rel_err': {k: rel(k) for k in extra
-                                     if k in m_p[-1]},
-            'loss_rel_err': loss_err, 'loss_tolerance': loss_tol,
-            'grad_worst_err_over_max': grad_worst,
-            'grad_tolerance': {'default': 3e-4, **bars},
-            'grad_scale_of': iso,
-            'param_worst_over_tol': param_worst,
-            'param_worst_leaf': worst_leaf, 'equal': same,
-            'ok': bool(grads_ok and loss_err <= loss_tol
-                       and param_worst <= 1.0 and all(same.values()))}
+    rec = {'option': name, 'family': family, 'steps': list(steps),
+           'trainer_options': options, 'extra_loss_weights': extra,
+           'loss_cuda': [m['loss'] for m in m_c],
+           'loss_cpu': [m['loss'] for m in m_p],
+           'extra_losses_cuda': [{k: m[k] for k in extra if k in m}
+                                 for m in m_c],
+           'extra_losses_rel_err': {k: rel(k) for k in extra
+                                    if k in m_p[-1]},
+           'loss_rel_err': loss_err, 'loss_tolerance': loss_tol,
+           'grad_worst_err_over_max': grad_worst,
+           'grad_tolerance': {'default': 3e-4, **bars},
+           'grad_scale_of': iso,
+           'param_worst_over_tol': param_worst,
+           'param_worst_leaf': worst_leaf, 'equal': same,
+           'ok': bool(grads_ok and loss_err <= loss_tol
+                      and param_worst <= 1.0 and all(same.values())
+                      and choices_equal)}
+    if rounded:
+        rec.update({'rounded_losses': list(ROUNDED_REG_LOSSES),
+                    'rounding_over_max_by_step': rounding_over_max,
+                    'rounded_tolerance_min_by_step': [
+                        min(v for k, v in t.items()
+                            if k.startswith(rounded + '/')) for t in tol_of],
+                    'rounding_choices_equal': choices_equal,
+                    'second_step_from_card_state':
+                        bool(change.get('from_one_state'))})
+    return rec
 
 
 def phase_train_reference_options(seed: int):
@@ -3398,11 +3815,33 @@ def zju_extrinsics(Tv2w_cv: np.ndarray):
     return Tw2v_gl[:3, :3], Tw2v_gl[:3, 3:] * 1e3
 
 
-def write_zju(root: Path, train) -> dict:
+def write_jpegs(paths, frames, quality: int) -> dict:
+    """Write the uint8 RGB frames (on the card) as baseline 4:2:0 JPEG
+    files by ``encode_jpeg``, several at once; returns the seconds and
+    each file's decode by the port against its frame, PSNR."""
+    t0 = time.perf_counter()
+    host = [f.cpu().numpy() for f in frames]
+
+    def one(path, img):
+        data = encode_jpeg(img, quality)
+        Path(path).write_bytes(data)
+        dec = jpeg.decode_jpeg(data, str(path)).astype(np.float64)
+        mse = float(np.mean((dec - img) ** 2))
+        return 10 * math.log10(255.0 ** 2 / max(mse, 1e-12)), len(data)
+
+    with ThreadPoolExecutor(8) as pool:
+        out = list(pool.map(one, paths, host))
+    return {'write_s': time.perf_counter() - t0,
+            'psnr': [q for q, _ in out], 'bytes': [b for _, b in out]}
+
+
+def write_zju(root: Path, train, fmt: str = 'png') -> dict:
     """A ZJU-MoCap ``annots.npy`` layout (tests/test_torch_loaders.py's
     ``write_zju_annots``) at ZJU_HW px: the preset's chain over ZJU_FRAMES
     frames seen by ZJU_CAMERAS orbit cameras (intrinsics and poses that put
-    it in view), each image an RGB PNG with its mask beside it."""
+    it in view), each image an RGB PNG, or with ``fmt`` 'jpeg' a baseline
+    4:2:0 JPEG at ZJU_JPEG_QUALITY (the real dataset's format), with its
+    PNG mask beside it."""
     ds = train.dataset
     gt = make_chain_gt(np.random.default_rng(train.seed), ds.num_links,
                        ds.gauss_per_link, ZJU_FRAMES)
@@ -3414,37 +3853,55 @@ def write_zju(root: Path, train) -> dict:
     K = np.tile(np.array([[focal, 0, ZJU_HW / 2], [0, focal, ZJU_HW / 2],
                           [0, 0, 1]], np.float32), (ZJU_CAMERAS, 1, 1))
     RT = [zju_extrinsics(Tv2w[c]) for c in range(ZJU_CAMERAS)]
-    frames, paths, ims = [], [], []
+    suffix = '.jpg' if fmt == 'jpeg' else '.png'
+    images, masks, ims = [], [], []
     for f in range(ZJU_FRAMES):
         names = []
         for c in range(ZJU_CAMERAS):
             rgba = render_rgba(gt, f, Tv2w[c], fovx, ZJU_HW)
-            name = f'imgs/f{f:02d}_c{c:02d}.png'
-            frames += [rgba[..., :3], rgba[..., 3:].expand(-1, -1, 3)]
-            paths += [scene_root / name,
-                      scene_root / 'mask' / f'f{f:02d}_c{c:02d}.png']
+            name = f'imgs/f{f:02d}_c{c:02d}{suffix}'
+            images.append((scene_root / name, rgba[..., :3]))
+            masks.append((scene_root / 'mask' / f'f{f:02d}_c{c:02d}.png',
+                          rgba[..., 3:].expand(-1, -1, 3)))
             names.append(name)
         ims.append({'ims': names})
     np.save(scene_root / 'annots.npy', {'cams': {
         'K': K, 'R': np.stack([r for r, _ in RT]).astype(np.float32),
         'T': np.stack([t for _, t in RT]).astype(np.float32)}, 'ims': ims})
-    return {'write_s': write_pngs(paths, frames), 'Tv2w': Tv2w,
-            'fovx': fovx}
+    out = {'Tv2w': Tv2w, 'fovx': fovx}
+    if fmt == 'jpeg':
+        out.update(write_jpegs(*zip(*images), ZJU_JPEG_QUALITY))
+        out['write_s'] += write_pngs(*zip(*masks))
+    else:
+        out['write_s'] = write_pngs(*zip(*(images + masks)))
+    return out
 
 
-def phase_cli_train_zju(tmp: Path, train) -> dict:
+def load_per_view(rec: dict) -> dict:
+    """Load seconds a view, by split, of a ``train_cli_on`` record."""
+    return {x['split']: x['seconds'] / x['views'] for x in rec['load']}
+
+
+def phase_cli_train_zju(tmp: Path, train, fmt: str = 'png',
+                        png: dict = None) -> dict:
     """``cli.train`` on configs/zju.yaml (widths not cut; ``is_blender``
     false: the time noise live) on a ZJU-MoCap layout written at ZJU_HW px
     (ZJU_CAMERAS cameras, ZJU_FRAMES frames) for ZJU_STEPS steps: load
-    seconds by split, ms a step, the time noise's scale at those steps,
-    the cameras as written, the launches."""
-    written = write_zju(tmp / 'zju', train)
-    cfg = make_config(CLI_ZJU, [f'dataset.root={tmp / "zju"}'])
+    seconds by split and a view, ms a step, the time noise's scale at
+    those steps, the cameras as written, the launches. With ``fmt``
+    'jpeg' (phase cli_train_zju_jpeg) the frames are JPEG files, decoded
+    by the port (each at least JPEG_MIN_PSNR dB from its rendered frame),
+    beside the PNG layout's loads of the same call (``png``, phase
+    cli_train_zju's record). Returns (the launches, the record)."""
+    phase = 'cli_train_zju' + ('_jpeg' if fmt == 'jpeg' else '')
+    root = tmp / ('zju_jpeg' if fmt == 'jpeg' else 'zju')
+    written = write_zju(root, train, fmt)
+    cfg = make_config(CLI_ZJU, [f'dataset.root={root}'])
     skcfg, _ = build.build_model_cfg(cfg, types.SimpleNamespace(
         num_frames=ZJU_FRAMES), (ZJU_HW, ZJU_HW))
     rec, launches, loads = train_cli_on(
-        'cli_train_zju', CLI_ZJU, [f'dataset.root={tmp / "zju"}'],
-        ZJU_STEPS, 'load_zju', tmp / 'zju_out')
+        phase, CLI_ZJU, [f'dataset.root={root}'], ZJU_STEPS, 'load_zju',
+        root.with_name(root.name + '_out'))
     scene = loads[0]['scene']
     Tv2w = written['Tv2w'][scene.camera_ids.cpu().numpy()]
     cams_ok = bool(np.allclose(scene.Tw2v.cpu().numpy(),
@@ -3452,10 +3909,11 @@ def phase_cli_train_zju(tmp: Path, train) -> dict:
     n_eval = loads[1]['views']
     expected = expected_launches(ZJU_STEPS, n_eval)
     logged = [json.loads(line) for line in (
-        tmp / 'zju_out' / cfg['exp_name'] / 'metrics.jsonl'
-    ).read_text().splitlines()]
+        root.with_name(root.name + '_out') / cfg['exp_name']
+        / 'metrics.jsonl').read_text().splitlines()]
     rec.update({'hw': ZJU_HW, 'cameras': ZJU_CAMERAS, 'frames': ZJU_FRAMES,
-                'png_write_s': written['write_s'],
+                'format': fmt, 'write_s': written['write_s'],
+                'load_s_per_view': load_per_view(rec),
                 'is_blender': skcfg.net.is_blender,
                 'time_noise_scale': [smooth_scale(skcfg, s)
                                      for s in range(1, ZJU_STEPS + 1)],
@@ -3463,12 +3921,262 @@ def phase_cli_train_zju(tmp: Path, train) -> dict:
                                     for r in logged],
                 'cameras_as_written': cams_ok,
                 'expected_launches': expected})
+    psnr_ok = True
+    if fmt == 'jpeg':
+        psnr_ok = min(written['psnr']) > JPEG_MIN_PSNR
+        rec.update({'quality': ZJU_JPEG_QUALITY, 'sampling': '4:2:0',
+                    'decoded_psnr_min': min(written['psnr']),
+                    'decoded_psnr_mean': float(np.mean(written['psnr'])),
+                    'file_kb_mean': float(np.mean(written['bytes'])) / 1e3,
+                    'png_load': png['load'],
+                    'png_load_s_per_view': png['load_s_per_view'],
+                    'load_ratio_to_png': {
+                        k: v / png['load_s_per_view'][k]
+                        for k, v in rec['load_s_per_view'].items()}})
     emit(rec)
-    if skcfg.net.is_blender or not cams_ok or launches != expected:
-        raise AssertionError(f'cli_train_zju: is_blender '
-                             f'{skcfg.net.is_blender}, cameras {cams_ok}, '
+    if skcfg.net.is_blender or not cams_ok or launches != expected \
+            or not psnr_ok:
+        raise AssertionError(f'{phase}: is_blender {skcfg.net.is_blender}, '
+                             f'cameras {cams_ok}, PSNR ok {psnr_ok}, '
                              f'launches {launches} != {expected}')
-    return launches
+    return launches, rec
+
+
+def phase_jpeg(train) -> None:
+    """The port's JPEG decoder on the card's host: each committed fixture
+    (tests/fixtures/jpeg, written by Pillow and by ``encode_jpeg``) against
+    its committed Pillow decode, max abs difference 0; then the decode of
+    one frame at each of JPEG_TIMED (the preset's chain rendered at that
+    side, encoded at quality 90), ms."""
+    files = sorted(JPEG_FIXTURES.glob('*.jpg'))
+    fixtures = []
+    for f in files:
+        got = jpeg.read_jpeg(f)
+        ref = read_png(f.with_suffix('.png'))
+        ref = ref[..., 0] if got.ndim == 2 else ref
+        fixtures.append({'file': f.name, 'shape': list(got.shape),
+                         'max_abs_diff': int(np.abs(
+                             got.astype(np.int64) - ref).max())
+                         if got.shape == ref.shape else None})
+    ds = train.dataset
+    gt = make_chain_gt(np.random.default_rng(train.seed), ds.num_links,
+                       ds.gauss_per_link, 1)
+    timed = []
+    for name, hw, luma in JPEG_TIMED:
+        Tv2w, fovx = orbit_views(1, h=hw, w=hw)
+        img = render_rgba(gt, 0, Tv2w[0], fovx, hw)[..., :3].cpu().numpy()
+        data = encode_jpeg(img, 90, sampling=(luma, (1, 1), (1, 1)))
+        jpeg.decode_jpeg(data)
+        ms = []
+        for _ in range(JPEG_TIMED_REPS):
+            t0 = time.perf_counter()
+            dec = jpeg.decode_jpeg(data)
+            ms.append((time.perf_counter() - t0) * 1e3)
+        mse = float(np.mean((dec.astype(np.float64) - img) ** 2))
+        timed.append({'name': name, 'hw': hw, 'bytes': len(data),
+                      'ms_median': float(np.median(ms)),
+                      'ms_min': min(ms), 'ms_max': max(ms),
+                      'psnr': 10 * math.log10(255.0 ** 2 / max(mse, 1e-12))})
+    emit({'phase': 'jpeg', 'library': jpeg.LIBRARY.build_info,
+          'fixtures': fixtures, 'timed_decode': timed})
+    bad = [x for x in fixtures if x['max_abs_diff'] != 0]
+    if len(fixtures) < 10 or bad:
+        raise AssertionError(f'jpeg: {len(fixtures)} fixtures, differing '
+                             f'{bad}')
+
+
+def http_get(url: str):
+    """(status, content type, body, ms on the host clock)."""
+    t0 = time.perf_counter()
+    with urllib.request.urlopen(url, timeout=300) as r:
+        body = r.read()
+        return r.status, r.headers['Content-Type'], body, \
+            (time.perf_counter() - t0) * 1e3
+
+
+def ms_summary(ms) -> dict:
+    return {'n': len(ms), 'median': float(np.median(ms)), 'max': max(ms),
+            'min': min(ms)}
+
+
+def png_bytes_decoded(body: bytes, tmp: Path) -> np.ndarray:
+    path = tmp / 'viewer_frame.png'
+    path.write_bytes(body)
+    return read_png(path)
+
+
+def topk_card_vs_cpu(seed: int) -> dict:
+    """``render_topk`` of a small random scene (300 Gaussians, 64 x 48,
+    chunk 64) on the card and on the CPU: ids equal, weights within
+    TOPK_TOL."""
+    rng = np.random.default_rng(seed)
+    n = 300
+    q = rng.normal(size=(n, 4)).astype(np.float32)
+    arrays = {'means3d': rng.uniform(-0.6, 0.6, (n, 3)),
+              'scales': rng.uniform(0.02, 0.12, (n, 3)),
+              'rotations': q / np.linalg.norm(q, axis=-1, keepdims=True),
+              'opacities': rng.uniform(0.05, 0.99, n),
+              'colors': rng.uniform(0, 1, (n, 3))}
+    cfg = RasterConfig(image_width=64, image_height=48, sh_degree=0,
+                       pair_capacity=2 ** 14, chunk=64)
+    out = {}
+    for dev in ('cuda', 'cpu'):
+        g = GaussianInputs(**{k: torch.tensor(v, dtype=torch.float32,
+                                              device=dev)
+                              for k, v in arrays.items()})
+        eye = np.asarray([0.3, -0.2, -3.0], np.float32)
+        view = ViewParams(
+            Tw2v=look_at(eye, np.zeros(3, np.float32),
+                         np.asarray([0.0, -1.0, 0.0], np.float32),
+                         coord='opencv', device=dev),
+            Tv2c=perspective_opencv(0.8, size=(64, 48), device=dev),
+            campos=torch.from_numpy(eye).to(dev),
+            tan_fovx=torch.tensor(math.tan(0.8 / 2) * 64 / 48, device=dev),
+            tan_fovy=torch.tensor(math.tan(0.8 / 2), device=dev))
+        idx, w = render_topk(g, view, cfg, k=8)
+        out[dev] = (idx.cpu(), w.cpu())
+    (i_c, w_c), (i_p, w_p) = out['cuda'], out['cpu']
+    return {'ids_equal': bool(torch.equal(i_c, i_p)),
+            'weights_max_abs_err': float((w_c - w_p).abs().max()),
+            'contributors': int((i_p >= 0).sum()), 'tolerance': TOPK_TOL}
+
+
+def phase_viewer(root: Path, ckpt: Path) -> dict:
+    """The port's viewer (``cli.viewer``: ``build_state`` from
+    configs/synthetic_fullscale.yaml and the full-width ``sk`` checkpoint,
+    its HTTP server on 127.0.0.1, port 0, in a thread): VIEWER_REQUESTS
+    ``/render`` requests in each mode, ``/pick`` and ``/skeleton`` requests
+    and ``/info`` over urllib at orbit cameras, times and poses; ms a
+    request by endpoint (median, max); kernel #1 launched exactly once a
+    ``/render`` (the counts at 0 before each, read after); the ``rgb`` PNG
+    at a zero pose equal to ``render_eval``'s frame (to_uint8) and at a
+    pose to the deltas, render and white composite called directly;
+    ``render_topk``'s device ms (CUDA events) alone at full width; and
+    ``render_topk`` on the card against the CPU on a small scene. Returns
+    the launches over the requests."""
+    state = cli_viewer.build_state(cli_viewer.parse_args([
+        '-c', CLI_FULLSCALE, '--load', str(ckpt), '--device', 'cuda',
+        '--set', f'dataset.root={root}']))
+    server = ThreadingHTTPServer(('127.0.0.1', 0),
+                                 cli_viewer.make_handler(state))
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    base = f'http://127.0.0.1:{server.server_address[1]}'
+    rng = np.random.default_rng(SEED)
+    m = state.m
+    reqs = []
+    for i in range(VIEWER_REQUESTS):
+        pose = rng.uniform(-0.5, 0.5, (8, 3)) if i % 2 else np.zeros((0, 3))
+        reqs.append((2 * math.pi * i / VIEWER_REQUESTS,
+                     0.3 + 0.2 * math.sin(i), state.radius0 * (0.9 + 0.1 *
+                                                               (i % 3)),
+                     i / (VIEWER_REQUESTS - 1),
+                     ';'.join(','.join(f'{v:.3f}' for v in r) for r in pose)))
+    q = lambda r: (f'theta={r[0]}&phi={r[1]}&radius={r[2]}&t={r[3]}'
+                   f'&pose={r[4]}')
+    ms = {}
+    per_render, bad = [], []
+    try:
+        status, _, body, ms['info'] = http_get(base + '/info')
+        info = json.loads(body)
+        torch.cuda.synchronize()
+        for k in KERNELS:
+            k.launches = 0
+        for mode in VIEWER_MODES:
+            ms[mode] = []
+            for i, r in enumerate(reqs):
+                before = {k.name: k.launches for k in KERNELS}
+                status, ctype, body, t = http_get(
+                    f'{base}/render?mode={mode}&sel={i % m}&' + q(r))
+                got = {k.name: k.launches - before[k.name] for k in KERNELS}
+                per_render.append(got[tile_blend_fwd.name])
+                if (status, ctype) != (200, 'image/png') or got != {
+                        tile_blend_fwd.name: 1, tile_blend_bwd.name: 0,
+                        chunk_blend_fwd.name: 0, chunk_blend_bwd.name: 0}:
+                    bad.append((mode, i, status, got))
+                ms[mode].append(t)
+        picks, ms['pick'] = [], []
+        for i, r in enumerate(reqs):
+            x, y = (37 * i + 11) % state.w, (53 * i + 7) % state.h
+            _, _, body, t = http_get(f'{base}/pick?x={x}&y={y}&' + q(r))
+            picks.append(json.loads(body))
+            ms['pick'].append(t)
+        skels, ms['skeleton'] = [], []
+        for r in reqs:
+            _, _, body, t = http_get(f'{base}/skeleton?' + q(r))
+            skels.append(json.loads(body))
+            ms['skeleton'].append(t)
+        torch.cuda.synchronize()
+        total = {k.name: k.launches for k in KERNELS}
+        # the rgb frame against the render called directly
+        frames = {}
+        for i in (0, 1):
+            r = reqs[i]
+            _, _, body, _ = http_get(f'{base}/render?mode=rgb&' + q(r))
+            got = png_bytes_decoded(body, root)
+            view = state.make_view(r[0], r[1], r[2])
+            pose = torch.from_numpy(cli_viewer.parse_pose(r[4], m)).cuda()
+            ones = torch.ones(3, device='cuda')
+            if i == 0:
+                ref = render_eval(state.model, view, r[3], ones, 'sk',
+                                  state.rcfg)['image']
+            else:
+                with torch.no_grad():
+                    d = forward_deltas(state.skcfg, state.model,
+                                       torch.tensor(r[3], device='cuda'),
+                                       'sk', sk_r_delta=pose)
+                    g = gaussian_inputs(state.model.gauss_view(),
+                                        state.skcfg.gauss, d_xyz=d.d_xyz,
+                                        d_rotation=d.d_rotation,
+                                        d_scaling=d.d_scaling)
+                    out = render(g, view, state.rcfg,
+                                 active_sh_degree=state.model
+                                 .active_sh_degree)
+                    ref = composite_background(out['images'],
+                                               out['opacity'], ones)
+            ref = to_uint8(ref.cpu().numpy())
+            frames['zero_pose' if i == 0 else 'pose'] = int(np.abs(
+                got.astype(np.int64) - ref).max()) \
+                if got.shape == ref.shape else None
+        # render_topk alone, device time
+        r = reqs[1]
+        with torch.inference_mode():
+            view = state.make_view(r[0], r[1], r[2])
+            g, _ = state.inputs(r[3], cli_viewer.parse_pose(r[4], m))
+            topk_ms = cuda_ms(lambda: render_topk(g, view, state.rcfg,
+                                                  k=cli_viewer.PICK_K), 3, 1)
+            pre = preprocess(g, view, state.rcfg)
+            counts = build_tile_lists(pre, state.rcfg).tile_count
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join()
+    small = topk_card_vs_cpu(SEED)
+    picked = [p['superpoint'] for p in picks]
+    rec = {'phase': 'viewer', 'requests_each': VIEWER_REQUESTS,
+           'image': [state.h, state.w], 'info': info,
+           'ms_by_endpoint': {k: ms_summary(v) if isinstance(v, list)
+                              else v for k, v in ms.items()},
+           'fwd_launches_per_render': sorted(set(per_render)),
+           'launches': total, 'bad_renders': bad,
+           'rgb_png_vs_direct_max_abs_diff': frames,
+           'picks_on_a_superpoint': sum(p >= 0 for p in picked),
+           'skeleton_alive': [sum(s['alive']) for s in skels[:3]],
+           'topk_device_ms': topk_ms, 'topk_k': cli_viewer.PICK_K,
+           'longest_tile_list': int(counts.max()),
+           'chunk': state.rcfg.chunk, 'topk_card_vs_cpu_small': small}
+    emit(rec)
+    want = {tile_blend_fwd.name: len(VIEWER_MODES) * VIEWER_REQUESTS,
+            tile_blend_bwd.name: 0, chunk_blend_fwd.name: 0,
+            chunk_blend_bwd.name: 0}
+    if bad or total != want or any(v != 0 for v in frames.values()) \
+            or info['width'] != state.w or info['num_joints'] != m \
+            or not any(p >= 0 for p in picked) \
+            or not small['ids_equal'] \
+            or small['weights_max_abs_err'] > TOPK_TOL:
+        raise AssertionError(f'viewer: bad renders {bad}, launches {total} '
+                             f'!= {want}, frames {frames}, topk {small}')
+    return total
 
 
 def phase_cli_train_options(tmp: Path, smoke_ms: dict) -> dict:
@@ -3536,7 +4244,11 @@ def phase_clis(sweep: bool) -> dict:
         paths['cli_train_dnerf_random'] = rnd['cli']
         paths['train_dynamic_bg'] = rnd['dynamic']
         paths['cli_train_wim'] = phase_cli_train_wim(tmp / 'data', train)
-        paths['cli_train_zju'] = phase_cli_train_zju(tmp / 'data', train)
+        paths['cli_train_zju'], png = phase_cli_train_zju(tmp / 'data',
+                                                          train)
+        paths['cli_train_zju_jpeg'], _ = phase_cli_train_zju(
+            tmp / 'data', train, 'jpeg', png)
+        paths['viewer'] = phase_viewer(tmp / 'test', ckpt)
     return paths
 
 
@@ -3558,11 +4270,12 @@ def main(argv=None) -> int:
           'torch': torch.__version__, 'cuda': torch.version.cuda})
 
     t0 = time.perf_counter()
-    infos = build_all([k.library for k in KERNELS])
+    infos = build_all([k.library for k in KERNELS] + [jpeg.LIBRARY])
     emit({'phase': 'build', 'seconds': time.perf_counter() - t0,
           'libraries': infos})
 
     cfg, rcfg, train = synthetic_fullscale()
+    phase_jpeg(train)
     flat = random_model_flat(cfg, SEED, n_alive=80_000)
     model = convert.model_from_flat(flat, cfg, rcfg, device='cuda')
     views, times = requests(N_REQUESTS, rcfg.image_width,

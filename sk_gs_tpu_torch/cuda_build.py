@@ -1,7 +1,10 @@
-"""Build and load the hand-written CUDA kernels (``csrc/*.cu``).
+"""Build and load the hand-written CUDA kernels (``csrc/*.cu``) and the
+host libraries (``csrc/*.cpp``).
 
-Each source is compiled by ``nvcc`` for ``sm_90a`` into a shared library
-with a plain C interface, loaded with ``ctypes``. Libraries go to
+Each CUDA source is compiled by ``nvcc`` for ``sm_90a``, each host source
+by the C++ compiler (``c++`` or ``g++``, ``-O2``, no ``-ffast-math``), into
+a shared library with a plain C interface, loaded with ``ctypes``.
+Libraries go to
 ``build/torch_kernels/`` at the root of the checkout, named by a hash of the
 source and the ``csrc`` headers it includes (``#include "..."``), so a
 changed source or header is rebuilt and an unchanged one is reused.
@@ -16,6 +19,7 @@ import os
 import re
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 from typing import Dict, List, Optional
@@ -29,6 +33,8 @@ _LOCAL_INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
 NVCC_FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
               '--fmad=false', '-shared', '-Xcompiler', '-fPIC',
               '-Xptxas', '-v']
+# host libraries: no -ffast-math, so the arithmetic is the source's
+CXX_FLAGS = ['-std=c++17', '-O2', '-shared', '-fPIC']
 
 
 def nvcc_path() -> str:
@@ -42,13 +48,26 @@ def nvcc_path() -> str:
                        'machine with the CUDA toolkit')
 
 
+def cxx_path() -> str:
+    for name in ('c++', 'g++'):
+        found = shutil.which(name)
+        if found:
+            return found
+    raise RuntimeError('no C++ compiler (c++ or g++) found: the host '
+                       'libraries build from their sources at first use')
+
+
 class CudaLibrary:
     """One ``csrc`` source compiled to one shared library."""
 
     def __init__(self, source: str):
         self.source = PACKAGE_DIR / 'csrc' / source
         self._lib: Optional[ctypes.CDLL] = None
+        self._lock = threading.Lock()
         self.build_info: Dict = {}
+
+    def command(self, out: Path) -> List[str]:
+        return [nvcc_path(), *NVCC_FLAGS, '-o', str(out), str(self.source)]
 
     def files(self) -> List[Path]:
         """The source and, transitively, the headers beside it that it
@@ -77,8 +96,7 @@ class CudaLibrary:
             return None
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = self.lib_path.with_suffix(f'.{os.getpid()}.tmp')
-        cmd = [nvcc_path(), *NVCC_FLAGS, '-o', str(tmp), str(self.source)]
-        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+        proc = subprocess.Popen(self.command(tmp), stdout=subprocess.PIPE,
                                 stderr=subprocess.STDOUT, text=True)
         proc.tmp_path = tmp
         proc.t0 = time.perf_counter()
@@ -90,7 +108,8 @@ class CudaLibrary:
         out, _ = proc.communicate()
         seconds = time.perf_counter() - proc.t0
         if proc.returncode != 0:
-            raise RuntimeError(f'nvcc failed for {self.source}:\n{out}')
+            raise RuntimeError(f'{Path(proc.args[0]).name} failed for '
+                               f'{self.source}:\n{out}')
         os.replace(proc.tmp_path, self.lib_path)
         ptxas = [ln.strip() for ln in out.splitlines()
                  if 'registers' in ln or 'smem' in ln or 'spill' in ln]
@@ -99,13 +118,21 @@ class CudaLibrary:
         return self.build_info
 
     def load(self) -> ctypes.CDLL:
-        if self._lib is None:
-            self.finish_build(self.start_build())
-            self._lib = ctypes.CDLL(str(self.lib_path))
+        with self._lock:  # the first use may come from several threads
+            if self._lib is None:
+                self.finish_build(self.start_build())
+                self._lib = ctypes.CDLL(str(self.lib_path))
         return self._lib
 
     def _rel_source(self) -> str:
         return str(self.source.relative_to(REPO_ROOT))
+
+
+class HostLibrary(CudaLibrary):
+    """One ``csrc`` C++ source for the host, compiled by ``c++``."""
+
+    def command(self, out: Path) -> List[str]:
+        return [cxx_path(), *CXX_FLAGS, '-o', str(out), str(self.source)]
 
 
 def build_all(libraries: List[CudaLibrary]) -> List[Dict]:

@@ -3,7 +3,8 @@ reconstruction in text (``*.txt``) or binary (``*.bin``) form, cameras
 PINHOLE / SIMPLE_PINHOLE / SIMPLE_RADIAL (the first parameter is the
 focal), every ``llffhold``-th image (sorted by name) held out for the test
 split, and the seed point cloud (``points3D``) for the first Gaussians.
-Real COLMAP scenes ship JPEG images, which the port cannot decode yet.
+Real COLMAP scenes ship JPEG images; ``load_images`` reads JPEG and PNG
+files by their first bytes.
 """
 from __future__ import annotations
 

@@ -3,8 +3,10 @@
 ``camera_angle_x`` and each frame's OpenGL ``transform_matrix`` (camera to
 world) and ``time``, and ``<file_path>.png`` images, RGBA over white.
 
-The images are decoded by the port's own PNG reader and resized by its own
-copy of Pillow's bilinear filter.
+The images are decoded by the port's own readers, picked by each file's
+first bytes (``utils/png.py:read_pngs``: PNG, or baseline JPEG through
+``utils/jpeg.py``), and resized by its own copy of Pillow's bilinear
+filter.
 """
 from __future__ import annotations
 
@@ -41,8 +43,9 @@ def load_image(path, downscale: float = 1) -> np.ndarray:
 
 def load_images(paths: Sequence, downscale: float = 1) -> np.ndarray:
     """uint8 [F, ...] of ``load_image`` over ``paths``: the files decoded
-    several at a time (``read_pngs``), the resizes on a thread pool (numpy
-    releases the interpreter lock in their long loops)."""
+    by ``read_pngs`` (PNG files several at a time, JPEG files on a thread
+    pool), the resizes on a thread pool (numpy releases the interpreter
+    lock in their long loops)."""
     imgs = read_pngs(paths)
     with ThreadPoolExecutor(min(len(imgs), os.cpu_count() or 1, 8) or 1) \
             as pool:

@@ -7,8 +7,8 @@ and T, T in millimetres; each frame's image list), the train cameras {0,
 ``mask_dir`` as alpha. ``load_zju_pickled`` reads one pickle a split of
 images, masks (blosc-compressed unless ``compression`` is off), and
 per-(camera, frame) intrinsics and extrinsics, each camera with its own
-projection. The real dataset's images are JPEG files, which the port
-cannot decode yet (``read_png`` raises, naming the file).
+projection. The real dataset's images are JPEG files and its masks PNG
+files; ``load_image`` reads either by its first bytes.
 """
 from __future__ import annotations
 

@@ -126,8 +126,12 @@ def deform_net_apply(net: DeformNet, cfg: DeformNetConfig, x: torch.Tensor,
                      t: torch.Tensor) -> Dict[str, torch.Tensor]:
     """x [N, 3], t a scalar or [N, 1] -> {'d_xyz', 'd_rotation',
     'd_scaling', 'hidden'} (and 'g_rotation' with ``sep_rot``), float32,
-    computed in ``cfg.compute_dtype``."""
+    computed in ``cfg.compute_dtype``. A float64 ``x`` with a float64 copy
+    of the net computes and returns float64 (the float64 twin that
+    ``chip_smoke.py`` measures the float32 rounding against)."""
     dt = compute_dtype(cfg.compute_dtype)
+    if x.dtype == torch.float64:
+        dt = torch.float64
     t = torch.broadcast_to(torch.reshape(t, (-1, 1)), (x.shape[0], 1))
     t_emb = cfg.t_enc(t).to(dt)
     if cfg.is_blender:
@@ -147,7 +151,7 @@ def deform_net_apply(net: DeformNet, cfg: DeformNetConfig, x: torch.Tensor,
            'd_scaling': scaling, 'hidden': h}
     if hasattr(net, 'local_rotation'):
         out['g_rotation'] = linear_apply(net.local_rotation, h)
-    if dt != torch.float32:
+    if dt not in (torch.float32, torch.float64):
         out = {k: v.to(torch.float32) for k, v in out.items()}
     return out
 

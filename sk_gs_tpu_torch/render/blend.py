@@ -39,6 +39,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from .binning import chunk_fields
 from .settings import TILE, RasterConfig
 
 ALPHA_MIN = 1.0 / 255.0
@@ -384,14 +385,104 @@ def chunk_blend_backward_rows_plain(geo: torch.Tensor, col: torch.Tensor,
                              geo.shape[0])
 
 
+def tiles_to_image(x: torch.Tensor, cfg: RasterConfig) -> torch.Tensor:
+    """[T, P, C] per tile -> [H, W, C], cropped."""
+    C = x.shape[-1]
+    gh, gw, th = cfg.grid_h, cfg.grid_w, cfg.tile_h
+    x = x.reshape(gh, gw, th, TILE, C).permute(0, 2, 1, 3, 4) \
+        .reshape(gh * th, gw * TILE, C)
+    return x[:cfg.image_height, :cfg.image_width]
+
+
 def assemble_image(tile_color: torch.Tensor, tile_alpha: torch.Tensor,
                    cfg: RasterConfig) -> Dict[str, torch.Tensor]:
     """[T, P, CH] tiles -> [H, W, CH] image and [H, W] opacity, cropped."""
-    CH = tile_color.shape[-1]
-    gh, gw, th = cfg.grid_h, cfg.grid_w, cfg.tile_h
-    img = tile_color.reshape(gh, gw, th, TILE, CH)
-    img = img.permute(0, 2, 1, 3, 4).reshape(gh * th, gw * TILE, CH)
-    alpha = tile_alpha.reshape(gh, gw, th, TILE)
-    alpha = alpha.permute(0, 2, 1, 3).reshape(gh * th, gw * TILE)
-    H, W = cfg.image_height, cfg.image_width
-    return {'images': img[:H, :W], 'opacity': alpha[:H, :W]}
+    return {'images': tiles_to_image(tile_color, cfg),
+            'opacity': tiles_to_image(tile_alpha[..., None], cfg)[..., 0]}
+
+
+# entries x pixels of one batch of topk_weights' tiles: bounds its [A, C, P]
+# temporaries (~64 MB each in float32)
+TOPK_BATCH_ELEMS = 2 ** 24
+
+
+def topk_weights(binned, geo: torch.Tensor, cfg: RasterConfig, k: int = 5
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-pixel top-k contributing Gaussians and their blend weights (the
+    picking path; port of ``sk_gs_tpu/render/blend_xla.py:topk_weights``).
+    ``geo`` [n + 1, 6] are ``prepare_blend``'s depth-ordered rows. Returns
+    (indices [H, W, k] int32 of the original Gaussians, -1 where fewer
+    than k contribute; weights [H, W, k]).
+
+    The JAX function's rules, which are not ``render``'s: each tile's list
+    in chunks of ``cfg.chunk`` entries (``binning.chunk_fields``, whatever
+    ``cfg.schedule`` says); the power cut at 0 (``chunk_alpha``); in a
+    chunk, an entry contributes while T (1 - alpha) >= 1e-4, with weight
+    alpha T, and the pixel's transmittance after the chunk is T times the
+    (1 - alpha) of its contributing entries only, so a pixel that fell
+    below 1e-4 inside a chunk resumes at the next one; after each chunk
+    the running top k and the chunk's weights merge by a stable descending
+    sort (``jax.lax.top_k``: ties to the lower index, the running entries
+    first). The scan runs over each chunk's rank inside its tile, every
+    tile at once: as many steps as the longest list has chunks (times the
+    batches of tiles that bound the temporaries)."""
+    C, P, T = cfg.chunk, cfg.pix_per_tile, cfg.num_tiles
+    dev = geo.device
+    chunk_tile, start_flag, chunk_src, chunk_valid = (
+        f.to(torch.int64) for f in chunk_fields(
+            binned.tile_start.to(torch.int64),
+            binned.tile_count.to(torch.int64), cfg))
+    cidx = torch.arange(chunk_tile.shape[0], device=dev)
+    rank = cidx - torch.cummax(torch.where(start_flag > 0, cidx, 0), 0).values
+    # the chunks of each rank together (the trailing chunks, with no
+    # entries, change nothing and are left out); the nonzero and the
+    # counts are the only host syncs
+    real = torch.nonzero(chunk_valid > 0).squeeze(1)
+    by_rank = real[torch.sort(rank[real], stable=True).indices]
+    per_rank = torch.bincount(rank[real]).tolist() if real.numel() else []
+    sort_gauss = binned.sort_gauss.to(torch.int64)
+    px, py = tile_pixel_coords(cfg, dev)
+    t_run = torch.ones((T, P), device=dev)
+    top_w = torch.zeros((T, P, k), device=dev)
+    top_i = torch.full((T, P, k), -1, dtype=torch.int64, device=dev)
+    lane = torch.arange(C, device=dev)
+    batch = max(1, TOPK_BATCH_ELEMS // (C * P))
+    start = 0
+    for n_rank in per_rank:
+        chunks = by_rank[start:start + n_rank]
+        start += n_rank
+        for cs in torch.split(chunks, batch):
+            ts = chunk_tile[cs]
+            gi = sort_gauss[chunk_src[cs][:, None] + lane]           # [A, C]
+            g = geo[gi]                                            # [A, C, 6]
+            dx = px[ts][:, None, :] - g[..., 0:1]                  # [A, C, P]
+            dy = py[ts][:, None, :] - g[..., 1:2]
+            power = (-0.5 * (g[..., 2:3] * dx * dx + g[..., 4:5] * dy * dy)
+                     - g[..., 3:4] * dx * dy)
+            alpha = torch.clamp(
+                g[..., 5:6] * torch.exp(torch.clamp(power, max=0.0)),
+                max=ALPHA_MAX)
+            keep = (power <= 0.0) & (alpha >= ALPHA_MIN) \
+                & (lane[None, :, None] < chunk_valid[cs][:, None, None])
+            alpha = torch.where(keep, alpha, 0.0)
+            om = 1.0 - alpha
+            t0 = t_run[ts]
+            p_incl = t0[:, None, :] * torch.cumprod(om, dim=1)
+            contrib = p_incl >= T_EPS
+            w = torch.where(contrib, alpha * p_incl / om, 0.0)
+            t_run[ts] = t0 * torch.prod(torch.where(contrib, om, 1.0), dim=1)
+            all_w = torch.cat([top_w[ts], w.transpose(1, 2)], dim=-1)
+            all_i = torch.cat([top_i[ts], gi[:, None, :].expand(
+                -1, P, -1)], dim=-1)
+            new_w, sel = torch.sort(all_w, dim=-1, descending=True,
+                                    stable=True)
+            new_w, sel = new_w[..., :k], sel[..., :k]
+            new_i = torch.gather(all_i, -1, sel)
+            top_w[ts] = new_w
+            top_i[ts] = torch.where(new_w > 0, new_i, -1)
+    wimg = tiles_to_image(top_w, cfg)
+    iimg = tiles_to_image(top_i, cfg)
+    # depth ranks -> the original Gaussian ids
+    order = binned.depth_order.to(torch.int64)
+    iimg = torch.where(iimg >= 0, order[torch.clamp(iimg, min=0)], -1)
+    return iimg.to(torch.int32), wimg

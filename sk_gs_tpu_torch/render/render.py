@@ -1,8 +1,10 @@
 """Render API: preprocess -> binning -> tile blend (port of
 ``sk_gs_tpu/render/render.py``).
 
-Returns pre-background ``images`` [H, W, C] and ``opacity`` [H, W]; the
-caller composites with ``composite_background``.
+``render`` returns pre-background ``images`` [H, W, C] and ``opacity``
+[H, W]; the caller composites with ``composite_background``.
+``render_topk`` gives each pixel's top-k Gaussians and blend weights (the
+viewer's picking).
 """
 from __future__ import annotations
 
@@ -11,7 +13,7 @@ from typing import Dict, NamedTuple, Optional
 import torch
 
 from .binning import BinnedSplats, build_tile_lists
-from .blend import assemble_image
+from .blend import assemble_image, topk_weights
 from .preprocess import PreprocessOut, preprocess
 from .settings import GaussianInputs, RasterConfig, ViewParams
 from .tile_kernel import ChunkBlend, TileBlend
@@ -90,6 +92,17 @@ def render(g: GaussianInputs, view: ViewParams, cfg: RasterConfig,
     if g.extras is not None:
         result['extras'] = images[..., 3:]
     return result
+
+
+def render_topk(g: GaussianInputs, view: ViewParams, cfg: RasterConfig,
+                k: int = 8, active_sh_degree: Optional[torch.Tensor] = None):
+    """Per-pixel top-k contributing Gaussian ids and blend weights (port of
+    ``sk_gs_tpu/render/render.py:render_topk``): (indices [H, W, k] int32
+    into the input Gaussians, -1 where fewer than k contribute; weights
+    [H, W, k]), by ``blend.topk_weights`` in plain torch ops (the JAX
+    package computes it in XLA, not in a kernel)."""
+    _, binned, geo, _ = prepare_blend(g, view, cfg, active_sh_degree)
+    return topk_weights(binned, geo, cfg, k=k)
 
 
 def composite_background(images: torch.Tensor, opacity: torch.Tensor,

@@ -1,14 +1,16 @@
 """8-bit PNG files with the standard library only (``zlib`` and
-``struct``; the card's machine has no Pillow).
+``struct``; the card's machine has no Pillow), and the image readers that
+pick a file's decoder by its first bytes.
 
-``write_png`` writes an [H, W, 3] or [H, W, 4] uint8 array (or floats in
-[0, 1], clipped and scaled by 255 as the JAX package's frames are),
-non-interlaced, each row with the filter that minimises the sum of its
-bytes taken as signed, the heuristic of libpng and Pillow. ``read_png``
-reads 8-bit greyscale, grey + alpha, RGB and RGBA files, non-interlaced,
-with any of the five row filters; it checks every chunk's CRC. Palette,
-16-bit and interlaced files raise, and so does a JPEG file, for which the
-card's machine has no decoder.
+``encode_png`` gives the bytes of an [H, W, 3] or [H, W, 4] uint8 array
+(or floats in [0, 1], clipped and scaled by 255 as the JAX package's
+frames are) as a PNG file, non-interlaced, each row with the filter that
+minimises the sum of its bytes taken as signed, the heuristic of libpng
+and Pillow; ``write_png`` writes them. ``read_png`` and ``read_pngs`` read
+8-bit greyscale, grey + alpha, RGB and RGBA PNG files, non-interlaced,
+with any of the five row filters, every chunk's CRC checked (palette,
+16-bit and interlaced files raise), and baseline JPEG files through
+``utils/jpeg.py``; any other file raises.
 
 Sub, Average and Paeth predict a byte from its left neighbour, so a row
 cannot be undone in one vector step. ``read_png`` undoes the filters on
@@ -19,15 +21,19 @@ the mix of filters.
 """
 from __future__ import annotations
 
+import os
 import struct
 import zlib
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import List, Sequence, Tuple
 
 import numpy as np
 
+from .jpeg import SIGNATURE as JPEG_SIGNATURE
+from .jpeg import decode_jpeg
+
 SIGNATURE = b'\x89PNG\r\n\x1a\n'
-JPEG_SIGNATURE = b'\xff\xd8\xff'
 _CHANNELS = {0: 1, 4: 2, 2: 3, 6: 4}      # colour type -> channels
 _COLOUR_TYPE = {c: t for t, c in _CHANNELS.items()}
 
@@ -62,7 +68,8 @@ def _filtered_rows(x: np.ndarray, c: int) -> np.ndarray:
     return np.stack([(x - p) & 0xFF for p in preds])
 
 
-def write_png(path, img) -> Path:
+def encode_png(img) -> bytes:
+    """The PNG file of ``img`` [H, W, 3|4] (uint8, or floats in [0, 1])."""
     img = to_uint8(img)
     if img.ndim != 3 or img.shape[2] not in (3, 4):
         raise ValueError(f'need [H, W, 3|4], got {img.shape}')
@@ -75,10 +82,14 @@ def write_png(path, img) -> Path:
     rows = np.concatenate([best[:, None].astype(np.uint8),
                            cand[best, np.arange(h)].astype(np.uint8)], axis=1)
     ihdr = struct.pack('>IIBBBBB', w, h, 8, _COLOUR_TYPE[c], 0, 0, 0)
+    return (SIGNATURE + _chunk(b'IHDR', ihdr)
+            + _chunk(b'IDAT', zlib.compress(rows.tobytes(), 6))
+            + _chunk(b'IEND', b''))
+
+
+def write_png(path, img) -> Path:
     path = Path(path)
-    path.write_bytes(SIGNATURE + _chunk(b'IHDR', ihdr)
-                     + _chunk(b'IDAT', zlib.compress(rows.tobytes(), 6))
-                     + _chunk(b'IEND', b''))
+    path.write_bytes(encode_png(img))
     return path
 
 
@@ -142,16 +153,12 @@ def _unfilter(raw: np.ndarray, filters: np.ndarray) -> np.ndarray:
     return buf[1:, h + 1:h + 1 + w].astype(np.uint8)
 
 
-def _filtered(path) -> Tuple[np.ndarray, np.ndarray]:
-    """(filtered bytes [H, W, C] uint8, row filters [H]) of an 8-bit
-    non-interlaced PNG file, every chunk's CRC checked."""
-    data = Path(path).read_bytes()
-    if data[:3] == JPEG_SIGNATURE:
-        raise NotImplementedError(
-            f'{path}: a JPEG image; the port reads PNG only (the card\'s '
-            'machine has no JPEG decoder)')
+def _filtered(data: bytes, path) -> Tuple[np.ndarray, np.ndarray]:
+    """(filtered bytes [H, W, C] uint8, row filters [H]) of the 8-bit
+    non-interlaced PNG file ``data`` read from ``path``, every chunk's CRC
+    checked."""
     if data[:8] != SIGNATURE:
-        raise ValueError(f'{path}: not a PNG file')
+        raise ValueError(f'{path}: neither a PNG nor a JPEG file')
     pos, idat, head = 8, [], None
     while pos < len(data):
         n, = struct.unpack('>I', data[pos:pos + 4])
@@ -183,11 +190,28 @@ def _filtered(path) -> Tuple[np.ndarray, np.ndarray]:
     return raw[:, 1:].reshape(h, w, c), filters
 
 
+def _decoded_jpeg(data: bytes, path) -> np.ndarray:
+    img = decode_jpeg(data, str(path))
+    return img[..., None] if img.ndim == 2 else img
+
+
 def read_pngs(paths: Sequence, batch: int = 8) -> List[np.ndarray]:
-    """[H, W, C] uint8 of each 8-bit non-interlaced PNG file in ``paths``;
-    up to ``batch`` files of one shape in a row are decoded together."""
-    files = [_filtered(p) for p in paths]
-    out = []
+    """[H, W, C] uint8 of each image file in ``paths``, by its first bytes:
+    a JPEG file decoded by ``utils/jpeg.py`` (greyscale as C = 1), the JPEG
+    files on a thread pool; an 8-bit non-interlaced PNG file by the
+    diagonal unfilter, up to ``batch`` PNG files of one shape in a row
+    decoded together."""
+    datas = [Path(p).read_bytes() for p in paths]
+    out: List = [None] * len(datas)
+    jpegs = [i for i, d in enumerate(datas) if d[:3] == JPEG_SIGNATURE]
+    if jpegs:
+        workers = min(len(jpegs), os.cpu_count() or 1, 8)
+        with ThreadPoolExecutor(workers) as pool:
+            for i, img in zip(jpegs, pool.map(
+                    lambda i: _decoded_jpeg(datas[i], paths[i]), jpegs)):
+                out[i] = img
+    pngs = [i for i, o in enumerate(out) if o is None]
+    files = [_filtered(datas[i], paths[i]) for i in pngs]
     i = 0
     while i < len(files):
         shape = files[i][0].shape
@@ -198,12 +222,12 @@ def read_pngs(paths: Sequence, batch: int = 8) -> List[np.ndarray]:
         filters = np.repeat(np.stack([f for _, f in files[i:j]], axis=1),
                             shape[2], axis=1)
         dec = _unfilter(raw, filters)
-        out += [dec[..., k * shape[2]:(k + 1) * shape[2]]
-                for k in range(j - i)]
+        for k in range(j - i):
+            out[pngs[i + k]] = dec[..., k * shape[2]:(k + 1) * shape[2]]
         i = j
     return out
 
 
 def read_png(path) -> np.ndarray:
-    """[H, W, C] uint8 of an 8-bit non-interlaced PNG file."""
+    """[H, W, C] uint8 of one PNG or JPEG file (``read_pngs``)."""
     return read_pngs([path])[0]

@@ -6,7 +6,9 @@ conftest.py sets up JAX, which these tests do not use):
     python -m pytest tests/test_torch_gpu.py -m gpu -q --noconftest
 
 Elsewhere every test skips (the card is looked for inside the fixture, never
-at import or collection). The chunk-schedule kernels (#3, #4) are held to the
+at import or collection). Beside the kernels: the JPEG decoder built on the
+card's machine against the committed fixtures' decodes, and the viewer's
+top-k (plain torch ops) on the card against the CPU. The chunk-schedule kernels (#3, #4) are held to the
 same bars as the tile kernels (#1, #2). Tolerance of the forward 1e-4: power and alpha
 round the same on both sides (see csrc/tile_blend_fwd.cu); the
 transmittance products and the colour sums are taken in another order, and
@@ -723,3 +725,36 @@ def test_init_skeleton_card_matches_cpu(cuda, monkeypatch):
                                     [g[name] for g in grads[n:]], lr, 2 * n)
     assert len(grads) == 2 * n and 'sp_W' in grads[n]
     assert max(worst.values()) <= 1.0, worst
+
+
+JPEG_FIXTURES = Path(__file__).parent / 'fixtures' / 'jpeg'
+
+
+@pytest.mark.parametrize('name', sorted(
+    p.stem for p in JPEG_FIXTURES.glob('*.jpg')))
+def test_jpeg_fixtures_on_the_card_machine(cuda, name):
+    """The JPEG decoder built on the card's machine (its own C++ compiler)
+    decodes each committed fixture as Pillow did where it was written."""
+    from sk_gs_tpu_torch.utils.jpeg import read_jpeg
+    from sk_gs_tpu_torch.utils.png import read_png
+    got = read_jpeg(JPEG_FIXTURES / f'{name}.jpg')
+    ref = read_png(JPEG_FIXTURES / f'{name}.png')
+    np.testing.assert_array_equal(got, ref[..., 0] if got.ndim == 2 else ref)
+
+
+@pytest.mark.parametrize('chunk', [32, 128])
+def test_topk_weights_card_matches_cpu(cuda, chunk):
+    """The viewer's per-pixel top-k (plain torch ops) on the card against
+    the CPU: ids equal, weights within 1e-5."""
+    from sk_gs_tpu_torch.render.render import render_topk
+    cfg = RasterConfig(image_width=96, image_height=80, sh_degree=0,
+                       pair_capacity=2 ** 15, chunk=chunk)
+    out = {}
+    for dev in ('cuda', 'cpu'):
+        g = random_scene(400, dev, seed=5)
+        view = orbit_view(0.4, cfg.image_width, cfg.image_height, device=dev)
+        idx, w = render_topk(g, view, cfg, k=8)
+        out[dev] = (idx.cpu(), w.cpu())
+    assert torch.equal(out['cuda'][0], out['cpu'][0])
+    assert float((out['cuda'][1] - out['cpu'][1]).abs().max()) <= 1e-5
+    assert int((out['cpu'][0] >= 0).sum()) > 1000

@@ -187,7 +187,7 @@ def test_zju_pickled_blosc_missing():
 
 
 def write_zju_annots(root: Path, rng, n_cams=5, n_frames=2, hw=16,
-                     suffix='.png'):
+                     suffix='.png', save_kw=None):
     scene_root = root / 'CoreView_7'
     (scene_root / 'imgs').mkdir(parents=True)
     (scene_root / 'mask').mkdir()
@@ -204,7 +204,8 @@ def write_zju_annots(root: Path, rng, n_cams=5, n_frames=2, hw=16,
         for c in range(n_cams):
             name = f'imgs/f{f}_c{c}{suffix}'
             Image.fromarray(rng.integers(0, 256, size=(hw, hw, 3))
-                            .astype(np.uint8)).save(scene_root / name)
+                            .astype(np.uint8)).save(scene_root / name,
+                                                    **(save_kw or {}))
             if c % 2 == 0:
                 mask = (rng.uniform(size=(hw, hw)) > 0.4).astype(np.uint8)
                 Image.fromarray(mask * 255).save(
@@ -231,7 +232,7 @@ def test_zju_annots(tmp_path, rng, split, background):
 
 
 def write_colmap(root: Path, rng, binary: bool, n_img=5, hw=(12, 16),
-                 suffix='.png'):
+                 suffix='.png', save_kw=None):
     """A sparse model in COLMAP's text or binary format, and its images."""
     sparse = root / 'sparse' / '0'
     sparse.mkdir(parents=True)
@@ -243,7 +244,8 @@ def write_colmap(root: Path, rng, binary: bool, n_img=5, hw=(12, 16),
     names = [f'im{i}{suffix}' for i in range(n_img)][::-1]
     for name in names:
         Image.fromarray(rng.integers(0, 256, size=(h, w, 3))
-                        .astype(np.uint8)).save(root / 'images' / name)
+                        .astype(np.uint8)).save(root / 'images' / name,
+                                                **(save_kw or {}))
     pts = rng.normal(size=(7, 3))
     cols = rng.integers(0, 256, size=(7, 3))
     if not binary:
@@ -299,12 +301,41 @@ def test_colmap(tmp_path, rng, binary, split, llffhold):
 
 
 def test_jpeg_raises_naming_the_file(tmp_path, rng):
-    root = write_colmap(tmp_path / 'scene', rng, False, suffix='.jpg')
-    with pytest.raises(NotImplementedError, match=r'im\d\.jpg.*JPEG'):
+    """A JPEG the port does not read (progressive) raises through each
+    loader, naming the file; baseline ones load (below)."""
+    root = write_colmap(tmp_path / 'scene', rng, False, suffix='.jpg',
+                        save_kw={'progressive': True})
+    with pytest.raises(ValueError, match=r'im\d\.jpg.*progressive'):
         colmap.load_colmap(str(root), device='cpu')
-    root = write_zju_annots(tmp_path / 'zju', rng, suffix='.jpg')
-    with pytest.raises(NotImplementedError, match=r'f0_c0\.jpg.*JPEG'):
+    root = write_zju_annots(tmp_path / 'zju', rng, suffix='.jpg',
+                            save_kw={'progressive': True})
+    with pytest.raises(ValueError, match=r'f0_c0\.jpg.*progressive'):
         zju.load_zju(str(root), '7', device='cpu')
+
+
+@pytest.mark.parametrize('quality,subsampling', [(90, 2), (75, 0)])
+@pytest.mark.parametrize('split', ['train', 'test'])
+def test_zju_jpeg(tmp_path, rng, split, quality, subsampling):
+    """The real layout's frames: JPEG images, PNG masks, loaded as the JAX
+    loader (Pillow) loads them, arrays equal."""
+    root = write_zju_annots(tmp_path / 'zju', rng, suffix='.jpg', hw=37,
+                            save_kw={'quality': quality,
+                                     'subsampling': subsampling})
+    kw = dict(split=split, train_camera_ids=(0, 2, 4), background='random')
+    got = zju.load_zju(str(root), '7', device='cpu', **kw)
+    assert_same_scene(got, jzju.load_zju(str(root), '7', **kw))
+
+
+@pytest.mark.parametrize('downscale', [1, 2])
+def test_colmap_jpeg(tmp_path, rng, downscale):
+    """COLMAP's JPEG images, decoded and resized as the JAX loader does."""
+    root = write_colmap(tmp_path / 'scene', rng, True, suffix='.jpg',
+                        hw=(41, 29), save_kw={'quality': 80})
+    kw = dict(split='train', llffhold=2, downscale=downscale)
+    scene, meta, pts, cols = colmap.load_colmap(str(root), device='cpu',
+                                                **kw)
+    jscene, jmeta, _, _ = jcolmap.load_colmap(str(root), **kw)
+    assert_same_scene((scene, meta), (jscene, jmeta))
 
 
 def test_build_scene_dispatch(tmp_path, rng, dnerf_root):  # noqa: F811

@@ -1,5 +1,6 @@
-"""The port stands alone: it loads no JAX, nothing of sk_gs_tpu, and
-neither Pillow nor PyYAML (the card's machine has neither), its
+"""The port stands alone: it loads no JAX, nothing of sk_gs_tpu nor the
+JAX package's root ``viewer``, and neither Pillow nor PyYAML (the card's
+machine has neither), its
 entry points default to the card and refuse to run on the CPU unasked, and
 chip_smoke.py fails (printing no result) where there is no card or no port
 beside it."""
@@ -19,8 +20,8 @@ from sk_gs_tpu_torch.render.tile_kernel import (KERNELS, tile_blend_bwd,
                                                 tile_blend_fwd)
 
 ROOT = Path(__file__).resolve().parents[1]
-FORBIDDEN = re.compile(r'^\s*(import|from)\s+(jax|sk_gs_tpu|PIL|yaml)\b',
-                       re.M)
+FORBIDDEN = re.compile(
+    r'^\s*(import|from)\s+(jax|sk_gs_tpu|PIL|yaml|viewer)\b', re.M)
 
 _IMPORT_ALL = r"""
 import importlib, json, pkgutil, sys
@@ -32,7 +33,7 @@ for name in names:
 import chip_smoke
 bad = sorted(m for m in sys.modules
              if m.split('.')[0] in ('jax', 'jaxlib', 'sk_gs_tpu', 'PIL',
-                                    'yaml'))
+                                    'yaml', 'viewer'))
 print(json.dumps({'modules': names, 'bad': bad}))
 """
 
@@ -53,8 +54,8 @@ def test_importing_every_module_loads_no_jax():
     for name in ('framework.evaluate', 'framework.trainer', 'data.synthetic',
                  'models.optim', 'ops.knn', 'models.deform', 'data.dnerf',
                  'data.wim', 'data.zju', 'data.colmap', 'utils.png',
-                 'utils.resize', 'framework.registry',
-                 'framework.lr_schedules'):
+                 'utils.resize', 'utils.jpeg', 'framework.registry',
+                 'framework.lr_schedules', 'cli.viewer'):
         assert 'sk_gs_tpu_torch.' + name in res['modules']
     assert res['bad'] == []
 

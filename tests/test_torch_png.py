@@ -2,7 +2,8 @@
 (its adaptive row filters), files encoded here with each of the five row
 filters forced on alternate rows, colour types 0 / 2 / 4 / 6 at odd sizes,
 frames decoded several at a time; exact equality. Palette, 16-bit,
-interlaced and JPEG files raise, naming the file."""
+interlaced, progressive JPEG and other files raise, naming the file; a
+baseline JPEG file reads as Pillow decodes it."""
 import struct
 import zlib
 
@@ -123,9 +124,12 @@ def test_unsupported_files_raise(rng, tmp_path):
         png.SIGNATURE + png._chunk(b'IHDR', ihdr)
         + png._chunk(b'IDAT', zlib.compress(bytes(6 * 16)))
         + png._chunk(b'IEND', b''))
-    Image.fromarray(arr).save(tmp_path / 'a.jpg')
-    for name in ('p.png', 'i16.png', 'inter.png'):
+    Image.fromarray(arr).save(tmp_path / 'prog.jpg', progressive=True)
+    (tmp_path / 'a.gif').write_bytes(b'GIF89a' + bytes(20))
+    for name in ('p.png', 'i16.png', 'inter.png', 'prog.jpg', 'a.gif'):
         with pytest.raises(ValueError, match=name):
             png.read_png(tmp_path / name)
-    with pytest.raises(NotImplementedError, match='a.jpg.*JPEG'):
-        png.read_png(tmp_path / 'a.jpg')
+    # a baseline JPEG file is read, by its first bytes, as Pillow reads it
+    Image.fromarray(arr).save(tmp_path / 'a.jpg')
+    np.testing.assert_array_equal(png.read_png(tmp_path / 'a.jpg'),
+                                  np.asarray(Image.open(tmp_path / 'a.jpg')))

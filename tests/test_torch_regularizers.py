@@ -396,3 +396,48 @@ def test_jp_dist_is_gated_before_the_joint_losses(scene, tmp_path):
     assert float(m['jp_dist']) == 0.0
     assert float(m['re_pos']) > 0 and float(m['sp_arap_t']) > 0
     assert not tt.model.params['joint_pos'].grad.abs().max()
+
+
+def test_reg_net_rounding_pins_the_float64_twin():
+    """``chip_smoke.reg_net_rounding`` (the card-vs-CPU bar of the init
+    regularizers' warp net) on the CPU, at its case's small start and its
+    first step, with the step's own draws: its float32 gradients are the
+    trainer's own (``motion_reg_losses`` on the model's net), bit for
+    bit; its float64 twin makes the same discrete choices and agrees with
+    the port's float32 gradients within the rounding it reports, which is
+    above zero on the warp head and under 1e-2 of each leaf's max (the
+    warp bias's against the warp weight's, as the chip run scales it)."""
+    import chip_smoke as cs
+    from sk_gs_tpu_torch.data.synthetic import make_synthetic_scene
+    family, steps, options, extra, change, cfg, rcfg, train = \
+        cs.option_setup(0, 'init_regularizers')
+    model, flags = cs.small_start(0, family, 'cpu', cfg, rcfg, train,
+                                  change['warp_head'])
+    sc, meta, _ = make_synthetic_scene(
+        seed=0, num_links=3, gauss_per_link=60, num_frames=6, h=80, w=96,
+        pair_capacity=2 ** 15, device='cpu')
+    tr = ttrainer.SKGSTrainer(cfg, rcfg, sc, meta, model,
+                              tlosses.LossWeights({**train.loss, **extra}),
+                              seed=0, device='cpu', **flags, **options)
+    draws = tr.regularizer_draws(family)
+    t, step = sc.times[2], steps[0]
+    rep = cs.reg_net_rounding(tr, family, t, draws, step)
+    out = tr.motion_reg_losses(family, t, draws, step)
+    leaves = {k: p for k, p in tr.model.leaves().items()
+              if k.startswith('sp_deform/')}
+    got = torch.autograd.grad(out['elastic'] + out['arap'],
+                              list(leaves.values()), allow_unused=True)
+    assert rep['choices_equal']
+    assert set(rep['rounding']) == set(leaves)
+    for (name, p), g in zip(leaves.items(), got):
+        g = torch.zeros_like(p) if g is None else g
+        g = g.to(torch.float64)
+        assert torch.equal(rep['g32'][name], g), name
+        err = float((g - rep['g64'][name]).abs().max())
+        assert err <= rep['rounding'][name], name
+        # the warp bias's gradient is large terms cancelling: held against
+        # the warp weight's scale, as the chip run holds it
+        scale = 'sp_deform/warp/w' if name == 'sp_deform/warp/b' else name
+        top = float(rep['g64'][scale].abs().max())
+        assert rep['rounding'][name] <= 1e-2 * top, name
+    assert rep['rounding']['sp_deform/warp/w'] > 0
