@@ -3,6 +3,9 @@
 
     python3 chip_smoke.py [--profile]
 
+(``--worker`` is the script run as a rank of a mesh phase, which the
+script starts itself.)
+
 Drives the port's paths at full width (the ``synthetic_fullscale``
 preset: 100,352 Gaussian slots, 512 joints, 400 x 400, random weights from
 seed 0) through the entry points a user calls, and checks them: the
@@ -228,7 +231,36 @@ with the ``sk_init`` family (kernel #1). Phases, one JSON line each:
    called directly (``render_eval``'s frame at a zero pose), the
    ``render_topk`` device ms at full width, and ``render_topk`` on the
    card against the CPU on a small scene (ids equal, weights 1e-5);
-37. with ``--profile`` only: 24 at the flagship's 2,000 + 2,000
+37. sharded_render: both Gaussian-sharded renderers
+   (``parallel/sharded_render.py``) over 2 gloo ranks on this card, each
+   rank a process of this script (``--worker``) holding half of serving's
+   100,352 slots (80,000 alive), at tile_h 8 (50 tile rows, 25 a band)
+   with a pair capacity of 2^21 on both sides, against the one-card
+   render: images and opacity 3e-5, radii and visible equal, overflow
+   False, the gradients of an l1 loss 5e-4 of each leaf's max, #1 once a
+   render and #2 once a backward on each rank; ms a render a rank, the
+   band pairs, the rows and bytes exchanged; kernels #1 and #2 at tile_h
+   8 against their plain versions first;
+38. mesh_view: the trainer's view axis, 2 gloo ranks on this card, one
+   view each, against one process at ``batch_views`` 2 from one state,
+   at full width: the init family (the populated start, chunk schedule),
+   sp and sk, 2 steps each at ``train_reference``'s bars (the statistics,
+   caches, ``p2sp`` and joint cost likewise); then the ranks alone across
+   an adaptive control event (init) and the sp events (14,000-14,001,
+   19,999-20,001), the replicas' largest difference after them 0, and
+   what each event's sync found; ms a step, the bytes reduced and the
+   reduction's ms, peak memory and launches of each rank;
+39. mesh_nccl1: one rank over NCCL, the sk step on a one-rank mesh against
+   the step without one, in turns, and NCCL's all-reduce of the step's
+   reduction size timed alone;
+40. cli_train_parallel: ``cli.train`` over 2 gloo ranks on this card
+   (``train.parallel.n_view`` 2, ``batch_views`` 2) against one process
+   and its twin (a second run of one process), checkpoint by checkpoint
+   (the parameters within 2 lr a step, the alive slots, superpoints and
+   tree equal: held at init.npz and at step 100 where the twin holds it,
+   reported after the skeleton initialisation, whose MST breaks near-ties
+   by last bits); rank 1 writes nothing;
+41. with ``--profile`` only: 24 at the flagship's 2,000 + 2,000
    iterations (profile_sk_init_event); profile_sk_init, each loop's
    iteration on the host clock and under torch.profiler (device time,
    busy share, top kernels) on that model after its initialisation; 26
@@ -261,8 +293,10 @@ training path and on each path, the CLI paths ``cli_train``,
 ``cli_test``, ``cli_repose``, ``cli_train_dnerf``,
 ``cli_train_dnerf_random``, ``train_dynamic_bg``, ``cli_train_wim``,
 ``cli_train_options``, ``cli_train_zju``, ``cli_train_zju_jpeg`` and
-``viewer`` and the options' paths
-``train_sp_extras``, ``train_init_reg`` and ``train_init_bf16``
+``viewer``, the options' paths
+``train_sp_extras``, ``train_init_reg`` and ``train_init_bf16`` and the
+mesh's (rank 0's) ``sharded_render``, ``exchange_render``,
+``mesh_view_{init,sp,sk}``, ``mesh_nccl1`` and ``cli_train_parallel``
 included, error, times and bound), the card's name
 and power limit as nvidia-smi prints them, and last ``{"ok": true,
 "device": {...}}``. Any failure raises and exits non-zero; with no CUDA
@@ -277,6 +311,8 @@ import copy
 import functools
 import json
 import math
+import os
+import socket
 import subprocess
 import sys
 import tempfile
@@ -290,6 +326,7 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from sk_gs_tpu_torch import convert
 from sk_gs_tpu_torch.cli import render_repose as cli_repose
@@ -305,6 +342,7 @@ from sk_gs_tpu_torch.framework import build
 from sk_gs_tpu_torch.framework import trainer as trainer_mod
 from sk_gs_tpu_torch.framework.checkpoint import CheckpointManager
 from sk_gs_tpu_torch.framework.checkpoint import load as load_ckpt
+from sk_gs_tpu_torch.framework.checkpoint import step_of
 from sk_gs_tpu_torch.framework.config import make_config
 from sk_gs_tpu_torch.framework.evaluate import evaluate, render_eval
 from sk_gs_tpu_torch.framework.presets import (flagship_point_cloud,
@@ -326,6 +364,11 @@ from sk_gs_tpu_torch.ops.knn import furthest_point_sampling
 from sk_gs_tpu_torch.ops.knn import knn as knn_op
 from sk_gs_tpu_torch.ops.transforms import (convert_coord_system, look_at,
                                             perspective_opencv)
+from sk_gs_tpu_torch.parallel import (init_distributed, make_mesh,
+                                      shard_rows)
+from sk_gs_tpu_torch.parallel import collectives as coll
+from sk_gs_tpu_torch.parallel.sharded_render import (make_exchange_render,
+                                                     make_sharded_render)
 from sk_gs_tpu_torch.render import prepare_blend
 from sk_gs_tpu_torch.render.binning import build_tile_lists, num_chunks
 from sk_gs_tpu_torch.render.blend import (ALPHA_MIN, OUTCOMES, assemble_image,
@@ -2280,7 +2323,8 @@ def phase_profile_train(trainer: SKGSTrainer, s0: int,
         ev[1].record()
         total.backward()
         ev[2].record()
-        trainer._update(FAMILY[stage], idx, lrs, total, fwd, m2d_off)
+        trainer._update(FAMILY[stage], lrs, [trainer._view_record(
+            FAMILY[stage], idx, total, *fwd)], m2d_off)
         ev[3].record()
         torch.cuda.synchronize()
         for key, a, b in (('forward', 0, 1), ('backward', 1, 2),
@@ -4252,16 +4296,716 @@ def phase_clis(sweep: bool) -> dict:
     return paths
 
 
+# ------------------------------------------------------------ the mesh
+
+MESH_RANKS = 2
+# (family, the steps held against one process at batch_views 2, the steps
+# after them that the ranks alone take across events)
+MESH_VIEW_PLAN = (('init', (2996, 2997), (2999, 3000, 3001)),
+                  ('sp', (13998, 13999), (14000, 14001, 19999, 20000, 20001)),
+                  ('sk', (40001, 40002), ()))
+MESH_EXACT = ('alive', 'max_radii2d', 'denom', 'p2sp', 'joint_parents')
+MESH_CLOSE = {'xyz_grad_accum': 1e-3, 'sp_cache': 1e-5, 'sk_cache': 1e-5,
+              'joint_cost': 1e-5}
+MESH_NCCL1_TURNS = 3
+SHARDED_TILE_H = 8
+SHARDED_PAIR_CAPACITY = 2 ** 21
+SHARDED_RENDERS = 5
+SHARDED_TOL = 3e-5
+SHARDED_GRAD_TOL = 5e-4
+SHARDED_LEAVES = ('means3d', 'scales', 'rotations', 'opacities', 'sh')
+RENDERERS = {'sharded': make_sharded_render, 'exchange': make_exchange_render}
+WORKER_TIMEOUT = 900
+
+
+def free_port() -> int:
+    with socket.socket() as s:
+        s.bind(('127.0.0.1', 0))
+        return s.getsockname()[1]
+
+
+def spawn_ranks(worker: str, world: int, tmp: Path, argv_of=lambda r: ()):
+    """``world`` ranks, each a process of this script running ``worker``
+    (``--worker``) with ``argv_of(rank)``, MASTER_ADDR / MASTER_PORT /
+    WORLD_SIZE / RANK / LOCAL_RANK in its env, its output in
+    ``tmp/<worker>_rank<r>.log``. When a rank fails the others are
+    stopped, and the run raises with the failed rank's output. Returns each
+    rank's result (``tmp/<worker>_rank<r>.json``)."""
+    port = free_port()
+    procs, logs = [], []
+    for rank in range(world):
+        env = dict(os.environ, MASTER_ADDR='127.0.0.1', MASTER_PORT=str(port),
+                   WORLD_SIZE=str(world), RANK=str(rank), LOCAL_RANK='0')
+        log = open(tmp / f'{worker}_rank{rank}.log', 'w+')
+        logs.append(log)
+        procs.append(subprocess.Popen(
+            [sys.executable, str(Path(__file__).resolve()), '--worker',
+             worker, '--tmp', str(tmp), *map(str, argv_of(rank))],
+            env=env, stdout=log, stderr=subprocess.STDOUT))
+    try:
+        deadline = time.monotonic() + WORKER_TIMEOUT
+        while any(p.poll() is None for p in procs):
+            if any(p.poll() not in (None, 0) for p in procs) or \
+                    time.monotonic() > deadline:
+                break
+            time.sleep(0.1)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+        outs = []
+        for log in logs:
+            log.seek(0)
+            outs.append(log.read())
+            log.close()
+    for rank, (p, out) in enumerate(zip(procs, outs)):
+        if p.returncode != 0:
+            raise RuntimeError(f'{worker} rank {rank} exited with '
+                               f'{p.returncode}:\n{out[-6000:]}')
+    return [json.loads((tmp / f'{worker}_rank{r}.json').read_text())
+            for r in range(world)]
+
+
+def mesh_trainer(family: str, mesh=None, batch_views: int = MESH_RANKS
+                 ) -> SKGSTrainer:
+    """The full-width trainer of ``family`` on the preset's scene from
+    seed 0: 'init' the populated start (80,000 alive) on the chunk
+    schedule, 'sp' the random sp-stage model, 'sk' the random model with
+    its skeleton initialised; ``batch_views`` views a step, on ``mesh``."""
+    cfg, rcfg, train = synthetic_fullscale()
+    if family == 'init':
+        rcfg = rcfg._replace(schedule='chunk')
+    scene, meta, _ = fullscale_scene(rcfg, train)
+    if family == 'init':
+        model = populated_model(cfg, rcfg, 80_000)
+    else:
+        model = convert.model_from_flat(
+            random_model_flat(cfg, SEED, 80_000, sp_stage=family == 'sp'),
+            cfg, rcfg, device='cuda', trainable=True)
+    return SKGSTrainer(cfg, rcfg, scene, meta, model, LossWeights(train.loss),
+                       seed=train.seed, clip_norm=train.clip_norm,
+                       optimizer=train.optimizer, batch_views=batch_views,
+                       mesh=mesh, sp_initialized=family == 'sp',
+                       reinit_done=family == 'sp',
+                       skeleton_initialized=family == 'sk', device='cuda')
+
+
+def mesh_steps(trainer: SKGSTrainer, steps):
+    """Steps ``steps`` with the launch counts and the collectives' counts
+    at 0: (a record per step, each step's gradients on the host, the
+    launches)."""
+    for k in KERNELS:
+        k.launches = 0
+    coll.reset_counts()
+    recs, grads = [], []
+    for step in steps:
+        m, ms = timed_step(trainer, step)
+        recs.append({'step': step, 'ms': ms, **m})
+        grads.append({k: p.grad.detach().cpu().clone()
+                      for k, p in trainer.model.leaves().items()})
+    return recs, grads, {k.name: k.launches for k in KERNELS}
+
+
+def timed_merges(trainer: SKGSTrainer) -> list:
+    """Wrap the trainer's ``merge_views``: each call appends its
+    synchronised ms (its two all-reduces and their packing)."""
+    log, fn = [], trainer.merge_views
+
+    def timed(*args):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*args)
+        torch.cuda.synchronize()
+        log.append((time.perf_counter() - t0) * 1e3)
+        return out
+    trainer.merge_views = timed
+    return log
+
+
+def replica_difference(trainer: SKGSTrainer) -> float:
+    """The largest difference between any rank's replica state and rank
+    0's (copies are compared; nothing is written)."""
+    group = trainer.mesh.group('view')
+    d = coll.broadcast_from([t.clone() for t in trainer.replica_state()],
+                            group, 0)
+    return float(coll.pmax(torch.tensor([d], device='cuda'), group)[0])
+
+
+def worker_mesh_view(tmp: Path, rank: int) -> dict:
+    """A rank of ``mesh_view``: each family's compared steps (rank 0
+    saves their gradients and the model after them), then its event
+    steps, and the replicas' difference after them."""
+    mesh = make_mesh(MESH_RANKS, 1)
+    out = {}
+    for family, compare, events in MESH_VIEW_PLAN:
+        tr = mesh_trainer(family, mesh)
+        merges = timed_merges(tr)
+        torch.cuda.reset_peak_memory_stats()
+        recs, grads, launches = mesh_steps(tr, compare)
+        calls, nbytes = coll.counts['calls'], coll.counts['bytes']
+        if rank == 0:
+            torch.save({'grads': grads, 'flat': convert.model_to_flat(
+                tr.model)}, tmp / f'mesh_view_{family}.pt')
+        del grads
+        ev_recs, ev_log = [], []
+        for step in events:
+            m, ms = timed_step(tr, step)
+            ev_recs.append({'step': step, 'ms': ms, 'loss': m['loss']})
+            if tr.last_event:
+                ev_log.append({'after_step': step, **{
+                    k: int(v) for k, v in tr.last_event.items()}})
+        out[family] = {
+            'steps': recs, 'launches': launches,
+            'collective_calls_per_step': calls / len(compare),
+            'bytes_reduced_per_step': nbytes / len(compare),
+            'merge_ms': merges[:len(compare)],
+            'max_memory_allocated': torch.cuda.max_memory_allocated(),
+            'event_steps': ev_recs, 'events': ev_log,
+            'sync_drift_by_event': dict(tr.replica_drift),
+            'replica_max_abs_diff': replica_difference(tr)}
+        del tr
+        torch.cuda.empty_cache()
+    return out
+
+
+def stat_errors(got: dict, ref: dict) -> dict:
+    """The statistics, caches, ``p2sp`` and joint cost of two flat models:
+    exact ones as the count of differing entries, the others as the error
+    over their max."""
+    out = {}
+    for name in MESH_EXACT:
+        out[name] = int(np.sum(got[name] != ref[name]))
+    for name in MESH_CLOSE:
+        scale = float(np.abs(ref[name]).max())
+        err = float(np.abs(got[name] - ref[name]).max())
+        out[name] = err / scale if scale > 0 else err
+    return out
+
+
+def phase_mesh_view(tmp: Path) -> dict:
+    """The trainer's view axis: 2 gloo ranks on this card, one view each,
+    against one process at batch_views 2 from one state, for the init
+    (chunk schedule), sp and sk families at full width; the ranks then go
+    on across events, after which their replicas must not differ."""
+    t0 = time.perf_counter()
+    ranks = spawn_ranks('mesh_view', MESH_RANKS, tmp)
+    ranks_s = time.perf_counter() - t0
+    paths = {}
+    for family, compare, events in MESH_VIEW_PLAN:
+        tr = mesh_trainer(family)
+        torch.cuda.reset_peak_memory_stats()
+        recs, grads, launches = mesh_steps(tr, compare)
+        peak = torch.cuda.max_memory_allocated()
+        flat = convert.model_to_flat(tr.model)
+        lrs = tr.lr_trees(compare[-1])
+        del tr
+        torch.cuda.empty_cache()
+        got = torch.load(tmp / f'mesh_view_{family}.pt', weights_only=False)
+        r0 = ranks[0][family]
+        loss_err = max(abs(a['loss'] - b['loss']) / abs(b['loss'])
+                       for a, b in zip(r0['steps'], recs))
+        # the init family's isotropic Gaussians leave the rotation
+        # gradient rounding noise (grad_path_init)
+        iso = {'rotation': 'xyz'} if family == 'init' else {}
+        grad_worst = [close_leaves(a, b, math.inf, scale_of=iso)
+                      for a, b in zip(got['grads'], grads)]
+        grad_worst = [{k: v for k, v in sorted(w.items(), key=lambda kv:
+                                               -kv[1])[:3]}
+                      for w in grad_worst]
+        param_worst, param_leaf = params_over_tol(got['flat'], flat, grads,
+                                                  lrs, len(compare),
+                                                  scale_of=iso)
+        stats = stat_errors(got['flat'], flat)
+        del got, grads
+        fwd, bwd = (chunk_blend_fwd, chunk_blend_bwd) if family == 'init' \
+            else (tile_blend_fwd, tile_blend_bwd)
+        n = len(compare)
+        want_rank = {k.name: n if k in (fwd, bwd) else 0 for k in KERNELS}
+        want_one = {k: MESH_RANKS * v for k, v in want_rank.items()}
+        # the first step of a process is its warm-up: the means leave it
+        # (two steps, as train_reference holds: a third would start from
+        # states parted by the first two Adam steps' rounding)
+        warm = lambda xs: sum(xs[1:]) / len(xs[1:])
+        rec = {
+            'phase': 'mesh_view', 'family': family, 'backend': 'gloo',
+            'ranks': MESH_RANKS, 'device': 'cuda:0, every rank',
+            'steps': list(compare), 'ranks_seconds': ranks_s,
+            'ms_ranks': [[s['ms'] for s in r[family]['steps']]
+                         for r in ranks],
+            'ms_one_process': [s['ms'] for s in recs],
+            'ms_per_step_ranks': [warm([s['ms'] for s in r[family]['steps']])
+                                  for r in ranks],
+            'ms_per_step_one_process': warm([s['ms'] for s in recs]),
+            'merge_ms_per_step_ranks': [warm(r[family]['merge_ms'])
+                                        for r in ranks],
+            'bytes_reduced_per_step': r0['bytes_reduced_per_step'],
+            'collective_calls_per_step': r0['collective_calls_per_step'],
+            'max_memory_allocated_ranks': [r[family]['max_memory_allocated']
+                                           for r in ranks],
+            'max_memory_allocated_one_process': peak,
+            'launches_ranks': [r[family]['launches'] for r in ranks],
+            'launches_one_process': launches,
+            'loss_ranks': [s['loss'] for s in r0['steps']],
+            'loss_one_process': [s['loss'] for s in recs],
+            'loss_rel_err': loss_err,
+            'grad_worst_err_over_max_top3': grad_worst,
+            'param_worst_over_tol': param_worst,
+            'param_worst_leaf': param_leaf, 'stats': stats,
+            'event_steps': r0['event_steps'], 'events': r0['events'],
+            'sync_drift_by_event_ranks': [r[family]['sync_drift_by_event']
+                                          for r in ranks],
+            'replica_max_abs_diff': r0['replica_max_abs_diff']}
+        emit(rec)
+        bad_stats = {k: v for k, v in stats.items()
+                     if v > MESH_CLOSE.get(k, 0)}
+        if loss_err > 2e-4 or param_worst > 1.0 or bad_stats or max(
+                v for w in grad_worst for v in w.values()) > 3e-4:
+            raise AssertionError(f'mesh_view {family}: the ranks differ from '
+                                 f'one process: {rec}')
+        if any(r[family]['launches'] != want_rank for r in ranks) or \
+                launches != want_one:
+            raise AssertionError(f'mesh_view {family}: launches {rec}')
+        if events and not r0['events'] or any(
+                r[family]['replica_max_abs_diff'] != 0 for r in ranks):
+            raise AssertionError(f'mesh_view {family}: replicas after the '
+                                 f'events: {rec}')
+        paths[f'mesh_view_{family}'] = r0['launches']
+    return paths
+
+
+def worker_mesh_nccl1(tmp: Path, rank: int) -> dict:
+    """One rank over NCCL: the sk step on a one-rank mesh and without a
+    mesh, in turns from one state; then one NCCL all-reduce of the
+    step's reduction size."""
+    trainers = {'one_process': mesh_trainer('sk', None, 1),
+                'mesh': mesh_trainer('sk', make_mesh(1, 1), 1)}
+    s0 = MESH_VIEW_PLAN[2][1][0]
+    for tr in trainers.values():
+        tr.train_step(s0)                                   # warm-up
+    rec = {k: {'ms': [], 'loss': []} for k in trainers}
+    counts = {k: {} for k in trainers}
+    for t in range(1, MESH_NCCL1_TURNS + 1):
+        order = list(trainers) if t % 2 == 0 else list(trainers)[::-1]
+        for name in order:
+            m, ms = timed_step(trainers[name], s0 + t, counts[name])
+            rec[name]['ms'].append(ms)
+            rec[name]['loss'].append(m['loss'])
+    tr = trainers['mesh']
+    n = tr.model.alive.shape[0]
+    numel = sum(p.numel() for p in tr.model.leaves().values()) + 3 * n
+    buf = torch.zeros(numel, device='cuda')
+    ms = cuda_ms(lambda: dist.all_reduce(buf), iters=10, warmup=2)
+    return {'steps': rec, 'launches': counts, 'bucket_bytes': 4 * numel,
+            'nccl_all_reduce_ms': ms, 'backend': dist.get_backend()}
+
+
+def phase_mesh_nccl1(tmp: Path) -> dict:
+    """One rank over NCCL (the only NCCL group one card gives): the sk
+    step at full width on a one-rank mesh against the step without one,
+    in turns; a group of one rank skips its collectives, and the NCCL
+    all-reduce of the step's reduction size is timed alone."""
+    r = spawn_ranks('mesh_nccl1', 1, tmp)[0]
+    steps = r['steps']
+    mean = lambda xs: sum(xs) / len(xs)
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(
+        steps['mesh']['loss'], steps['one_process']['loss']))
+    rec = {'phase': 'mesh_nccl1', 'backend': r['backend'],
+           'turns': MESH_NCCL1_TURNS,
+           'ms_per_step_mesh': mean(steps['mesh']['ms']),
+           'ms_per_step_one_process': mean(steps['one_process']['ms']),
+           'mesh_overhead_ms_per_step': mean(steps['mesh']['ms'])
+           - mean(steps['one_process']['ms']),
+           'bucket_bytes': r['bucket_bytes'],
+           'nccl_all_reduce_ms_one_rank': r['nccl_all_reduce_ms'],
+           'loss_rel_err': loss_err, 'launches': r['launches'], 'ms': steps}
+    emit(rec)
+    want = {k.name: MESH_NCCL1_TURNS if k in (tile_blend_fwd, tile_blend_bwd)
+            else 0 for k in KERNELS}
+    if loss_err > 2e-4 or r['launches']['mesh'] != want or \
+            r['backend'] != 'nccl':
+        raise AssertionError(f'mesh_nccl1: {rec}')
+    return {'mesh_nccl1': r['launches']['mesh']}
+
+
+def worker_sharded_render(tmp: Path, rank: int) -> dict:
+    """A rank of ``sharded_render``: its half of the slots through both
+    renderers, timed renders, then one render and its backward."""
+    data = torch.load(tmp / 'sharded_inputs.pt', weights_only=False)
+    mesh = make_mesh(1, MESH_RANKS)
+    rcfg = RasterConfig(**data['rcfg'])
+    view = ViewParams(*(x.to('cuda') for x in data['view']))
+    target = shard_rows(data['target'].to('cuda'), mesh, 'gs')
+    out = {}
+    for name, make in RENDERERS.items():
+        fn = make(mesh, rcfg)
+        leaves = {k: shard_rows(v.to('cuda'), mesh, 'gs').clone()
+                  for k, v in data['g'].items()}
+        for k in SHARDED_LEAVES:
+            leaves[k].requires_grad_(True)
+        g = GaussianInputs(**leaves)
+        with torch.no_grad():
+            fn(g, view)                                     # warm-up
+            torch.cuda.synchronize()
+            for k in KERNELS:
+                k.launches = 0
+            coll.reset_counts()
+            t0 = time.perf_counter()
+            for _ in range(SHARDED_RENDERS):
+                res = fn(g, view)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3 / SHARDED_RENDERS
+            render_launches = {k.name: k.launches for k in KERNELS}
+            wire = coll.counts['bytes'] / SHARDED_RENDERS
+        for k in KERNELS:
+            k.launches = 0
+        res = fn(g, view)
+        # this band's terms of the mean l1 over the whole image
+        loss = torch.abs(composite_background(
+            res['images'], res['opacity'], torch.ones(3, device='cuda'))
+            - target).sum() / (target.numel() * MESH_RANKS)
+        loss.backward()
+        torch.cuda.synchronize()
+        grad_launches = {k.name: k.launches for k in KERNELS}
+        torch.save({'images': res['images'].detach().cpu(),
+                    'opacity': res['opacity'].detach().cpu(),
+                    'radii': res['radii'].cpu(),
+                    'visible': res['visible'].cpu(),
+                    'grads': {k: leaves[k].grad.cpu()
+                              for k in SHARDED_LEAVES}},
+                   tmp / f'sharded_{name}_rank{rank}.pt')
+        sent = res.get('sent')
+        out[name] = {
+            'ms_per_render': ms, 'render_launches': render_launches,
+            'render_and_backward_launches': grad_launches,
+            'band_pairs': int(res['num_pairs']),
+            'overflow': bool(res['overflow']),
+            'collective_bytes_per_render': wire,
+            'rows_sent': None if sent is None else sent.tolist()}
+        del res, loss, leaves, g
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_sharded_render(model, view, t, tmp: Path) -> dict:
+    """Both Gaussian-sharded renderers over 2 gloo ranks on this card,
+    each rank holding half of serving's slots (80,000 alive), at tile_h 8
+    (50 tile rows, 25 a band) and a pair capacity of 2^21 on both sides,
+    against the one-card render: images and opacity 3e-5, radii and
+    visible equal, the gradients of an l1 loss 5e-4 of each leaf's max,
+    #1 once a render and #2 once a backward on each rank. Kernels #1 and
+    #2 at tile_h 8 against their plain versions first."""
+    rcfg = model.rcfg._replace(tile_h=SHARDED_TILE_H,
+                               pair_capacity=SHARDED_PAIR_CAPACITY)
+    cfg = model.cfg
+    with torch.no_grad():
+        d = forward_deltas(cfg, model, torch.tensor(t, device='cuda'), 'sk')
+        g = gaussian_inputs(model.gauss_view(), cfg.gauss, d.d_xyz,
+                            d.d_rotation, d.d_scaling)
+    arrays = {k: getattr(g, k).detach() for k in SHARDED_LEAVES + ('mask',)}
+    target = torch.from_numpy(np.random.default_rng(SEED).uniform(
+        size=(rcfg.image_height, rcfg.image_width, 3)).astype(np.float32))
+    torch.save({'g': {k: v.cpu() for k, v in arrays.items()},
+                'view': [x.cpu() for x in view], 'rcfg': rcfg._asdict(),
+                'target': target}, tmp / 'sharded_inputs.pt')
+    kernels_h8 = tile_h8_kernels(GaussianInputs(**arrays), view, rcfg)
+
+    ranks = spawn_ranks('sharded_render', MESH_RANKS, tmp)
+
+    leaves = {k: v.clone().requires_grad_(k in SHARDED_LEAVES)
+              for k, v in arrays.items()}
+    one_ms = cuda_ms(lambda: render(GaussianInputs(**leaves), view, rcfg),
+                     iters=SHARDED_RENDERS, warmup=1)
+    ref = render(GaussianInputs(**leaves), view, rcfg)
+    img = composite_background(ref['images'], ref['opacity'],
+                               torch.ones(3, device='cuda'))
+    (torch.abs(img - target.to('cuda')).sum() / target.numel()).backward()
+    paths = {}
+    for name in RENDERERS:
+        parts = [torch.load(tmp / f'sharded_{name}_rank{r}.pt',
+                            weights_only=False) for r in range(MESH_RANKS)]
+        errs = {k: float((torch.cat([p[k] for p in parts])
+                          - ref[k].detach().cpu()).abs().max())
+                for k in ('images', 'opacity')}
+        equal = {k: bool(torch.equal(torch.cat([p[k] for p in parts]),
+                                     ref[k].cpu()))
+                 for k in ('radii', 'visible')}
+        grad_err = {}
+        for k in SHARDED_LEAVES:
+            r = leaves[k].grad.cpu()
+            got = torch.cat([p['grads'][k] for p in parts])
+            grad_err[k] = float((got - r).abs().max() / r.abs().max())
+        rk = [r[name] for r in ranks]
+        rec = {'phase': 'sharded_render', 'renderer': name,
+               'backend': 'gloo', 'ranks': MESH_RANKS, 'tile_h': rcfg.tile_h,
+               'pair_capacity': rcfg.pair_capacity,
+               'slots_per_rank': arrays['means3d'].shape[0] // MESH_RANKS,
+               'ms_per_render_ranks': [x['ms_per_render'] for x in rk],
+               'ms_per_render_one_card': one_ms,
+               'pairs_one_card': int(ref['num_pairs']),
+               'band_pairs': [x['band_pairs'] for x in rk],
+               'rows_sent_ranks': [x['rows_sent'] for x in rk],
+               'bytes_sent_ranks': [
+                   None if x['rows_sent'] is None else
+                   4 * 14 * sum(min(n, max(rcfg.pair_capacity // MESH_RANKS,
+                                            1024))
+                                for n in x['rows_sent']) for x in rk],
+               'collective_bytes_per_render_ranks': [
+                   x['collective_bytes_per_render'] for x in rk],
+               'overflow_ranks': [x['overflow'] for x in rk],
+               'max_abs_err': errs, 'equal': equal,
+               'grad_err_over_max': grad_err,
+               'render_launches_ranks': [x['render_launches'] for x in rk],
+               'render_and_backward_launches_ranks': [
+                   x['render_and_backward_launches'] for x in rk],
+               'tile_h8_kernels': kernels_h8}
+        emit(rec)
+        want_r = {k.name: SHARDED_RENDERS if k is tile_blend_fwd else 0
+                  for k in KERNELS}
+        want_g = {k.name: 1 if k in (tile_blend_fwd, tile_blend_bwd) else 0
+                  for k in KERNELS}
+        if max(errs.values()) > SHARDED_TOL or not all(equal.values()) or \
+                max(grad_err.values()) > SHARDED_GRAD_TOL or \
+                bool(ref['overflow']) or any(x['overflow'] for x in rk):
+            raise AssertionError(f'sharded_render {name}: {rec}')
+        if any(x['render_launches'] != want_r or
+               x['render_and_backward_launches'] != want_g for x in rk):
+            raise AssertionError(f'sharded_render {name}: launches {rec}')
+        paths[f'{name}_render'] = rk[0]['render_and_backward_launches']
+    return paths
+
+
+def tile_h8_kernels(g: GaussianInputs, view, rcfg) -> dict:
+    """Kernels #1 and #2 at ``rcfg``'s tile height against their plain
+    versions on the one-card render's inputs (random cotangents for #2):
+    the forward's max abs error, the backward's worst error over each
+    column group's max."""
+    with torch.no_grad():
+        inp = prepare_blend(g, view, rcfg)
+        b = inp.binned
+        args = (inp.geo, inp.col, b.sort_gauss, b.tile_start, b.tile_count)
+        c, a = tile_blend_fwd.launch(*args, rcfg)
+        pc, pa = tile_blend_fwd.plain(*args, rcfg)
+        gen = torch.Generator('cuda').manual_seed(SEED)
+        gc = torch.randn(c.shape, generator=gen, device='cuda')
+        ga = torch.randn(a.shape, generator=gen, device='cuda')
+        rows = tile_blend_bwd.launch(*args, c, a, gc, ga, rcfg)
+        prows = tile_blend_bwd.plain(*args, pc, pa, gc, ga, rcfg)
+        torch.cuda.synchronize()
+    fwd = max(float((c - pc).abs().max()), float((a - pa).abs().max()))
+    bwd = {k: float((rows[:, s] - prows[:, s]).abs().max()
+                    / prows[:, s].abs().max().clamp(min=1e-30))
+           for k, s in GROUPS.items()}
+    if fwd > KERNEL_TOL or max(bwd.values()) > BWD_TOL:
+        raise AssertionError(f'kernels at tile_h {rcfg.tile_h} disagree '
+                             f'with their plain versions: {fwd}, {bwd}')
+    return {'tile_h': rcfg.tile_h, 'pairs': int(b.num_pairs),
+            'fwd_max_abs_err': fwd, 'bwd_err_over_max': bwd}
+
+
+def cli_parallel_argv(out: Path, data: Path, parallel: bool) -> list:
+    sets = ['train.batch_views=2']
+    if parallel:
+        sets.append('train.parallel={"n_view": 2, "n_gs": 1}')
+    dev = ['--device', 'cuda:0', '--dist-backend', 'gloo'] if parallel \
+        else ['--device', 'cuda']
+    return ['-c', CLI_SMOKE, *dev, '--set', f'output_dir={out}',
+            f'dataset.root={data}', *sets]
+
+
+def worker_cli_train(tmp: Path, rank: int) -> dict:
+    """A rank of ``cli_train_parallel``: ``cli.train``'s main, its own
+    output directory."""
+    _, launches, secs = cli_run(cli_train.main, cli_parallel_argv(
+        tmp / f'rank{rank}', tmp / 'data', True))
+    return {'launches': launches, 'seconds': secs}
+
+
+CLI_PARALLEL_CKPTS = ('init.npz', 'checkpoint_00000100.npz', 'sk_init.npz',
+                      'last.npz')
+# the checkpoints before the skeleton initialisation, whose MST (and the
+# frozen LBS's KNN) decide near-ties by the last bits that the backward
+# kernels' atomics leave to chance on the card
+CLI_PARALLEL_HELD = ('init.npz', 'checkpoint_00000100.npz')
+CLI_PARALLEL_EXACT = ('alive', 'sp_alive', 'joint_parents')
+
+
+def lr_sums(trainer: SKGSTrainer, flat: dict) -> dict:
+    """Each leaf's learning rates summed over the steps a checkpoint
+    ``flat`` of ``trainer``'s run has taken, with the Adam steps of the
+    skeleton initialisation's loops on the leaves they train once it
+    has run."""
+    out = {}
+    for step in range(1, step_of(flat) + 1):
+        for k, v in trainer.lr_trees(step).items():
+            out[k] = out.get(k, 0.0) + v
+    if bool(flat['state/flags/skeleton_initialized']):
+        loop = sk_gs_ops.INIT_LR * min(trainer.cfg.joint_init_steps,
+                                       INIT_SKELETON_MAX_STEPS)
+        for k in out:
+            if k.split('/')[0] in sk_gs_ops.DISTILL_LEAVES + ('joint_pos',):
+                out[k] += loop
+    return out
+
+
+def ckpt_agreement(got: dict, ref: dict, lrs: dict) -> dict:
+    """Two checkpoints of one step: the parameters' worst error over 2 lr
+    a step plus 1e-5 of the leaf (the parameter bar where gradients are
+    not recorded), and the differing entries of the alive slots, the
+    superpoints and the tree."""
+    worst, leaf = 0.0, None
+    for name, lr in lrs.items():
+        g = got['state/model/params/' + name]
+        r = ref['state/model/params/' + name]
+        err = float(np.abs(g - r).max()) / (
+            2 * lr + 1e-5 * float(np.abs(r).max()) + 1e-30)
+        if err > worst:
+            worst, leaf = err, name
+    return {'step': step_of(ref), 'param_worst_over_tol': worst,
+            'param_worst_leaf': leaf,
+            'differing_entries': {k: int(np.sum(
+                got['state/model/' + k] != ref['state/model/' + k]))
+                for k in CLI_PARALLEL_EXACT}}
+
+
+def held(rec: dict) -> bool:
+    return rec['param_worst_over_tol'] <= 1.0 and \
+        not any(rec['differing_entries'].values())
+
+
+def phase_cli_train_parallel(tmp: Path) -> dict:
+    """``cli.train`` on configs/synthetic_smoke.yaml, the whole schedule
+    at batch_views 2: over 2 gloo ranks on this card
+    (``train.parallel.n_view`` 2, each rank its own output directory)
+    against one process, and that process run again (its twin). At each
+    checkpoint both write, the parameters within 2 lr a step plus 1e-5 of
+    each leaf (the skeleton initialisation's Adam steps included) and the
+    alive slots, the superpoints and the tree equal: held for the ranks
+    at init.npz, and at step 100 where the twin holds it; reported from
+    the skeleton initialisation on (its MST and KNN break near-ties by
+    last bits, which the backward kernels' atomics leave to chance on the
+    card: the twin of one process and the ranks each part there in some
+    runs; the CPU test holds the whole run bit for bit). Rank 1 writes
+    nothing; #1 once a
+    step on each rank (and on rank 0 once a view of the ground truth and
+    of each evaluation), #2 once a step but the ``sk_init`` steps'."""
+    cfg = make_config(CLI_SMOKE, ['train.batch_views=2'])
+    ranks = spawn_ranks('cli_train', MESH_RANKS, tmp)
+    _, launches, secs = cli_run(cli_train.main, cli_parallel_argv(
+        tmp / 'one', tmp / 'data_one', False))
+    _, _, twin_secs = cli_run(cli_train.main, cli_parallel_argv(
+        tmp / 'twin', tmp / 'data_one', False))
+    exp = cfg['exp_name']
+    ckpt = lambda run, name: load_ckpt(tmp / run / exp / 'checkpoints' / name)
+    run_cfg = make_config(str(tmp / 'one' / exp / 'config.yaml'))
+    scene, meta, _, _ = build.build_scene(run_cfg, 'cuda')
+    skcfg, rcfg = build.build_model_cfg(run_cfg, meta, scene.image_size)
+    agree = {'ranks': {}, 'twin': {}}
+    for name in CLI_PARALLEL_CKPTS:
+        ref = ckpt('one', name)
+        tr = SKGSTrainer(skcfg, rcfg, scene, meta, convert.model_from_flat(
+            ref, skcfg, rcfg, device='cuda', trainable=True), device='cuda')
+        lrs = lr_sums(tr, ref)
+        agree['ranks'][name] = ckpt_agreement(ckpt('rank0', name), ref, lrs)
+        agree['twin'][name] = ckpt_agreement(ckpt('twin', name), ref, lrs)
+    sched = cfg['train_schedule']
+    steps = sum(sched.values())
+    views = cfg['dataset']['num_frames']
+    evals = steps // cfg['train']['eval_interval'] + (
+        steps % cfg['train']['eval_interval'] > 0) + 1
+    bwd = steps - sched['sk_init']
+    want = [{tile_blend_fwd.name: steps + views * (1 + evals) * (r == 0),
+             tile_blend_bwd.name: bwd, chunk_blend_fwd.name: 0,
+             chunk_blend_bwd.name: 0} for r in range(MESH_RANKS)]
+    want_one = {tile_blend_fwd.name: 2 * steps + views * (1 + evals),
+                tile_blend_bwd.name: 2 * bwd, chunk_blend_fwd.name: 0,
+                chunk_blend_bwd.name: 0}
+    rank1_files = files_under(tmp / 'rank1') if (tmp / 'rank1').exists() \
+        else {}
+    held_at = [n for n in CLI_PARALLEL_HELD
+               if n == 'init.npz' or held(agree['twin'][n])]
+    rec = {'phase': 'cli_train_parallel', 'backend': 'gloo',
+           'ranks': MESH_RANKS, 'steps': steps,
+           'seconds_ranks': [r['seconds'] for r in ranks],
+           'seconds_one_process': secs, 'seconds_twin': twin_secs,
+           'ms_per_step_by_stage_ranks': ms_by_stage(tmp / 'rank0' / exp),
+           'ms_per_step_by_stage_one_process': ms_by_stage(tmp / 'one' / exp),
+           'agreement_ranks': agree['ranks'],
+           'agreement_twin': agree['twin'], 'held_at': held_at,
+           'launches_ranks': [r['launches'] for r in ranks],
+           'launches_one_process': launches,
+           'files_rank0': sorted(files_under(tmp / 'rank0')),
+           'files_rank1': sorted(rank1_files)}
+    emit(rec)
+    if not all(held(agree['ranks'][n]) for n in held_at) or rank1_files or \
+            (tmp / 'rank1').exists():
+        raise AssertionError(f'cli_train_parallel: {rec}')
+    if [r['launches'] for r in ranks] != want or launches != want_one:
+        raise AssertionError(f'cli_train_parallel: launches {rec}, '
+                             f'expected {want}, {want_one}')
+    return {'cli_train_parallel': ranks[0]['launches']}
+
+
+def phase_mesh(model, view, t) -> dict:
+    """The mesh phases in one temporary directory; returns their launches
+    by path (rank 0's)."""
+    torch.cuda.empty_cache()
+    paths = {}
+    with tempfile.TemporaryDirectory(prefix='chip_smoke_mesh_') as d:
+        tmp = Path(d)
+        sub = tmp / 'sharded'
+        sub.mkdir()
+        paths.update(phase_sharded_render(model, view, t, sub))
+        for name, fn in (('view', phase_mesh_view),
+                         ('nccl1', phase_mesh_nccl1),
+                         ('cli', phase_cli_train_parallel)):
+            sub = tmp / name
+            sub.mkdir()
+            paths.update(fn(sub))
+    return paths
+
+
+WORKERS = {'mesh_view': worker_mesh_view, 'mesh_nccl1': worker_mesh_nccl1,
+           'sharded_render': worker_sharded_render,
+           'cli_train': worker_cli_train}
+
+
+def run_worker(name: str, tmp: Path) -> int:
+    """A rank process of a mesh phase: the process group from the env
+    (NCCL for ``mesh_nccl1``, gloo on this card otherwise), the worker,
+    its result written to ``tmp/<name>_rank<r>.json``."""
+    torch.cuda.set_device(0)
+    if name == 'mesh_nccl1':
+        # one rank: init_distributed leaves a group of one process alone
+        dist.init_process_group(
+            'nccl', init_method='tcp://{MASTER_ADDR}:{MASTER_PORT}'.format(
+                **os.environ), world_size=1, rank=0)
+        rank = 0
+    else:
+        rank = init_distributed(backend='gloo')['process_index']
+    out = WORKERS[name](tmp, rank)
+    (tmp / f'{name}_rank{rank}.json').write_text(json.dumps(out))
+    if dist.is_initialized():
+        dist.destroy_process_group()
+    return 0
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split('\n\n')[0])
     ap.add_argument('--profile', action='store_true',
                     help='add the stage timing and profiler phase')
+    ap.add_argument('--worker', choices=sorted(WORKERS),
+                    help='run as a rank of a mesh phase (the script starts '
+                    'these itself)')
+    ap.add_argument('--tmp', help='the mesh phase\'s directory (--worker)')
     args = ap.parse_args(argv)
 
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device (torch.cuda.is_available() is '
               'False); this script runs on the card only', file=sys.stderr)
         return 2
+    if args.worker:
+        return run_worker(args.worker, Path(args.tmp))
     t_start = time.perf_counter()
     name = torch.cuda.get_device_name(0)
     smi = nvidia_smi_line()
@@ -4325,6 +5069,9 @@ def main(argv=None) -> int:
 
     # the entry points, from a config to a checkpoint and back
     cli_paths = phase_clis(CLI_FPS_SWEEP or args.profile)
+    # the mesh: the trainer's view axis and the Gaussian-sharded renders,
+    # 2 gloo ranks on this card, and one NCCL rank
+    mesh_paths = phase_mesh(model, views[0], times[0])
     if args.profile:
         phase_train_reference_sk_init(SEED, SK_REF_ITERS_LONG,
                                       'profile_reference_sk_init', False)
@@ -4358,7 +5105,8 @@ def main(argv=None) -> int:
              'train_sk_init': sk_init_launches,
              'train_sp_extras': sp_extras_launches,
              'train_init_reg': init_reg_launches,
-             'train_init_bf16': init_bf16_launches, **cli_paths}
+             'train_init_bf16': init_bf16_launches, **cli_paths,
+             **mesh_paths}
     for row in rows:
         own = 'train_init' if row['name'].startswith('chunk') else 'train'
         row['launches'] = paths[own][row['name']]

@@ -14,21 +14,35 @@ non-finite loss, ``crash.npz``), ``vis/step_<step>.png`` every
 and ``train_time_s``) and ``last.ply`` (the live Gaussians). ``--resume``
 continues from a checkpoint of either package; ``--steps`` stops early.
 
+Several processes train one model over the ``view`` axis of a
+``train.parallel: {n_view: R}`` mesh (R dividing ``train.batch_views``),
+one process a rank, launched by ``torchrun --nproc_per_node R -m
+sk_gs_tpu_torch.cli.train ...`` or with ``MASTER_ADDR`` / ``MASTER_PORT`` /
+``WORLD_SIZE`` / ``RANK`` set by hand (``parallel.init_distributed``).
+Each rank drives ``cuda:<LOCAL_RANK>`` over NCCL; ``--device cuda:0
+--dist-backend gloo`` puts every rank on one card (NCCL takes one card a
+rank), and ``--device cpu`` runs the ranks over gloo on the CPU. Every
+rank reads ``--resume``; rank 0 alone writes the files and runs the
+evaluations.
+
 Left out, as TPU matters: the dispatch-queue depth control (the port
 synchronises only where it logs, evaluates or saves), the JAX compilation
-cache, multi-host start-up, and the ``jax.profiler`` window
-(``chip_smoke.py --profile`` profiles the port).
+cache, and the ``jax.profiler`` window (``chip_smoke.py --profile``
+profiles the port).
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import logging
+import os
 import time
 from pathlib import Path
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from .. import resolve_device
 from ..framework import build
@@ -38,6 +52,7 @@ from ..framework.trainer import SKGSTrainer
 from ..models import sk_gs
 from ..models.gaussian_splatting import init_from_pcd
 from ..models.losses import LossWeights
+from ..parallel import init_distributed
 from ..utils.ply import save_gaussian_ply
 from ..utils.png import write_png
 
@@ -57,7 +72,12 @@ def parse_args(argv=None):
     ap.add_argument('--resume', default=None, help='checkpoint to resume')
     ap.add_argument('--scene', default=None,
                     help='shortcut for --set dataset.scene=...')
-    ap.add_argument('--device', default='cuda')
+    ap.add_argument('--device', default='cuda',
+                    help="'cuda' (each rank its cuda:<LOCAL_RANK>), "
+                    "'cuda:<i>' or 'cpu'")
+    ap.add_argument('--dist-backend', default=None, choices=('nccl', 'gloo'),
+                    help='the process group of a multi-process launch: '
+                    'nccl on the card, gloo on the CPU by default')
     args = ap.parse_args(argv)
     if args.scene:
         args.overrides = list(args.overrides) + [f'dataset.scene={args.scene}']
@@ -84,18 +104,48 @@ def peak_memory_mb(device: torch.device) -> float:
     return torch.cuda.max_memory_allocated(device) / 2 ** 20
 
 
+def rank_device(device: str) -> torch.device:
+    """The device of this process: 'cuda' is ``cuda:<LOCAL_RANK>`` in a
+    multi-process launch (``cuda`` alone otherwise)."""
+    if device == 'cuda' and int(os.environ.get('WORLD_SIZE', '1')) > 1:
+        device = f"cuda:{int(os.environ.get('LOCAL_RANK', '0'))}"
+    device = resolve_device(device)
+    if device.type == 'cuda' and device.index is not None:
+        if device.index >= torch.cuda.device_count():
+            raise ValueError(
+                f'{device} on a machine with {torch.cuda.device_count()} '
+                'card(s): pass --device cuda:0 --dist-backend gloo to run '
+                'several ranks on one card')
+        torch.cuda.set_device(device)
+    return device
+
+
 def main(argv=None):
     args = parse_args(argv)
     logging.basicConfig(level=logging.INFO,
                         format='%(asctime)s %(levelname)s %(message)s')
-    device = resolve_device(args.device)
+    device = rank_device(args.device)
+    backend = args.dist_backend or ('gloo' if device.type == 'cpu'
+                                    else 'nccl')
+    dist_info = init_distributed(backend=backend)
+    lead = dist_info['process_index'] == 0
+    if dist_info['process_count'] > 1:
+        log.info('process %d of %d on %s over %s',
+                 dist_info['process_index'], dist_info['process_count'],
+                 device, backend)
     cfg = make_config(args.config, args.overrides)
     out_dir = Path(cfg.get('output_dir', 'results')) / cfg.get('exp_name',
                                                                 'run')
-    out_dir.mkdir(parents=True, exist_ok=True)
-    save_config(cfg, out_dir / 'config.yaml')
+    if lead:
+        out_dir.mkdir(parents=True, exist_ok=True)
+        save_config(cfg, out_dir / 'config.yaml')
 
+    # rank 0 makes the scene first: a synthetic scene caches its frames
+    if not lead:
+        dist.barrier()
     scene, meta, eval_scene, ds_pcd = build.build_scene(cfg, device)
+    if lead and dist.is_initialized():
+        dist.barrier()
     skcfg, rcfg = build.build_model_cfg(cfg, meta, scene.image_size)
     opts = build.trainer_options(cfg)
     pts, cols = build.initial_point_cloud(cfg, ds_pcd)
@@ -110,8 +160,10 @@ def main(argv=None):
     t = cfg['train']
     ckpt = CheckpointManager(out_dir / 'checkpoints',
                              interval=int(t.get('checkpoint_interval', 5000)))
-    trainer.snapshot_fn = lambda name: ckpt.save(
-        trainer.ckpt_state, trainer.step, force=True, name=name, manage=False)
+    if lead:
+        trainer.snapshot_fn = lambda name: ckpt.save(
+            trainer.ckpt_state, trainer.step, force=True, name=name,
+            manage=False)
     total = args.steps or skcfg.total_steps
     eval_interval = int(t.get('eval_interval', 5000))
     log_interval = int(t.get('log_interval', 100))
@@ -129,9 +181,18 @@ def main(argv=None):
 
     t0 = time.time()
     win_t0, win_step = time.time(), start - 1
-    with (out_dir / 'metrics.jsonl').open('a') as metrics_log:
+    with (out_dir / 'metrics.jsonl').open('a') if lead else \
+            contextlib.nullcontext() as metrics_log:
         for step in range(start, total + 1):
             metrics = trainer.train_step(step)
+            if not lead:
+                # the replicas' metrics are rank 0's: a non-finite loss
+                # stops every rank
+                if (step % log_interval == 0 or step == total) and \
+                        not np.isfinite(float(metrics['loss'])):
+                    raise FloatingPointError(
+                        f'non-finite loss at step {step}')
+                continue
             if step % log_interval == 0 or step == total:
                 loss_f, psnr_f = float(metrics['loss']), float(metrics['psnr'])
                 now = time.time()
@@ -177,6 +238,9 @@ def main(argv=None):
                               name='best.npz', manage=False)
             ckpt.save(trainer.ckpt_state, step)
 
+    if not lead:
+        dist.destroy_process_group()
+        return None
     result = trainer.evaluate(full_metrics=True)
     result['best_PSNR'] = best
     result['train_time_s'] = time.time() - t0
@@ -189,6 +253,8 @@ def main(argv=None):
     ckpt.save(trainer.ckpt_state, total, force=True, name='last.npz',
               manage=False)
     log.info('done: %s', result)
+    if dist.is_initialized():
+        dist.destroy_process_group()
     return result
 
 

@@ -10,9 +10,9 @@ false the plain version everywhere.
 
 ``train.precision`` bf16 (or bfloat16) computes the warp and skeleton nets
 in bfloat16 (``compute_dtype``), as the JAX package's ``train.py`` does;
-``train.optimizer`` and ``train.batch_views`` go to the trainer. Refused,
-as the trainer refuses it: a ``train.parallel`` mesh of more than one
-device. ``train.capacity_buckets``
+``train.optimizer``, ``train.batch_views`` and the ``view`` axis of a
+``train.parallel`` mesh go to the trainer. Refused, as the trainer refuses
+it: a mesh's ``gs`` axis. ``train.capacity_buckets``
 (recompile-driven capacity buckets, a TPU choice) is logged and ignored:
 a bucketed run and a padded one compute the same function.
 """
@@ -22,6 +22,7 @@ import logging
 from typing import Any, Dict, Tuple
 
 import numpy as np
+import torch.distributed as dist
 
 from ..data.colmap import load_colmap
 from ..data.dnerf import load_dnerf
@@ -32,6 +33,7 @@ from ..data.zju import load_zju, load_zju_pickled
 from ..models.deform import DeformNetConfig, SkeletonNetConfig
 from ..models.gaussian_splatting import GaussianConfig
 from ..models.sk_gs import SKGSConfig
+from ..parallel.mesh import make_mesh
 from ..render.settings import RasterConfig
 
 log = logging.getLogger(__name__)
@@ -241,20 +243,34 @@ def build_sampler(cfg: Dict[str, Any], scene, skcfg: SKGSConfig):
 
 def trainer_options(cfg: Dict[str, Any]) -> Dict[str, Any]:
     """The ``SKGSTrainer`` keyword arguments of ``cfg['train']`` (seed,
-    gradient clipping, views a step, optimizer); refuses only a device mesh
-    of more than one device, and logs that capacity buckets are not
-    carried."""
+    gradient clipping, views a step, optimizer, and the device mesh of
+    ``train.parallel: {n_view, n_gs}`` when it has more than one rank: the
+    process group must hold n_view x n_gs processes, as many as a launch
+    gives); logs that capacity buckets are not carried. The mesh's ``gs``
+    axis is not ported yet and raises ``NotImplementedError``."""
     t = cfg['train']
     par = t.get('parallel') or {}
-    n_dev = int(par.get('n_view', 1)) * int(par.get('n_gs', 1))
-    if n_dev > 1:
-        raise NotImplementedError(f'train.parallel over {n_dev} devices is '
-                                  'not ported yet (ROADMAP.md, multi-GPU)')
+    n_view, n_gs = int(par.get('n_view', 1)), int(par.get('n_gs', 1))
     if bool(t.get('capacity_buckets', False)):
         log.info('train.capacity_buckets: the port keeps the full capacity '
                  '(the buckets are a TPU recompile choice; same function)')
-    return {'seed': int(t.get('seed', 0)),
+    opts = {'seed': int(t.get('seed', 0)),
             'clip_norm': float(t.get('clip_norm', 0.0)),
             'batch_views': int(t.get('batch_views', 1)),
             'optimizer': t.get('optimizer', 'adam')}
-
+    if n_gs > 1:
+        raise NotImplementedError(
+            f"train.parallel.n_gs {n_gs}: the trainer's gs axis is not "
+            "ported yet (ROADMAP.md 1.3, next item: the trainer's gs axis)")
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    if world != n_view * n_gs:
+        raise ValueError(
+            f'train.parallel {n_view}x{n_gs} needs {n_view * n_gs} '
+            f'processes (torchrun --nproc_per_node {n_view * n_gs}); this '
+            f'run has {world}')
+    if n_view > 1:
+        if opts['batch_views'] % n_view:
+            raise ValueError(f"batch_views {opts['batch_views']} not "
+                             f"divisible by mesh view axis {n_view}")
+        opts['mesh'] = make_mesh(n_view, n_gs)
+    return opts

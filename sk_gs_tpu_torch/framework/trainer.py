@@ -72,8 +72,24 @@ families, one draw a view: ``sk_gs.noisy_time``; ``draw_time_noise``);
 ``reg_gen``, the uniforms of the motion regularizers, drawn once a step and
 shared by its views as the JAX step shares its key (the init family's
 random live rows, the times of ``elastic`` and ``arap``:
-``regularizer_draws``). Not ported, and raising ``NotImplementedError``: a
-device mesh.
+``regularizer_draws``).
+
+On a device mesh (``parallel.make_mesh``; one process a rank) the step is
+data parallel over the ``view`` axis (the JAX step's ``par`` branch,
+``trainer.py:866-975``): every rank samples all K views and takes its
+contiguous K / n_view of them, and draws every view's background and time
+noise in the single-device order, keeping its own, so that the streams are
+the single-device step's. After the backward, two all-reduces merge what
+the single-device step sums over its views: the max of the statistics'
+radii, the overflow, pairs, visible count and largest warp (with which
+leaves have a gradient), then the sum of the leaves' gradients and the
+means2d gradient (divided by the global K), the view counts, the losses,
+the cache rows at their views' places and the last view's ``p2sp``.
+Every rank then takes the same update, and runs the same events; after a
+stage event, a KNN rebuild or an adaptive control event, rank 0's model,
+optimizer state and KNN are written into every rank's
+(``sync_replicas``, which records how far they had drifted). The ``gs``
+axis is not ported yet and raises ``NotImplementedError``.
 
 RGBA targets (the background types of ``data.base.DYNAMIC_BG``): each step
 composites the target and the render over one background
@@ -114,6 +130,7 @@ from ..models.skeleton import (joint_cost_matrix, kinematic_transforms,
                                update_joint)
 from ..ops import se3
 from ..ops.knn import knn, live_knn_index
+from ..parallel import collectives as coll
 from ..render.render import composite_background, render
 from ..render.settings import GaussianInputs, RasterConfig
 from .evaluate import render_eval, split_metrics
@@ -207,11 +224,21 @@ class SKGSTrainer:
                  sp_initialized: bool = False, reinit_done: bool = False,
                  skeleton_initialized: bool = False,
                  eval_scene: Optional[Scene] = None, device='cuda'):
-        if mesh is not None:
-            raise NotImplementedError('training on a device mesh is not '
-                                      'ported yet')
         if batch_views < 1:
             raise ValueError(f'batch_views {batch_views} < 1')
+        if mesh is not None:
+            if mesh.axis_size('gs') > 1:
+                raise NotImplementedError(
+                    "the trainer's 'gs' mesh axis is not ported yet "
+                    "(ROADMAP.md 1.3, next item: the trainer's gs axis)")
+            if batch_views % mesh.axis_size('view'):
+                raise ValueError(
+                    f"batch_views {batch_views} not divisible by mesh view "
+                    f"axis {mesh.axis_size('view')}")
+        self.mesh = mesh
+        # the largest difference each sync found between a rank's state
+        # and rank 0's, by the events it followed
+        self.replica_drift: Dict[str, float] = {}
         self.opt_init, self.opt_update = make_optimizer(optimizer)
         self.optimizer = optimizer
         self.batch_views = batch_views
@@ -407,29 +434,36 @@ class SKGSTrainer:
         ``canonical_replace_steps`` after ``sp_fix`` starts, the skeleton
         initialisation before the first sk-family step (``_init_skeleton``).
         ``snapshot_fn`` takes 'init.npz' after the restart and 'sk_init.npz'
-        after the skeleton initialisation."""
+        after the skeleton initialisation. Returns the names of the events
+        that ran."""
         cfg = self.cfg
         stages = cfg.stages
         has_sp = stages['sp_fix'][2] > 0 or stages['sp'][2] > 0
+        fired = []
         if (not self.sp_initialized and step == cfg.init_sampling_step
                 and has_sp):
             self._init_superpoints()
             self.sp_initialized = True
+            fired.append('init_superpoints')
         if (not self.reinit_done and step == stages['sp_fix'][0] and has_sp
                 and stages['sp_fix'][0] > 0 and self.pcd is not None):
             self._reinit_from_pcd()
             self.reinit_done = True
+            fired.append('reinit_from_pcd')
             if self.snapshot_fn is not None:
                 self.snapshot_fn('init.npz')
         if (cfg.use_canonical_net and self.model.canonical is not None
                 and step > stages['sp_fix'][0]
                 and step in cfg.canonical_replace_steps):
             self._canonical_replace()
+            fired.append('canonical_replace')
         if cfg.stage_at(step) in SK_STAGES and not self.skeleton_initialized:
             self._init_skeleton()
             self.skeleton_initialized = True
+            fired.append('init_skeleton')
             if self.snapshot_fn is not None:
                 self.snapshot_fn('sk_init.npz')
+        return fired
 
     def _init_skeleton(self) -> Dict[str, torch.Tensor]:
         """``sk_gs_ops.init_skeleton`` with min(``joint_init_steps``,
@@ -486,9 +520,10 @@ class SKGSTrainer:
         steps (``trainer.py:1297-1309``)."""
         if not check_interval_v2(step, *self.gs_knn_update_interval, -1) \
                 and step != 1:
-            return
+            return False
         self.gs_knn_index = live_knn_index(self.model.params['xyz'],
                                            self.model.alive, self.gs_knn_num)
+        return True
 
     def _update_joint(self) -> torch.Tensor:
         """The joint tree from the joint cost's running mean (MST on the
@@ -506,23 +541,59 @@ class SKGSTrainer:
         """Run training step ``step`` (1-based). Metrics stay 0-d tensors
         on the device (reading one synchronises)."""
         cfg = self.cfg
-        self.maybe_stage_events(step)
+        fired = self.maybe_stage_events(step)
         stage = cfg.stage_at(step)
         family = self.family(stage)
         self.loss_w.set_step(step)
         self.update_sh_degree(step)
-        if stage == 'sp':
-            self.update_gs_knn(step)
+        if stage == 'sp' and self.update_gs_knn(step):
+            fired.append('update_gs_knn')
+        self.sync_replicas(fired)
         idxs = [self.sampler.sample(step) for _ in range(self.batch_views)]
         metrics = self._step(stage, idxs, self.lr_trees(step), step)
-        event = {}
+        event, after = {}, []
         if stage == 'sp' and check_interval_v2(
                 step, *cfg.joint_update_interval, close='[)'):
             event['joint_root'] = self._update_joint()
-        event.update(self.maybe_adaptive_control(step, family))
+            after.append('update_joint')
+        control = self.maybe_adaptive_control(step, family)
+        if control:
+            event.update(control)
+            after.append('adaptive_control')
+        self.sync_replicas(after)
         self.last_event = event
         self.step = step
         return metrics
+
+    def sync_replicas(self, events):
+        """On a mesh of more than one rank, after ``events`` (names; nothing
+        when empty): rank 0's model (parameters and buffers), optimizer
+        state and smooth-loss KNN written into every rank's, and the
+        largest difference found recorded in ``replica_drift`` under the
+        events' names. The events' kernels and scatters add in another
+        order on each rank (atomics), so the replicas may part there."""
+        if self.mesh is None or self.mesh.size == 1 or not events:
+            return
+        self.replica_drift['+'.join(events)] = coll.broadcast_from(
+            self.replica_state(), self.mesh.group('view'),
+            self.mesh.axis_ranks('view')[0])
+
+    def replica_state(self) -> list:
+        """Every tensor a replica must hold alike: the model's parameters
+        and buffers, the optimizer's state and the smooth loss's KNN."""
+        opt = [t for field in self.opt_state if isinstance(field, dict)
+               for t in field.values()]
+        return list(self.model.state_dict().values()) + opt \
+            + [self.gs_knn_index]
+
+    def local_views(self, k: int) -> range:
+        """The positions among a step's ``k`` views that this rank
+        computes: all of them on one device, its contiguous k / n_view on
+        a mesh's ``view`` axis."""
+        if self.mesh is None:
+            return range(k)
+        n, i = self.mesh.axis_size('view'), self.mesh.axis_index('view')
+        return range(i * (k // n), (i + 1) * (k // n))
 
     def loss_weight(self, name: str, step: int) -> float:
         """The weight of loss ``name`` at ``step``, with the JAX trainer's
@@ -578,19 +649,7 @@ class SKGSTrainer:
         step = self.step + 1 if step is None else step
         if draws is None:
             draws = self.regularizer_draws(family)
-        image, bg = scene.images[idx], self.bg
-        if image.shape[-1] == 4:
-            bg = sample_background(self.meta.background_type, self.bg_gen,
-                                   image.shape[0], image.shape[1],
-                                   checker=self.bg,
-                                   reference_rgb=image[..., :3])
-            alpha = image[..., 3:4]
-            image = image[..., :3] * alpha + bg * (1.0 - alpha)
-        noise, noise_scale = None, 0.0
-        if family in ('init', 'sp') and not cfg.net.is_blender:
-            noise_scale = smooth_scale(cfg, step)
-            if noise_scale > 0:
-                noise = self.draw_time_noise()
+        image, bg, noise, noise_scale = self.view_target(family, idx, step)
         t = scene.times[idx]
         d = forward_deltas(cfg, model, t, stage, time_id=scene.time_ids[idx],
                            training=True, noise=noise,
@@ -621,6 +680,27 @@ class SKGSTrainer:
                 self.cnet_loss_sp(t, points_out, d.aux)
             losses['c_net'] = self.loss_weight('c_net', step) * c_net
         return losses, d, out, img, image
+
+    def view_target(self, family: str, idx: int, step: int):
+        """View ``idx``'s target and its draws at step ``step``: (target,
+        background, time noise or None, the noise's scale). An RGBA target
+        is composited over a background drawn from ``bg_gen``; a net that
+        is not ``is_blender`` warps at a noisy time (one
+        ``draw_time_noise``) in the ``init`` and ``sp`` families."""
+        image, bg = self.scene.images[idx], self.bg
+        if image.shape[-1] == 4:
+            bg = sample_background(self.meta.background_type, self.bg_gen,
+                                   image.shape[0], image.shape[1],
+                                   checker=self.bg,
+                                   reference_rgb=image[..., :3])
+            alpha = image[..., 3:4]
+            image = image[..., :3] * alpha + bg * (1.0 - alpha)
+        noise, noise_scale = None, 0.0
+        if family in ('init', 'sp') and not self.cfg.net.is_blender:
+            noise_scale = smooth_scale(self.cfg, step)
+            if noise_scale > 0:
+                noise = self.draw_time_noise()
+        return image, bg, noise, noise_scale
 
     def sp_losses(self, d, t: torch.Tensor, step: int
                   ) -> Dict[str, torch.Tensor]:
@@ -909,20 +989,27 @@ class SKGSTrainer:
 
     def _step(self, stage: str, idxs, lrs: Dict[str, float],
               step: Optional[int] = None) -> Dict[str, torch.Tensor]:
-        """The forward and backward of each view of ``idxs``, the gradients
-        summed into the leaves and the means2d offset, then ``_update``."""
+        """The forward and backward of each view of ``idxs`` this rank
+        computes (``local_views``), the gradients summed into the leaves
+        and the means2d offset, then ``_update``. Another rank's view
+        takes its draws here (``view_target``) and nothing else."""
         family = FAMILY[stage]
         m2d_off = self.zero_grads()
         draws = self.regularizer_draws(family)
+        mine = self.local_views(len(idxs))
         views = []
-        for idx in idxs:
+        for i, idx in enumerate(idxs):
+            if i not in mine:
+                self.view_target(family, idx, self.step + 1 if step is None
+                                 else step)
+                continue
             losses, d, out, img, target = self._losses(stage, idx, m2d_off,
                                                        step, draws)
             total = sum(losses.values())
             total.backward()
             views.append(self._view_record(family, idx, total, losses, d,
                                            out, img, target))
-        return self._update(family, lrs, views, m2d_off)
+        return self._update(family, lrs, views, m2d_off, len(idxs))
 
     def _view_record(self, family: str, idx: int, total: torch.Tensor,
                      losses, d, out, img, target) -> Dict:
@@ -951,25 +1038,58 @@ class SKGSTrainer:
 
     @torch.no_grad()
     def _update(self, family: str, lrs: Dict[str, float], views,
-                m2d_off: torch.Tensor) -> Dict[str, torch.Tensor]:
-        """After the backward of the K views ``views`` of a ``family``
-        step: the gradients divided by K, sanitised, the optimizer, the
+                m2d_off: torch.Tensor, k: Optional[int] = None
+                ) -> Dict[str, torch.Tensor]:
+        """After the backward of this rank's views ``views`` of a
+        ``family`` step of ``k`` views (``len(views)`` by default): what
+        the views give merged over the ranks of a mesh (``merge_views``),
+        the gradients divided by k, sanitised, the optimizer, the
         statistics, the cache rows (``sp_cache`` for the ``sp`` family,
         ``sk_cache`` for ``sk``, in view order), the ``sp`` family's
         ``p2sp`` of the last view ('largest') and joint cost mean, and the
         metrics."""
         model = self.model
         leaves = model.leaves()
-        k = len(views)
+        k = len(views) if k is None else k
+        radii = torch.stack([v['radii'] for v in views])
+        stack = lambda key: torch.stack([v[key] for v in views])
+        maxes = {'radii': radii.amax(0).to(torch.float32),
+                 'overflow': stack('overflow').any(),
+                 'num_pairs': stack('num_pairs').amax(),
+                 'n_vis': stack('n_vis').amax(),
+                 'dxyz_max': stack('dxyz_max').amax()}
+        sums = {'n_seen': (radii > 0).sum(0).to(torch.float32),
+                'loss': stack('loss').sum(0), 'psnr': stack('psnr').sum(0),
+                **{'losses/' + name: torch.stack(
+                    [v['losses'][name] for v in views]).sum(0)
+                   for name in views[0]['losses']}}
+        cache = {'sp': model.sp_cache, 'sk': model.sk_cache}.get(family)
+        mine = self.local_views(k)
+        if cache is not None:
+            sums['cache_rows'] = self._at_views(
+                k, mine, stack('cache_row'))
+            sums['time_ids'] = self._at_views(k, mine, stack('time_id'))
+        if family == 'sp':
+            sums['joint_cost'] = stack('joint_cost_now').sum(0)
+            if self.cfg.warp_method == 'largest':
+                last = views[-1]['p2sp']
+                sums['p2sp'] = last if mine[-1] == k - 1 else \
+                    torch.zeros_like(last)
+        grads = {name: p.grad for name, p in leaves.items()}
+        grads['means2d'] = m2d_off.grad
+        if self.mesh is not None:
+            maxes, sums, grads = self.merge_views(maxes, sums, grads)
+        m2d_grad = grads.pop('means2d')
         # a degenerate splat can give a non-finite gradient entry: zero the
         # entries, count them, keep every healthy gradient
         n_bad = torch.zeros((), dtype=torch.int64, device=self.device)
-        for p in leaves.values():
-            if p.grad is None:
+        for name, p in leaves.items():
+            if grads[name] is None:
                 # a leaf this family does not read steps on a zero gradient,
                 # as in the JAX package's dense gradient trees
                 p.grad = torch.zeros_like(p)
                 continue
+            p.grad = grads[name]
             if k > 1:
                 p.grad.div_(k)
             bad = ~torch.isfinite(p.grad)
@@ -979,51 +1099,81 @@ class SKGSTrainer:
         self.opt_state = self.opt_update(grads, self.opt_state, leaves, lrs,
                                          clip_norm=self.clip_norm)
         # sk_init has no image gradient: its statistics take a zero one
-        m2d_grad = torch.zeros_like(m2d_off) if m2d_off.grad is None \
-            else m2d_off.grad / k
-        self._stats_update([v['radii'] for v in views], m2d_grad)
-        cache = {'sp': model.sp_cache, 'sk': model.sk_cache}.get(family)
+        m2d_grad = torch.zeros_like(m2d_off) if m2d_grad is None \
+            else m2d_grad / k
+        self._stats_update(maxes['radii'], sums['n_seen'], m2d_grad)
         if cache is not None:
-            for v in views:
-                cache.index_copy_(0, v['time_id'].reshape(1).to(torch.int64),
-                                  v['cache_row'][None])
+            rows, tids = sums['cache_rows'], sums['time_ids']
+            for i in range(k):
+                cache.index_copy_(0, tids[i].reshape(1).to(torch.int64),
+                                  rows[i][None])
         if family == 'sp':
             if self.cfg.warp_method == 'largest':
-                model.p2sp.copy_(views[-1]['p2sp'])
+                model.p2sp.copy_(sums['p2sp'])
             mom = self.cfg.sk_momentum
-            cost = torch.stack([v['joint_cost_now'] for v in views]).sum(0) / k
-            model.joint_cost.copy_(model.joint_cost * mom + cost * (1 - mom))
-        mean = lambda xs: torch.stack(xs).sum(0) / k
+            model.joint_cost.copy_(model.joint_cost * mom
+                                   + sums['joint_cost'] / k * (1 - mom))
         return {
-            'loss': mean([v['loss'] for v in views]),
-            'psnr': mean([v['psnr'] for v in views]),
-            'overflow': torch.stack([v['overflow'] for v in views]).any(),
-            'num_pairs': torch.stack([v['num_pairs'] for v in views]).amax(),
-            'n_vis': torch.stack([v['n_vis'] for v in views]).amax(),
+            'loss': sums['loss'] / k,
+            'psnr': sums['psnr'] / k,
+            'overflow': maxes['overflow'],
+            'num_pairs': maxes['num_pairs'],
+            'n_vis': maxes['n_vis'],
             'n_bad_grad': n_bad,
-            'dxyz_max': torch.stack([v['dxyz_max'] for v in views]).amax(),
-            **{name: mean([v['losses'][name] for v in views])
+            'dxyz_max': maxes['dxyz_max'],
+            **{name: sums['losses/' + name] / k
                for name in views[0]['losses']},
         }
 
-    def _stats_update(self, radii, m2d_grad: torch.Tensor):
+    @staticmethod
+    def _at_views(k: int, mine: range, x: torch.Tensor) -> torch.Tensor:
+        """This rank's rows ``x`` [len(mine), ...] at their views' places of
+        a [k, ...] block, zeros elsewhere (so that a sum over the ranks
+        gathers every view's row in view order)."""
+        if len(mine) == k:
+            return x
+        out = x.new_zeros((k,) + x.shape[1:])
+        out[mine.start:mine.stop] = x
+        return out
+
+    def merge_views(self, maxes, sums, grads):
+        """``maxes``, ``sums`` and ``grads`` (None where a leaf has no
+        gradient) of this rank's views, merged over the mesh's ``view``
+        axis: one max all-reduce of ``maxes`` and of which leaves have a
+        gradient on some rank, then one sum all-reduce of those leaves'
+        gradients (zeros where this rank has none) and of ``sums``."""
+        group = self.mesh.group('view')
+        names = list(grads)
+        has = torch.tensor([grads[n] is not None for n in names],
+                           dtype=torch.float64, device=self.device)
+        out = coll.pmax_all([has] + list(maxes.values()), group)
+        has = out[0] > 0
+        maxes = dict(zip(maxes, out[1:]))
+        shapes = {'means2d': (self.model.alive.shape[0], 2)}
+        live = [n for n, h in zip(names, has.tolist()) if h]
+        mine = [grads[n] if grads[n] is not None else torch.zeros(
+            shapes.get(n) or self.model.leaves()[n].shape,
+            device=self.device) for n in live]
+        out = coll.psum_all(mine + list(sums.values()), group)
+        grads = dict.fromkeys(names)
+        grads.update(zip(live, out[:len(live)]))
+        return maxes, dict(zip(sums, out[len(live):])), grads
+
+    def _stats_update(self, radii_max: torch.Tensor, n_seen: torch.Tensor,
+                      m2d_grad: torch.Tensor):
         """max screen radius, NDC position-gradient norm and view count of
-        every Gaussian the views saw, from each view's radii [N] of the
-        list ``radii`` and the mean means2d gradient
-        (``trainer.py:986-1002``)."""
+        every Gaussian the views saw, from the views' largest radius
+        ``radii_max`` [N], the number of views that saw each ``n_seen``
+        [N] and the mean means2d gradient (``trainer.py:986-1002``)."""
         m = self.model
-        radii = torch.stack(radii)
-        seen_k = radii > 0
-        seen = seen_k.any(0)
+        seen = radii_max > 0
         m.max_radii2d.copy_(torch.where(
-            seen, torch.maximum(m.max_radii2d,
-                                radii.amax(0).to(torch.float32)),
-            m.max_radii2d))
+            seen, torch.maximum(m.max_radii2d, radii_max), m.max_radii2d))
         gnorm = ndc_grad_norm(m2d_grad, (self.rcfg.image_width,
                                          self.rcfg.image_height), eps=1e-24)
         m.xyz_grad_accum.copy_(torch.where(seen, m.xyz_grad_accum + gnorm,
                                            m.xyz_grad_accum))
-        m.denom.add_(seen_k.sum(0).to(torch.float32))
+        m.denom.add_(n_seen)
 
     # ------------------------------------------------------------ control
 

@@ -21,6 +21,7 @@ from sk_gs_tpu_torch.cli import train as cli_train
 from sk_gs_tpu_torch.framework.checkpoint import load, step_of
 from sk_gs_tpu_torch.framework.config import make_config
 from sk_gs_tpu_torch.utils.ply import load_gaussian_ply
+from test_torch_mesh import one_torch_thread  # noqa: F401
 
 CONFIG = 'configs/synthetic_smoke.yaml'
 # the keys of the JAX package's train results.json (untrained LPIPS)
@@ -32,15 +33,6 @@ TEST_KEYS = RESULT_KEYS - {'best_PSNR', 'train_time_s'} | {
     'FPS', 'stage', 'step', 'capacity', 'pair_capacity', 'n_alive'}
 
 
-@pytest.fixture(scope='module', autouse=True)
-def one_torch_thread():
-    """One torch thread for the module: the port's CPU runs are thousands
-    of small ops, which gain nothing from more threads, and beside the
-    other test workers their threads stall each other."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def train_args(root, *extra):

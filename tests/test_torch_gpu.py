@@ -6,7 +6,8 @@ conftest.py sets up JAX, which these tests do not use):
     python -m pytest tests/test_torch_gpu.py -m gpu -q --noconftest
 
 Elsewhere every test skips (the card is looked for inside the fixture, never
-at import or collection). Beside the kernels: the JPEG decoder built on the
+at import or collection). The mesh tests run 2 gloo ranks on the one card,
+each a process of this file. Beside the kernels: the JPEG decoder built on the
 card's machine against the committed fixtures' decodes, and the viewer's
 top-k (plain torch ops) on the card against the CPU. The chunk-schedule kernels (#3, #4) are held to the
 same bars as the tile kernels (#1, #2). Tolerance of the forward 1e-4: power and alpha
@@ -44,12 +45,19 @@ from sk_gs_tpu_torch.render.binning import chunk_fields, num_chunks
 from sk_gs_tpu_torch.render.blend import (ALPHA_MIN, blend_forward_plain,
                                           chunk_blend_forward_plain)
 from sk_gs_tpu_torch.render.settings import RasterConfig
-from sk_gs_tpu_torch.render.tile_kernel import (ChunkBlend, TileBlend,
+from sk_gs_tpu_torch.render.render import composite_background
+from sk_gs_tpu_torch.render.tile_kernel import (KERNELS as KERNELS_ALL,
+                                                ChunkBlend, TileBlend,
                                                 chunk_blend_bwd,
                                                 chunk_blend_fwd,
                                                 tile_blend_bwd, tile_blend_fwd)
+from test_torch_mesh import rank_main, run_ranks
+from test_torch_view_parallel import CASES as VIEW_CASES
+from test_torch_view_parallel import (case_steps, close_step,
+                                            leaf_names, one_step)
 
 pytestmark = pytest.mark.gpu
+EXCHANGE_LEAVES = ('means3d', 'scales', 'rotations', 'opacities', 'sh')
 TOL = 1e-4
 BWD_TOL = 3e-4
 RERUN_TOL = 1e-5
@@ -758,3 +766,95 @@ def test_topk_weights_card_matches_cpu(cuda, chunk):
     assert torch.equal(out['cuda'][0], out['cpu'][0])
     assert float((out['cuda'][1] - out['cpu'][1]).abs().max()) <= 1e-5
     assert int((out['cpu'][0] >= 0).sum()) > 1000
+
+
+# ------------------------------------------------------------ the mesh
+# chip_smoke.py's mesh phases at a small size: 2 gloo ranks on one card,
+# each a process of this file (tests/test_torch_mesh.py:run_ranks)
+
+def test_view_step_two_gloo_ranks_on_one_card(cuda, tmp_path):
+    """tests/test_torch_view_parallel.py's steps (init, sp, sk_init, sk
+    with SGD, sk with Adam) on the card: the 2 ranks against one process
+    at batch_views 2, within that file's bars, and the replicas equal."""
+    ranks = run_ranks(__file__, 'view_steps', 2, tmp_path, 'cuda')
+    for i, case in enumerate(VIEW_CASES):
+        ref = one_step(*case, device='cuda')
+        got = {k[len(f'{i}/'):]: v for k, v in ranks[0].items()
+               if k.startswith(f'{i}/')}
+        close_step(got, ref, leaf_names(ref))
+    for k, v in ranks[0].items():
+        np.testing.assert_array_equal(v, ranks[1][k], err_msg=k)
+
+
+EXCHANGE_CFG = RasterConfig(image_width=64, image_height=64, sh_degree=3,
+                            pair_capacity=2 ** 14, chunk=64, tile_h=8)
+
+
+def exchange_target():
+    return torch.from_numpy(np.random.default_rng(3).uniform(
+        size=(64, 64, 3)).astype(np.float32))
+
+
+def exchange_loss(out, target):
+    """The image's (or a band's) terms of the mean l1 over the 64 x 64
+    image."""
+    img = composite_background(out['images'], out['opacity'],
+                               torch.ones(3, device=target.device))
+    return torch.abs(img - target).sum() / (64 * 64 * 3)
+
+
+def case_exchange(tmp, rank):
+    """This rank's half of ``random_scene(256)`` through the exchange
+    render at tile_h 8 on the card: the band and the slice's gradients."""
+    from sk_gs_tpu_torch.parallel import make_mesh, shard_rows
+    from sk_gs_tpu_torch.parallel.sharded_render import (assemble_bands,
+                                                         make_exchange_render)
+    mesh = make_mesh(1, 2)
+    g = random_scene(256, 'cuda', seed=4)
+    leaves = {k: shard_rows(getattr(g, k), mesh, 'gs').clone()
+              .requires_grad_(True) for k in EXCHANGE_LEAVES}
+    view = orbit_view(0.7, 64, 64, device='cuda')
+    for k in KERNELS_ALL:
+        k.launches = 0
+    out = make_exchange_render(mesh, EXCHANGE_CFG)(
+        GaussianInputs(**leaves), view)
+    exchange_loss(out, shard_rows(exchange_target().cuda(), mesh, 'gs')
+                  ).backward()
+    res = {'images': assemble_bands(out['images'], mesh).cpu().numpy(),
+           'opacity': assemble_bands(out['opacity'], mesh).cpu().numpy(),
+           'overflow': out['overflow'].cpu().numpy(),
+           'launches': np.array([k.launches for k in KERNELS_ALL])}
+    res.update({f'grad/{k}': v.grad.cpu().numpy() for k, v in leaves.items()})
+    return res
+
+
+def test_exchange_render_tile_h8_two_gloo_ranks_on_one_card(cuda, tmp_path):
+    """The exchange render at tile_h 8 over 2 gloo ranks on one card
+    against the one-card render: images and opacity 3e-5, gradients 5e-4
+    of each leaf's max, #1 once a render and #2 once a backward on each
+    rank."""
+    from sk_gs_tpu_torch.render.render import render
+    ranks = run_ranks(__file__, 'exchange', 2, tmp_path)
+    g = random_scene(256, 'cuda', seed=4)
+    leaves = {k: getattr(g, k).clone().requires_grad_(True)
+              for k in EXCHANGE_LEAVES}
+    out = render(GaussianInputs(**leaves),
+                 orbit_view(0.7, 64, 64, device='cuda'), EXCHANGE_CFG)
+    exchange_loss(out, exchange_target().cuda()).backward()
+    assert not bool(out['overflow'])
+    for r in ranks:
+        assert not bool(r['overflow'])
+        np.testing.assert_allclose(
+            r['images'], out['images'].detach().cpu().numpy(), atol=3e-5)
+        np.testing.assert_allclose(
+            r['opacity'], out['opacity'].detach().cpu().numpy(), atol=3e-5)
+        assert list(r['launches']) == [1, 1, 0, 0]
+    for k, v in leaves.items():
+        ref = v.grad.cpu().numpy()
+        got = np.concatenate([r[f'grad/{k}'] for r in ranks])
+        scale = np.abs(ref).max()
+        assert np.abs(got - ref).max() <= 5e-4 * scale, k
+
+
+if __name__ == '__main__':
+    rank_main({'view_steps': case_steps, 'exchange': case_exchange})

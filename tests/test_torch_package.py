@@ -55,7 +55,8 @@ def test_importing_every_module_loads_no_jax():
                  'models.optim', 'ops.knn', 'models.deform', 'data.dnerf',
                  'data.wim', 'data.zju', 'data.colmap', 'utils.png',
                  'utils.resize', 'utils.jpeg', 'framework.registry',
-                 'framework.lr_schedules', 'cli.viewer'):
+                 'framework.lr_schedules', 'cli.viewer', 'parallel.mesh',
+                 'parallel.collectives', 'parallel.sharded_render'):
         assert 'sk_gs_tpu_torch.' + name in res['modules']
     assert res['bad'] == []
 

@@ -49,6 +49,7 @@ from sk_gs_tpu_torch.framework.trainer import SKGSTrainer
 from sk_gs_tpu_torch.models import losses as tlosses
 from sk_gs_tpu_torch.models import optim as toptim
 from sk_gs_tpu_torch.models import sk_gs as tsk_gs
+from sk_gs_tpu_torch.parallel import Mesh
 from sk_gs_tpu_torch.render import GaussianInputs
 from sk_gs_tpu_torch.render.render import composite_background, render
 from tests.test_torch_cli import one_torch_thread  # noqa: F401
@@ -387,11 +388,16 @@ def test_trainer_refuses_what_is_not_ported(tiny, jax_scene, tmp_path):
     meta = SceneMeta(background=np.ones(3, np.float32))
     model = port_model(tiny, tmp_path)
     cfg, rcfg = model.cfg, model.rcfg
-    # a device mesh alone is refused; batch_views and the optimizers of
-    # the JAX registry are ported (tests/test_torch_train_options.py)
-    with pytest.raises(NotImplementedError, match='mesh'):
+    # a mesh's gs axis alone is refused, and a view axis that does not
+    # divide batch_views; the view axis (tests/test_torch_view_parallel.py),
+    # batch_views and the optimizers of the JAX registry are ported
+    # (tests/test_torch_train_options.py)
+    with pytest.raises(NotImplementedError, match="'gs' mesh axis"):
         SKGSTrainer(cfg, rcfg, scene, meta, model, device='cpu',
-                    mesh=object())
+                    mesh=Mesh(1, 2, 0, {}))
+    with pytest.raises(ValueError, match='view axis 2'):
+        SKGSTrainer(cfg, rcfg, scene, meta, model, device='cpu',
+                    batch_views=3, mesh=Mesh(2, 1, 0, {}))
     for kw in ({'batch_views': 2}, {'optimizer': 'adan'},
                {'optimizer': 'sgd'}, {'optimizer': 'adamw'}):
         SKGSTrainer(cfg, rcfg, scene, meta, model, device='cpu', **kw)
