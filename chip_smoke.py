@@ -260,7 +260,27 @@ with the ``sk_init`` family (kernel #1). Phases, one JSON line each:
    tree equal: held at init.npz and at step 100 where the twin holds it,
    reported after the skeleton initialisation, whose MST breaks near-ties
    by last bits); rank 1 writes nothing;
-41. with ``--profile`` only: 24 at the flagship's 2,000 + 2,000
+41. mesh_gs: the trainer's gs axis, 2 gloo ranks on this card on a 1 x 2
+   mesh at ``batch_views`` 1, each rank computing its half of the
+   100,352 slots and blending a band of 25 tile rows (tile_h 8, a pair
+   capacity of 2^21: a band holds half) from the splats exchanged
+   all-to-all, against one process at the same setup from one state: the
+   init family (the populated start, chunk schedule: #3/#4 in a band), sp
+   (the random sp-stage model, its smooth-loss KNN rebuilt), sk_init
+   (that model with its LBS frozen, on synthetic_smoke's sk stages) and
+   sk, 2 steps each at ``train_reference``'s bars, the replicas equal to
+   the last bit, no overflow; ms a step, the bytes each kind of
+   collective sends a step (the all-to-all blocks, the gathers, the
+   reductions) and the merge's bytes and ms, each band's pairs and the
+   rows sent, peak memory and launches of each rank; each rank's band
+   kernels against their plain versions on its last band's inputs;
+42. mesh_gs_2x2: both axes, 4 gloo ranks on this card on a 2 x 2 mesh, 2
+   sk steps at ``batch_views`` 2 against one process at ``batch_views``
+   2, as 41;
+43. cli_train_gs: 40 on the gs axis (``train.parallel.n_gs`` 2,
+   ``raster.tile_h=8``, ``batch_views`` 1): the ranks against one process
+   and its twin at the same sets, by the same rule;
+44. with ``--profile`` only: 24 at the flagship's 2,000 + 2,000
    iterations (profile_sk_init_event); profile_sk_init, each loop's
    iteration on the host clock and under torch.profiler (device time,
    busy share, top kernels) on that model after its initialisation; 26
@@ -296,7 +316,8 @@ training path and on each path, the CLI paths ``cli_train``,
 ``viewer``, the options' paths
 ``train_sp_extras``, ``train_init_reg`` and ``train_init_bf16`` and the
 mesh's (rank 0's) ``sharded_render``, ``exchange_render``,
-``mesh_view_{init,sp,sk}``, ``mesh_nccl1`` and ``cli_train_parallel``
+``mesh_view_{init,sp,sk}``, ``mesh_nccl1``, ``cli_train_parallel``,
+``mesh_gs_{init,sp,sk_init,sk}``, ``mesh_gs_2x2_sk`` and ``cli_train_gs``
 included, error, times and bound), the card's name
 and power limit as nvidia-smi prints them, and last ``{"ok": true,
 "device": {...}}``. Any failure raises and exits non-zero; with no CUDA
@@ -351,7 +372,7 @@ from sk_gs_tpu_torch.framework.random_model import orbit_view, random_model_flat
 from sk_gs_tpu_torch.framework.trainer import (FAMILY,
                                                INIT_SKELETON_MAX_STEPS,
                                                SKGSTrainer, smooth_loss)
-from sk_gs_tpu_torch.models import optim, sk_gs_ops
+from sk_gs_tpu_torch.models import optim, sk_gs_ops, superpoints
 from sk_gs_tpu_torch.models.gaussian_splatting import (gaussian_inputs,
                                                        init_from_pcd)
 from sk_gs_tpu_torch.models.losses import LossWeights, l1_loss, ssim_loss
@@ -360,13 +381,14 @@ from sk_gs_tpu_torch.models.sk_gs import (forward_deltas, init_model,
 from sk_gs_tpu_torch.models.sk_gs_ops import sample_trajectories
 from sk_gs_tpu_torch.models.skeleton import joint_cost_matrix
 from sk_gs_tpu_torch.models.superpoints import select_rows
-from sk_gs_tpu_torch.ops.knn import furthest_point_sampling
+from sk_gs_tpu_torch.ops.knn import furthest_point_sampling, live_knn_index
 from sk_gs_tpu_torch.ops.knn import knn as knn_op
 from sk_gs_tpu_torch.ops.transforms import (convert_coord_system, look_at,
                                             perspective_opencv)
 from sk_gs_tpu_torch.parallel import (init_distributed, make_mesh,
                                       shard_rows)
 from sk_gs_tpu_torch.parallel import collectives as coll
+from sk_gs_tpu_torch.parallel import sharded_render
 from sk_gs_tpu_torch.parallel.sharded_render import (make_exchange_render,
                                                      make_sharded_render)
 from sk_gs_tpu_torch.render import prepare_blend
@@ -1852,12 +1874,13 @@ def phase_train_reference_sp(seed: int):
                              device=dev)
             rounding = []
 
-            def spy(d, t, step, _tr=tr, _fn=tr.sp_losses, _out=rounding):
+            def spy(d, t, step, _tr=tr, _fn=tr.sp_losses, _out=rounding,
+                    **kw):
                 d.aux['knn_w'].retain_grad()     # dL/dw, after the backward
                 _out.append((smooth_rounding(_tr, d, step), d.aux['knn_w'],
                              d.aux['knn_i'].cpu(), _tr.gs_knn_index.cpu(),
                              _tr.model.alive.cpu()))
-                return _fn(d, t, step)
+                return _fn(d, t, step, **kw)
             tr.sp_losses = spy
             losses, grads, events, zero = [], [], [], []
             for step in steps:
@@ -4316,6 +4339,12 @@ SHARDED_GRAD_TOL = 5e-4
 SHARDED_LEAVES = ('means3d', 'scales', 'rotations', 'opacities', 'sh')
 RENDERERS = {'sharded': make_sharded_render, 'exchange': make_exchange_render}
 WORKER_TIMEOUT = 900
+# (family, the steps held against one process) of the gs axis, a 1 x 2
+# mesh at batch_views 1; and the 2 x 2 mesh's sk steps at batch_views 2
+MESH_GS_PLAN = (('init', (2996, 2997)), ('sp', (13998, 13999)),
+                ('sk_init', (40001, 40002)), ('sk', (40001, 40002)))
+MESH_2X2 = (2, 2)
+MESH_2X2_STEPS = (40001, 40002)
 
 
 def free_port() -> int:
@@ -4367,28 +4396,47 @@ def spawn_ranks(worker: str, world: int, tmp: Path, argv_of=lambda r: ()):
             for r in range(world)]
 
 
-def mesh_trainer(family: str, mesh=None, batch_views: int = MESH_RANKS
-                 ) -> SKGSTrainer:
+def mesh_trainer(family: str, mesh=None, batch_views: int = MESH_RANKS,
+                 band: bool = False) -> SKGSTrainer:
     """The full-width trainer of ``family`` on the preset's scene from
     seed 0: 'init' the populated start (80,000 alive) on the chunk
-    schedule, 'sp' the random sp-stage model, 'sk' the random model with
-    its skeleton initialised; ``batch_views`` views a step, on ``mesh``."""
+    schedule, 'sp' the random sp-stage model, 'sk_init' that model on the
+    sk stages of synthetic_smoke (``sk_init_cfg``) with its LBS frozen
+    (``freeze_lbs``, the skeleton initialisation's first part), 'sk' the
+    random model with its skeleton initialised; ``batch_views`` views a
+    step, on ``mesh``. ``band``: the gs axis's setup, tile_h 8 (25 tile
+    rows at 16 do not split into 2 bands), a pair capacity of 2^21 (a
+    band holds half of it) and, for 'sp', the smooth loss's KNN rebuilt."""
     cfg, rcfg, train = synthetic_fullscale()
     if family == 'init':
         rcfg = rcfg._replace(schedule='chunk')
+    if family == 'sk_init':
+        cfg = sk_init_cfg(cfg)
+    if band:
+        rcfg = rcfg._replace(tile_h=SHARDED_TILE_H,
+                             pair_capacity=SHARDED_PAIR_CAPACITY)
     scene, meta, _ = fullscale_scene(rcfg, train)
     if family == 'init':
         model = populated_model(cfg, rcfg, 80_000)
     else:
         model = convert.model_from_flat(
-            random_model_flat(cfg, SEED, 80_000, sp_stage=family == 'sp'),
+            random_model_flat(cfg, SEED, 80_000,
+                              sp_stage=family in ('sp', 'sk_init')),
             cfg, rcfg, device='cuda', trainable=True)
+    if family == 'sk_init':
+        with torch.no_grad():
+            sk_gs_ops.freeze_lbs(cfg, model)
+    knn = live_knn_index(model.params['xyz'].detach(), model.alive,
+                         SKGSTrainer.gs_knn_num) \
+        if band and family == 'sp' else None
     return SKGSTrainer(cfg, rcfg, scene, meta, model, LossWeights(train.loss),
                        seed=train.seed, clip_norm=train.clip_norm,
                        optimizer=train.optimizer, batch_views=batch_views,
-                       mesh=mesh, sp_initialized=family == 'sp',
-                       reinit_done=family == 'sp',
-                       skeleton_initialized=family == 'sk', device='cuda')
+                       mesh=mesh, gs_knn_index=knn,
+                       sp_initialized=family in ('sp', 'sk_init'),
+                       reinit_done=family in ('sp', 'sk_init'),
+                       skeleton_initialized=family in ('sk_init', 'sk'),
+                       device='cuda')
 
 
 def mesh_steps(trainer: SKGSTrainer, steps):
@@ -4407,26 +4455,48 @@ def mesh_steps(trainer: SKGSTrainer, steps):
     return recs, grads, {k.name: k.launches for k in KERNELS}
 
 
-def timed_merges(trainer: SKGSTrainer) -> list:
+def timed_merges(trainer: SKGSTrainer, nbytes: list = None) -> list:
     """Wrap the trainer's ``merge_views``: each call appends its
-    synchronised ms (its two all-reduces and their packing)."""
+    synchronised ms (its two all-reduces over the whole mesh and their
+    packing), and to ``nbytes`` the bytes this rank sent into them."""
     log, fn = [], trainer.merge_views
 
     def timed(*args):
         torch.cuda.synchronize()
-        t0 = time.perf_counter()
+        t0, b0 = time.perf_counter(), coll.counts['bytes']
         out = fn(*args)
         torch.cuda.synchronize()
         log.append((time.perf_counter() - t0) * 1e3)
+        if nbytes is not None:
+            nbytes.append(coll.counts['bytes'] - b0)
         return out
     trainer.merge_views = timed
+    return log
+
+
+def timed_calls(obj, names) -> dict:
+    """Wrap the methods ``names`` of ``obj``: each call appends its
+    synchronised ms to the returned dict's list under its name."""
+    log = {name: [] for name in names}
+
+    def wrap(name, fn):
+        def timed(*args, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            torch.cuda.synchronize()
+            log[name].append((time.perf_counter() - t0) * 1e3)
+            return out
+        return timed
+    for name in names:
+        setattr(obj, name, wrap(name, getattr(obj, name)))
     return log
 
 
 def replica_difference(trainer: SKGSTrainer) -> float:
     """The largest difference between any rank's replica state and rank
     0's (copies are compared; nothing is written)."""
-    group = trainer.mesh.group('view')
+    group = trainer.mesh.group(('view', 'gs'))
     d = coll.broadcast_from([t.clone() for t in trainer.replica_state()],
                             group, 0)
     return float(coll.pmax(torch.tensor([d], device='cuda'), group)[0])
@@ -4483,40 +4553,115 @@ def stat_errors(got: dict, ref: dict) -> dict:
     return out
 
 
+def against_one_process(family: str, rank_steps, got: dict, recs, grads,
+                        flat: dict, lrs: dict, unheld=None):
+    """Rank 0's steps (their records ``rank_steps``; ``got``: its
+    gradients a step and its model after them) against one process's
+    (``recs``, ``grads``, ``flat``), at ``train_reference``'s bars: (the
+    loss's relative error, each step's three worst gradient errors over
+    their leaf's max, the parameters' worst error over their bound and its
+    leaf, the statistics' errors; whether every bar held). ``unheld``
+    (``twin_unheld``'s) names each step's leaves whose gradient, and the
+    leaves whose parameters, are held to no bar: their errors are
+    reported."""
+    steps_unheld, params_unheld = unheld or ([{}] * len(recs), {})
+    loss_err = max(abs(a['loss'] - b['loss']) / abs(b['loss'])
+                   for a, b in zip(rank_steps, recs))
+    # the init family's isotropic Gaussians leave the rotation gradient
+    # rounding noise (grad_path_init)
+    iso = {'rotation': 'xyz'} if family == 'init' else {}
+    every = [close_leaves(a, b, math.inf, scale_of=iso)
+             for a, b in zip(got['grads'], grads)]
+    grad_worst = [{k: v for k, v in sorted(
+        ((k, v) for k, v in w.items() if k not in skip),
+        key=lambda kv: -kv[1])[:3]} for w, skip in zip(every, steps_unheld)]
+    free = set(params_unheld).union(*steps_unheld)
+    param_worst, param_leaf = params_over_tol(
+        got['flat'], flat, grads,
+        {k: v for k, v in lrs.items() if k not in free}, len(recs),
+        scale_of=iso)
+    stats = stat_errors(got['flat'], flat)
+    bad_stats = {k: v for k, v in stats.items() if v > MESH_CLOSE.get(k, 0)}
+    held_one = not (loss_err > 2e-4 or param_worst > 1.0 or bad_stats
+                    or max(v for w in grad_worst for v in w.values()) > 3e-4)
+    return {'loss_rel_err': loss_err,
+            'grad_worst_err_over_max_top3': grad_worst,
+            'param_worst_over_tol': param_worst,
+            'param_worst_leaf': param_leaf, 'stats': stats,
+            'unheld_grad_err_over_max': [{k: w[k] for k in skip}
+                                         for w, skip in zip(every,
+                                                            steps_unheld)],
+            'unheld_params_err_over_tol': {
+                k: params_over_tol(got['flat'], flat, grads, {k: lrs[k]},
+                                   len(recs), scale_of=iso)[0]
+                for k in sorted(free)}}, held_one
+
+
+def twin_unheld(family: str, twin, ref):
+    """What a twin run of one process (``twin``: (grads a step, flat);
+    ``ref``: (grads a step, flat, lrs), the same steps from one state)
+    does not hold against itself at ``train_reference``'s bars: (for each
+    step the leaves whose gradient it does not hold, with its error over
+    the leaf's max; the leaves whose parameters it does not hold after the
+    steps, with their error over the bound). The backward kernels' atomics
+    sum in another order on each run; a leaf whose gradient cancels to a
+    share of its terms' size (``sp_W``'s through the LBS softmax while the
+    superpoints' transforms nearly agree) carries that order into its own
+    entries, and Adam turns an entry's last bits near 0 into +-lr, which
+    parts the next step's state."""
+    iso = {'rotation': 'xyz'} if family == 'init' else {}
+    steps = [{k: v for k, v in close_leaves(
+        t, r, math.inf, scale_of=iso).items() if v > 3e-4}
+        for t, r in zip(twin[0], ref[0])]
+    params = {}
+    for name, lr in ref[2].items():
+        param, _ = params_over_tol(twin[1], ref[1], ref[0], {name: lr},
+                                   len(ref[0]), scale_of=iso)
+        if param > 1.0:
+            params[name] = param
+    return steps, params
+
+
+def one_process_view_steps(family: str, steps):
+    """One process's ``family`` steps at batch_views 2 from
+    ``mesh_trainer``'s state: (the records, the gradients a step, the model
+    after them, the learning rates, the launches, peak memory)."""
+    tr = mesh_trainer(family)
+    torch.cuda.reset_peak_memory_stats()
+    recs, grads, launches = mesh_steps(tr, steps)
+    peak = torch.cuda.max_memory_allocated()
+    flat = convert.model_to_flat(tr.model)
+    lrs = tr.lr_trees(steps[-1])
+    del tr
+    torch.cuda.empty_cache()
+    return recs, grads, flat, lrs, launches, peak
+
+
 def phase_mesh_view(tmp: Path) -> dict:
     """The trainer's view axis: 2 gloo ranks on this card, one view each,
     against one process at batch_views 2 from one state, for the init
     (chunk schedule), sp and sk families at full width; the ranks then go
-    on across events, after which their replicas must not differ."""
+    on across events, after which their replicas must not differ. The
+    first step is held on every leaf; the second on the leaves that a twin
+    run of one process holds against itself (``twin_unheld``), since it
+    starts from states that the first step's atomics and Adam parted."""
     t0 = time.perf_counter()
     ranks = spawn_ranks('mesh_view', MESH_RANKS, tmp)
     ranks_s = time.perf_counter() - t0
     paths = {}
     for family, compare, events in MESH_VIEW_PLAN:
-        tr = mesh_trainer(family)
-        torch.cuda.reset_peak_memory_stats()
-        recs, grads, launches = mesh_steps(tr, compare)
-        peak = torch.cuda.max_memory_allocated()
-        flat = convert.model_to_flat(tr.model)
-        lrs = tr.lr_trees(compare[-1])
-        del tr
-        torch.cuda.empty_cache()
+        recs, grads, flat, lrs, launches, peak = one_process_view_steps(
+            family, compare)
+        twin = one_process_view_steps(family, compare)
+        steps_unheld, params_unheld = twin_unheld(family, twin[1:3],
+                                                  (grads, flat, lrs))
+        del twin
+        # the first step starts from one state on every side: all held
+        unheld = ([{}] + steps_unheld[1:], params_unheld)
         got = torch.load(tmp / f'mesh_view_{family}.pt', weights_only=False)
         r0 = ranks[0][family]
-        loss_err = max(abs(a['loss'] - b['loss']) / abs(b['loss'])
-                       for a, b in zip(r0['steps'], recs))
-        # the init family's isotropic Gaussians leave the rotation
-        # gradient rounding noise (grad_path_init)
-        iso = {'rotation': 'xyz'} if family == 'init' else {}
-        grad_worst = [close_leaves(a, b, math.inf, scale_of=iso)
-                      for a, b in zip(got['grads'], grads)]
-        grad_worst = [{k: v for k, v in sorted(w.items(), key=lambda kv:
-                                               -kv[1])[:3]}
-                      for w in grad_worst]
-        param_worst, param_leaf = params_over_tol(got['flat'], flat, grads,
-                                                  lrs, len(compare),
-                                                  scale_of=iso)
-        stats = stat_errors(got['flat'], flat)
+        agree, held_one = against_one_process(family, r0['steps'], got, recs,
+                                              grads, flat, lrs, unheld)
         del got, grads
         fwd, bwd = (chunk_blend_fwd, chunk_blend_bwd) if family == 'init' \
             else (tile_blend_fwd, tile_blend_bwd)
@@ -4547,20 +4692,14 @@ def phase_mesh_view(tmp: Path) -> dict:
             'launches_ranks': [r[family]['launches'] for r in ranks],
             'launches_one_process': launches,
             'loss_ranks': [s['loss'] for s in r0['steps']],
-            'loss_one_process': [s['loss'] for s in recs],
-            'loss_rel_err': loss_err,
-            'grad_worst_err_over_max_top3': grad_worst,
-            'param_worst_over_tol': param_worst,
-            'param_worst_leaf': param_leaf, 'stats': stats,
+            'loss_one_process': [s['loss'] for s in recs], **agree,
+            'twin_unheld': {'steps': steps_unheld, 'params': params_unheld},
             'event_steps': r0['event_steps'], 'events': r0['events'],
             'sync_drift_by_event_ranks': [r[family]['sync_drift_by_event']
                                           for r in ranks],
             'replica_max_abs_diff': r0['replica_max_abs_diff']}
         emit(rec)
-        bad_stats = {k: v for k, v in stats.items()
-                     if v > MESH_CLOSE.get(k, 0)}
-        if loss_err > 2e-4 or param_worst > 1.0 or bad_stats or max(
-                v for w in grad_worst for v in w.values()) > 3e-4:
+        if not held_one:
             raise AssertionError(f'mesh_view {family}: the ranks differ from '
                                  f'one process: {rec}')
         if any(r[family]['launches'] != want_rank for r in ranks) or \
@@ -4803,21 +4942,31 @@ def tile_h8_kernels(g: GaussianInputs, view, rcfg) -> dict:
             'fwd_max_abs_err': fwd, 'bwd_err_over_max': bwd}
 
 
-def cli_parallel_argv(out: Path, data: Path, parallel: bool) -> list:
-    sets = ['train.batch_views=2']
-    if parallel:
-        sets.append('train.parallel={"n_view": 2, "n_gs": 1}')
+# the CLI's mesh phases: (the sets of every run, the mesh's set, views a
+# step): the view axis at batch_views 2, and the gs axis at tile_h 8 (the
+# smoke config's 48 pixels are 3 tile rows at 16)
+CLI_MESHES = {
+    'cli_train_parallel': (('train.batch_views=2',),
+                           'train.parallel={"n_view": 2, "n_gs": 1}', 2),
+    'cli_train_gs': (('raster.tile_h=8',),
+                     'train.parallel={"n_view": 1, "n_gs": 2}', 1)}
+
+
+def cli_parallel_argv(phase: str, out: Path, data: Path,
+                      parallel: bool) -> list:
+    sets, mesh, _ = CLI_MESHES[phase]
+    sets = list(sets) + ([mesh] if parallel else [])
     dev = ['--device', 'cuda:0', '--dist-backend', 'gloo'] if parallel \
         else ['--device', 'cuda']
     return ['-c', CLI_SMOKE, *dev, '--set', f'output_dir={out}',
             f'dataset.root={data}', *sets]
 
 
-def worker_cli_train(tmp: Path, rank: int) -> dict:
-    """A rank of ``cli_train_parallel``: ``cli.train``'s main, its own
-    output directory."""
+def worker_cli_train(phase: str, tmp: Path, rank: int) -> dict:
+    """A rank of ``phase`` (``cli_train_parallel``, ``cli_train_gs``):
+    ``cli.train``'s main, its own output directory."""
     _, launches, secs = cli_run(cli_train.main, cli_parallel_argv(
-        tmp / f'rank{rank}', tmp / 'data', True))
+        phase, tmp / f'rank{rank}', tmp / 'data', True))
     return {'launches': launches, 'seconds': secs}
 
 
@@ -4873,11 +5022,14 @@ def held(rec: dict) -> bool:
         not any(rec['differing_entries'].values())
 
 
-def phase_cli_train_parallel(tmp: Path) -> dict:
-    """``cli.train`` on configs/synthetic_smoke.yaml, the whole schedule
-    at batch_views 2: over 2 gloo ranks on this card
-    (``train.parallel.n_view`` 2, each rank its own output directory)
-    against one process, and that process run again (its twin). At each
+def phase_cli_train_parallel(tmp: Path,
+                             phase: str = 'cli_train_parallel') -> dict:
+    """``cli.train`` on configs/synthetic_smoke.yaml, the whole schedule,
+    over 2 gloo ranks on this card (each rank its own output directory):
+    ``cli_train_parallel`` at batch_views 2 on ``train.parallel.n_view`` 2
+    (a view a rank), ``cli_train_gs`` at tile_h 8 on ``n_gs`` 2 (half the
+    capacity and a band a rank); against one process of the same sets, and
+    that process run again (its twin). At each
     checkpoint both write, the parameters within 2 lr a step plus 1e-5 of
     each leaf (the skeleton initialisation's Adam steps included) and the
     alive slots, the superpoints and the tree equal: held for the ranks
@@ -4889,12 +5041,13 @@ def phase_cli_train_parallel(tmp: Path) -> dict:
     nothing; #1 once a
     step on each rank (and on rank 0 once a view of the ground truth and
     of each evaluation), #2 once a step but the ``sk_init`` steps'."""
-    cfg = make_config(CLI_SMOKE, ['train.batch_views=2'])
-    ranks = spawn_ranks('cli_train', MESH_RANKS, tmp)
+    sets, _, k = CLI_MESHES[phase]
+    cfg = make_config(CLI_SMOKE, list(sets))
+    ranks = spawn_ranks(phase, MESH_RANKS, tmp)
     _, launches, secs = cli_run(cli_train.main, cli_parallel_argv(
-        tmp / 'one', tmp / 'data_one', False))
+        phase, tmp / 'one', tmp / 'data_one', False))
     _, _, twin_secs = cli_run(cli_train.main, cli_parallel_argv(
-        tmp / 'twin', tmp / 'data_one', False))
+        phase, tmp / 'twin', tmp / 'data_one', False))
     exp = cfg['exp_name']
     ckpt = lambda run, name: load_ckpt(tmp / run / exp / 'checkpoints' / name)
     run_cfg = make_config(str(tmp / 'one' / exp / 'config.yaml'))
@@ -4917,14 +5070,14 @@ def phase_cli_train_parallel(tmp: Path) -> dict:
     want = [{tile_blend_fwd.name: steps + views * (1 + evals) * (r == 0),
              tile_blend_bwd.name: bwd, chunk_blend_fwd.name: 0,
              chunk_blend_bwd.name: 0} for r in range(MESH_RANKS)]
-    want_one = {tile_blend_fwd.name: 2 * steps + views * (1 + evals),
-                tile_blend_bwd.name: 2 * bwd, chunk_blend_fwd.name: 0,
+    want_one = {tile_blend_fwd.name: k * steps + views * (1 + evals),
+                tile_blend_bwd.name: k * bwd, chunk_blend_fwd.name: 0,
                 chunk_blend_bwd.name: 0}
     rank1_files = files_under(tmp / 'rank1') if (tmp / 'rank1').exists() \
         else {}
     held_at = [n for n in CLI_PARALLEL_HELD
                if n == 'init.npz' or held(agree['twin'][n])]
-    rec = {'phase': 'cli_train_parallel', 'backend': 'gloo',
+    rec = {'phase': phase, 'backend': 'gloo', 'sets': list(sets),
            'ranks': MESH_RANKS, 'steps': steps,
            'seconds_ranks': [r['seconds'] for r in ranks],
            'seconds_one_process': secs, 'seconds_twin': twin_secs,
@@ -4939,11 +5092,347 @@ def phase_cli_train_parallel(tmp: Path) -> dict:
     emit(rec)
     if not all(held(agree['ranks'][n]) for n in held_at) or rank1_files or \
             (tmp / 'rank1').exists():
-        raise AssertionError(f'cli_train_parallel: {rec}')
+        raise AssertionError(f'{phase}: {rec}')
     if [r['launches'] for r in ranks] != want or launches != want_one:
-        raise AssertionError(f'cli_train_parallel: launches {rec}, '
-                             f'expected {want}, {want_one}')
-    return {'cli_train_parallel': ranks[0]['launches']}
+        raise AssertionError(f'{phase}: launches {rec}, expected {want}, '
+                             f'{want_one}')
+    return {phase: ranks[0]['launches']}
+
+
+def tally_collectives() -> dict:
+    """Wrap ``collectives._run`` in this rank process: the bytes this rank
+    sends, by the collective that sent them ('reduce', 'gather',
+    'exchange', 'broadcast_from'), added into the returned dict."""
+    tally, run = {}, coll._run
+
+    def counted(x, fn):
+        kind = fn.__qualname__.split('.')[0].lstrip('_')
+        tally[kind] = tally.get(kind, 0) + x.numel() * x.element_size()
+        return run(x, fn)
+    coll._run = counted
+    return tally
+
+
+def record_bands() -> dict:
+    """Wrap the exchange render's preprocess and band in this rank
+    process: each preprocess's splat rects and radii ('rects': [N / G, 5]
+    rows of rect_min, rect_max, radius, on the host), each band render's
+    pairs ('pairs') and rows sent to each rank ('sent'), and the last band
+    blend's inputs ('inputs': binned, geo, col, band config)."""
+    rec = {'rects': [], 'pairs': [], 'sent': [], 'inputs': None}
+    prep, blend = trainer_mod.preprocess, sharded_render.blend_tiles
+    band = trainer_mod.exchange_render_band
+
+    def prep_recorded(*args, **kw):
+        pre = prep(*args, **kw)
+        rec['rects'].append(splat_rects(pre))
+        return pre
+
+    def blend_recorded(binned, geo, col, bcfg):
+        rec['inputs'] = (binned, geo.detach(), col.detach(), bcfg)
+        return blend(binned, geo, col, bcfg)
+
+    def band_recorded(*args, **kw):
+        out = band(*args, **kw)
+        rec['pairs'].append(out[3].num_pairs)
+        rec['sent'].append(out[4])
+        return out
+    trainer_mod.preprocess = prep_recorded
+    sharded_render.blend_tiles = blend_recorded
+    trainer_mod.exchange_render_band = band_recorded
+    return rec
+
+
+def splat_rects(pre) -> torch.Tensor:
+    """Each splat's tile rect and radius, [N, 5] int32 on the host: what
+    decides which (splat, tile) pairs a render lists."""
+    return torch.cat([pre.rect_min, pre.rect_max, pre.radius[:, None]],
+                     -1).to(torch.int32).cpu()
+
+
+def band_kernels(binned, geo, col, bcfg) -> dict:
+    """The band's forward and backward kernels (#1/#2, or #3/#4 on the
+    chunk schedule) against their plain versions on a band blend's inputs
+    (random cotangents for the backward): the forward's max abs error, the
+    backward's worst error over each column group's max."""
+    inp = types.SimpleNamespace(binned=binned, geo=geo, col=col)
+    fwd, bwd, args, _ = schedule_kernels(inp, bcfg)
+    with torch.no_grad():
+        c, a = fwd.launch(*args, bcfg)
+        pc, pa = fwd.plain(*args, bcfg)
+        gen = torch.Generator('cuda').manual_seed(SEED)
+        gc = torch.randn(c.shape, generator=gen, device='cuda')
+        ga = torch.randn(a.shape, generator=gen, device='cuda')
+        rows = bwd.launch(*args, c, a, gc, ga, bcfg)
+        prows = bwd.plain(*args, pc, pa, gc, ga, bcfg)
+        torch.cuda.synchronize()
+    err = max(float((c - pc).abs().max()), float((a - pa).abs().max()))
+    bwd_err = {k: float((rows[:, sl] - prows[:, sl]).abs().max()
+                        / prows[:, sl].abs().max().clamp(min=1e-30))
+               for k, sl in GROUPS.items()}
+    if err > KERNEL_TOL or max(bwd_err.values()) > BWD_TOL:
+        raise AssertionError(f'{fwd.name} / {bwd.name} on a band disagree '
+                             f'with their plain versions: {err}, {bwd_err}')
+    return {'forward': fwd.name, 'backward': bwd.name,
+            'band_image_height': bcfg.image_height, 'tile_h': bcfg.tile_h,
+            'pairs': int(binned.num_pairs), 'fwd_max_abs_err': err,
+            'bwd_err_over_max': bwd_err}
+
+
+def add_launches(a: dict, b: dict) -> dict:
+    return {k: a.get(k, 0) + b.get(k, 0) for k in set(a) | set(b)}
+
+
+def gs_rank_steps(tmp: Path, rank: int, name: str, family: str, mesh,
+                  batch_views: int, steps, tally: dict, bands: dict) -> dict:
+    """A rank's ``family`` steps on a mesh with a gs axis (``mesh_trainer``
+    with ``band``): each step's record, launches, the collectives' bytes
+    a step by kind and the merge's bytes and ms, the band pairs and rows
+    sent, peak memory, the replicas' largest difference after the steps,
+    and the band kernels against their plain versions. The first step is
+    the one held against one process: after it each rank saves the splat
+    rects of its views (``<name>_<family>_rects_rank<r>.pt``) and rank 0
+    its gradients and model (``<name>_<family>.pt``); the others are
+    timed only."""
+    tr = mesh_trainer(family, mesh, batch_views, band=True)
+    merge_bytes = []
+    merges = timed_merges(tr, merge_bytes)
+    parts = timed_calls(tr, ('_losses', 'exchange_render', '_update'))
+    tally.clear()
+    for key in ('rects', 'pairs', 'sent'):
+        bands[key].clear()
+    torch.cuda.reset_peak_memory_stats()
+    recs, grads, launches = mesh_steps(tr, steps[:1])
+    held = {'grads': grads, 'flat': convert.model_to_flat(tr.model)}
+    rects = list(bands['rects'])
+    more, _, more_launches = mesh_steps(tr, steps[1:])
+    peak = torch.cuda.max_memory_allocated()
+    torch.save(rects, tmp / f'{name}_{family}_rects_rank{rank}.pt')
+    if rank == 0:
+        torch.save(held, tmp / f'{name}_{family}.pt')
+    del grads, held
+    out = {'steps': recs + more,
+           'launches': add_launches(launches, more_launches),
+           'bytes_by_collective_per_step': {k: v / len(steps)
+                                            for k, v in tally.items()},
+           'merge_bytes': merge_bytes, 'merge_ms': merges,
+           'ms_by_part': parts,
+           'band_pairs': [int(p) for p in bands['pairs']],
+           'rows_sent': [x.tolist() for x in bands['sent']],
+           'max_memory_allocated': peak,
+           'replica_max_abs_diff': replica_difference(tr),
+           'band_kernels': band_kernels(*bands['inputs'])}
+    bands['inputs'] = None
+    del tr
+    torch.cuda.empty_cache()
+    return out
+
+
+def worker_mesh_gs(tmp: Path, rank: int) -> dict:
+    """A rank of ``mesh_gs``: each family's steps on the 1 x 2 mesh."""
+    mesh = make_mesh(1, MESH_RANKS)
+    tally, bands = tally_collectives(), record_bands()
+    return {family: gs_rank_steps(tmp, rank, 'mesh_gs', family, mesh, 1,
+                                  steps, tally, bands)
+            for family, steps in MESH_GS_PLAN}
+
+
+def worker_mesh_gs_2x2(tmp: Path, rank: int) -> dict:
+    """A rank of ``mesh_gs_2x2``: the sk steps at batch_views 2 on the
+    2 x 2 mesh."""
+    mesh = make_mesh(*MESH_2X2)
+    tally, bands = tally_collectives(), record_bands()
+    return {'sk': gs_rank_steps(tmp, rank, 'mesh_gs_2x2', 'sk', mesh,
+                                MESH_2X2[0], MESH_2X2_STEPS, tally, bands)}
+
+
+@contextlib.contextmanager
+def blocked_products(n_gs: int):
+    """``superpoints.warp_blend_dense`` (the deltas' [N, M] @ [M, 19] LBS
+    product, of the sp and sk families) in this process computed on n_gs
+    contiguous row blocks, as the ranks of a gs axis compute it on their
+    slices: cuBLAS may sum a product of another row count in another
+    order, so the one-process step computed whole parts from the ranks'
+    in the last bits, which the step's kinks (the l1 loss at a pixel
+    rendered at its target, the alpha clamp, a splat across a tile
+    boundary) carry into whole gradient entries."""
+    whole = superpoints.warp_blend_dense
+
+    def blocked(points, spT, dense_w, rot_attr, scale_attr):
+        parts = [whole(p, spT, w, rot_attr, scale_attr) for p, w in zip(
+            points.chunk(n_gs), dense_w.chunk(n_gs))]
+        return tuple(torch.cat(x) for x in zip(*parts))
+    superpoints.warp_blend_dense = blocked
+    trainer_mod.warp_blend_dense = blocked
+    try:
+        yield
+    finally:
+        superpoints.warp_blend_dense = whole
+        trainer_mod.warp_blend_dense = whole
+
+
+def one_process_steps(family: str, steps, batch_views: int, n_gs: int,
+                      blocked: bool):
+    """One process's ``family`` steps at the gs axis's setup (its products
+    row-blocked as the ranks' with ``blocked``): (the records, the held
+    first step's gradients, the model after it, its learning rates, the
+    splat rects of its views, the launches, peak memory)."""
+    tr = mesh_trainer(family, None, batch_views, band=True)
+    torch.cuda.reset_peak_memory_stats()
+    log = []
+    render_mod = sys.modules[render.__module__]
+    with contextlib.ExitStack() as stack:
+        if blocked:
+            stack.enter_context(blocked_products(n_gs))
+        with recorded(render_mod, 'preprocess', log):
+            recs, grads, launches = mesh_steps(tr, steps[:1])
+        rects = [splat_rects(out) for _, out in log]
+        del log
+        flat = convert.model_to_flat(tr.model)
+        lrs = tr.lr_trees(steps[0])
+        more, _, more_launches = mesh_steps(tr, steps[1:])
+    peak = torch.cuda.max_memory_allocated()
+    del tr
+    torch.cuda.empty_cache()
+    return (recs + more, grads, flat, lrs, rects,
+            add_launches(launches, more_launches), peak)
+
+
+def rects_differing(one_rects, tmp: Path, name: str, family: str,
+                    shape) -> int:
+    """Live splats whose tile rect or radius in some view of the held step
+    differs between one process (``one_rects``, a view each) and the ranks
+    (rank (v, g) holds slice g of view v's rows)."""
+    n_view, n_gs = shape
+    ranks = [torch.load(tmp / f'{name}_{family}_rects_rank{r}.pt')
+             for r in range(n_view * n_gs)]
+    rows = torch.zeros(one_rects[0].shape[0], dtype=torch.bool)
+    for v, one in enumerate(one_rects):
+        got = torch.cat([ranks[v * n_gs + g][0] for g in range(n_gs)])
+        rows |= (got != one).any(-1)
+    return int(rows.sum())
+
+
+def gs_phase_records(name: str, ranks, tmp: Path, plan, batch_views: int,
+                     ranks_s: float, shape) -> dict:
+    """Each family of ``plan`` on one process at ``batch_views`` (the gs
+    axis's setup) against the ranks' run of it: a record each (emitted),
+    raising when the ranks' first step misses a bar against the one
+    process whose products are row-blocked as the ranks' (``blocked_
+    products``), on the leaves where a twin of that run holds itself
+    (``twin_unheld``; the others and the plain one process's errors and
+    splat rects are reported), a replica differs, a band overflows or the
+    launches are not each blend kernel of the schedule once a view a
+    step. Returns rank 0's launches by path."""
+    paths = {}
+    for family, steps in plan:
+        got = torch.load(tmp / f'{name}_{family}.pt', weights_only=False)
+        rk = [r[family] for r in ranks]
+        runs = {run: one_process_steps(family, steps, batch_views,
+                                       shape[1], run != 'plain')
+                for run in ('plain', 'blocked', 'twin')}
+        one_launches = [r[5] for r in runs.values()]
+        recs, launches, peak = (runs['plain'][k] for k in (0, 5, 6))
+        unheld = twin_unheld(family, (runs['twin'][1], runs['twin'][2]),
+                             (runs['blocked'][1], runs['blocked'][2],
+                              runs['blocked'][3]))
+        against = {}
+        for run in ('plain', 'blocked'):
+            r_recs, r_grads, r_flat, r_lrs, r_rects = runs[run][:5]
+            against[run] = against_one_process(
+                family, rk[0]['steps'][:1], got, r_recs[:1], r_grads, r_flat,
+                r_lrs, unheld if run == 'blocked' else None)
+            against[run][0]['rects_differing'] = rects_differing(
+                r_rects, tmp, name, family, shape)
+        del got, runs
+        agree, held_one = against['blocked']
+        fwd, bwd = (chunk_blend_fwd, chunk_blend_bwd) if family == 'init' \
+            else (tile_blend_fwd, tile_blend_bwd)
+        n = len(steps)
+        views = batch_views // shape[0]
+        want_rank = {k.name: n * views if k is fwd or (
+            k is bwd and family != 'sk_init') else 0 for k in KERNELS}
+        want_one = {k: v * shape[0] for k, v in want_rank.items()}
+        warm = lambda xs: sum(xs[1:]) / len(xs[1:])
+        overflow = [bool(s['overflow']) for r in rk for s in r['steps']] + \
+            [bool(s['overflow']) for s in recs]
+        rec = {
+            'phase': name, 'family': family, 'backend': 'gloo',
+            'mesh': {'view': shape[0], 'gs': shape[1]},
+            'batch_views': batch_views, 'device': 'cuda:0, every rank',
+            'steps': list(steps), 'held_step': steps[0],
+            'ranks_seconds': ranks_s, 'tile_h': SHARDED_TILE_H,
+            'pair_capacity': SHARDED_PAIR_CAPACITY,
+            'ms_ranks': [[s['ms'] for s in r['steps']] for r in rk],
+            'ms_one_process': [s['ms'] for s in recs],
+            'ms_per_step_ranks': [warm([s['ms'] for s in r['steps']])
+                                  for r in rk],
+            'ms_per_step_one_process': warm([s['ms'] for s in recs]),
+            'merge_ms_per_step_ranks': [warm(r['merge_ms']) for r in rk],
+            'merge_bytes_per_step': rk[0]['merge_bytes'][-1],
+            'bytes_by_collective_per_step_ranks': [
+                r['bytes_by_collective_per_step'] for r in rk],
+            'band_pairs_ranks': [r['band_pairs'] for r in rk],
+            'pairs_one_process': [s['num_pairs'] for s in recs],
+            'pairs_ranks': [s['num_pairs'] for s in rk[0]['steps']],
+            'rows_sent_ranks': [r['rows_sent'] for r in rk],
+            'max_memory_allocated_ranks': [r['max_memory_allocated']
+                                           for r in rk],
+            'max_memory_allocated_one_process': peak,
+            'launches_ranks': [r['launches'] for r in rk],
+            'launches_one_process': launches,
+            'band_kernels_ranks': [r['band_kernels'] for r in rk],
+            'loss_ranks': [s['loss'] for s in rk[0]['steps']],
+            'loss_one_process': [s['loss'] for s in recs],
+            'ms_by_part_ranks': [r['ms_by_part'] for r in rk],
+            'against_blocked_one_process': agree,
+            'twin_unheld': {'steps': unheld[0], 'params': unheld[1]},
+            'against_plain_one_process': against['plain'][0],
+            'overflow': any(overflow),
+            'replica_max_abs_diff_ranks': [r['replica_max_abs_diff']
+                                           for r in rk]}
+        emit(rec)
+        if not held_one or any(overflow) or agree['rects_differing']:
+            raise AssertionError(f'{name} {family}: the ranks differ from '
+                                 f'one process: {rec}')
+        if any(r['launches'] != want_rank for r in rk) or \
+                any(x != want_one for x in one_launches):
+            raise AssertionError(f'{name} {family}: launches {rec}, '
+                                 f'expected {want_rank}, {want_one}')
+        if any(r['replica_max_abs_diff'] != 0 for r in rk):
+            raise AssertionError(f'{name} {family}: replicas differ: {rec}')
+        paths[f'{name}_{family}'] = rk[0]['launches']
+    return paths
+
+
+def phase_mesh_gs(tmp: Path) -> dict:
+    """The trainer's gs axis: 2 gloo ranks on this card on a 1 x 2 mesh,
+    each computing half of the 100,352 slots and a band of 25 tile rows
+    (tile_h 8, pair capacity 2^21), against one process at the same setup
+    from one state, 2 steps of each family (init on the chunk schedule:
+    #3/#4 in a band; sp on a rebuilt smooth-loss KNN; sk_init with its LBS
+    frozen; sk), the first held at ``train_reference``'s bars against one
+    process whose LBS products are row-blocked as the ranks', wherever a
+    twin run of it holds itself (``twin_unheld``; reported against the
+    plain one process), replicas equal to the last bit, no overflow; each
+    rank's band kernels against their plain versions on its last band's
+    inputs."""
+    t0 = time.perf_counter()
+    ranks = spawn_ranks('mesh_gs', MESH_RANKS, tmp)
+    return gs_phase_records('mesh_gs', ranks, tmp, MESH_GS_PLAN, 1,
+                            time.perf_counter() - t0, (1, MESH_RANKS))
+
+
+def phase_mesh_gs_2x2(tmp: Path) -> dict:
+    """Both axes together: 4 gloo ranks on this card on a 2 x 2 mesh, 2 sk
+    steps at batch_views 2 (a view a column, a band a row), against one
+    process at batch_views 2, as ``mesh_gs``."""
+    t0 = time.perf_counter()
+    world = MESH_2X2[0] * MESH_2X2[1]
+    ranks = spawn_ranks('mesh_gs_2x2', world, tmp)
+    return gs_phase_records('mesh_gs_2x2', ranks, tmp,
+                            (('sk', MESH_2X2_STEPS),), MESH_2X2[0],
+                            time.perf_counter() - t0, MESH_2X2)
 
 
 def phase_mesh(model, view, t) -> dict:
@@ -4958,7 +5447,12 @@ def phase_mesh(model, view, t) -> dict:
         paths.update(phase_sharded_render(model, view, t, sub))
         for name, fn in (('view', phase_mesh_view),
                          ('nccl1', phase_mesh_nccl1),
-                         ('cli', phase_cli_train_parallel)):
+                         ('cli', phase_cli_train_parallel),
+                         ('gs', phase_mesh_gs),
+                         ('gs_2x2', phase_mesh_gs_2x2),
+                         ('cli_gs', functools.partial(
+                             phase_cli_train_parallel,
+                             phase='cli_train_gs'))):
             sub = tmp / name
             sub.mkdir()
             paths.update(fn(sub))
@@ -4967,7 +5461,9 @@ def phase_mesh(model, view, t) -> dict:
 
 WORKERS = {'mesh_view': worker_mesh_view, 'mesh_nccl1': worker_mesh_nccl1,
            'sharded_render': worker_sharded_render,
-           'cli_train': worker_cli_train}
+           'mesh_gs': worker_mesh_gs, 'mesh_gs_2x2': worker_mesh_gs_2x2,
+           **{phase: functools.partial(worker_cli_train, phase)
+              for phase in CLI_MESHES}}
 
 
 def run_worker(name: str, tmp: Path) -> int:
@@ -5069,8 +5565,8 @@ def main(argv=None) -> int:
 
     # the entry points, from a config to a checkpoint and back
     cli_paths = phase_clis(CLI_FPS_SWEEP or args.profile)
-    # the mesh: the trainer's view axis and the Gaussian-sharded renders,
-    # 2 gloo ranks on this card, and one NCCL rank
+    # the mesh: the trainer's view and gs axes and the Gaussian-sharded
+    # renders, 2 (2 x 2: 4) gloo ranks on this card, and one NCCL rank
     mesh_paths = phase_mesh(model, views[0], times[0])
     if args.profile:
         phase_train_reference_sk_init(SEED, SK_REF_ITERS_LONG,

@@ -14,11 +14,15 @@ non-finite loss, ``crash.npz``), ``vis/step_<step>.png`` every
 and ``train_time_s``) and ``last.ply`` (the live Gaussians). ``--resume``
 continues from a checkpoint of either package; ``--steps`` stops early.
 
-Several processes train one model over the ``view`` axis of a
-``train.parallel: {n_view: R}`` mesh (R dividing ``train.batch_views``),
-one process a rank, launched by ``torchrun --nproc_per_node R -m
-sk_gs_tpu_torch.cli.train ...`` or with ``MASTER_ADDR`` / ``MASTER_PORT`` /
-``WORLD_SIZE`` / ``RANK`` set by hand (``parallel.init_distributed``).
+Several processes train one model on a ``train.parallel: {n_view, n_gs}``
+mesh, one process a rank: data parallel over ``view`` (n_view dividing
+``train.batch_views``), and over ``gs`` each rank computing its 1/n_gs of
+the capacity and a band of the image (n_gs dividing the capacity and the
+tile rows: at 16-pixel tiles a 48-pixel image has 3, so
+``raster.tile_h=8`` gives 6). Launch n_view x n_gs ranks by ``torchrun
+--nproc_per_node <n_view x n_gs> -m sk_gs_tpu_torch.cli.train ...`` or
+with ``MASTER_ADDR`` / ``MASTER_PORT`` / ``WORLD_SIZE`` / ``RANK`` set by
+hand (``parallel.init_distributed``).
 Each rank drives ``cuda:<LOCAL_RANK>`` over NCCL; ``--device cuda:0
 --dist-backend gloo`` puts every rank on one card (NCCL takes one card a
 rank), and ``--device cpu`` runs the ranks over gloo on the CPU. Every

@@ -246,8 +246,7 @@ def trainer_options(cfg: Dict[str, Any]) -> Dict[str, Any]:
     gradient clipping, views a step, optimizer, and the device mesh of
     ``train.parallel: {n_view, n_gs}`` when it has more than one rank: the
     process group must hold n_view x n_gs processes, as many as a launch
-    gives); logs that capacity buckets are not carried. The mesh's ``gs``
-    axis is not ported yet and raises ``NotImplementedError``."""
+    gives); logs that capacity buckets are not carried."""
     t = cfg['train']
     par = t.get('parallel') or {}
     n_view, n_gs = int(par.get('n_view', 1)), int(par.get('n_gs', 1))
@@ -258,17 +257,13 @@ def trainer_options(cfg: Dict[str, Any]) -> Dict[str, Any]:
             'clip_norm': float(t.get('clip_norm', 0.0)),
             'batch_views': int(t.get('batch_views', 1)),
             'optimizer': t.get('optimizer', 'adam')}
-    if n_gs > 1:
-        raise NotImplementedError(
-            f"train.parallel.n_gs {n_gs}: the trainer's gs axis is not "
-            "ported yet (ROADMAP.md 1.3, next item: the trainer's gs axis)")
     world = dist.get_world_size() if dist.is_initialized() else 1
     if world != n_view * n_gs:
         raise ValueError(
             f'train.parallel {n_view}x{n_gs} needs {n_view * n_gs} '
             f'processes (torchrun --nproc_per_node {n_view * n_gs}); this '
             f'run has {world}')
-    if n_view > 1:
+    if n_view * n_gs > 1:
         if opts['batch_views'] % n_view:
             raise ValueError(f"batch_views {opts['batch_views']} not "
                              f"divisible by mesh view axis {n_view}")

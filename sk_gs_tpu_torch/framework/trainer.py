@@ -74,22 +74,34 @@ shared by its views as the JAX step shares its key (the init family's
 random live rows, the times of ``elastic`` and ``arap``:
 ``regularizer_draws``).
 
-On a device mesh (``parallel.make_mesh``; one process a rank) the step is
-data parallel over the ``view`` axis (the JAX step's ``par`` branch,
-``trainer.py:866-975``): every rank samples all K views and takes its
-contiguous K / n_view of them, and draws every view's background and time
-noise in the single-device order, keeping its own, so that the streams are
-the single-device step's. After the backward, two all-reduces merge what
-the single-device step sums over its views: the max of the statistics'
-radii, the overflow, pairs, visible count and largest warp (with which
-leaves have a gradient), then the sum of the leaves' gradients and the
-means2d gradient (divided by the global K), the view counts, the losses,
-the cache rows at their views' places and the last view's ``p2sp``.
-Every rank then takes the same update, and runs the same events; after a
-stage event, a KNN rebuild or an adaptive control event, rank 0's model,
-optimizer state and KNN are written into every rank's
-(``sync_replicas``, which records how far they had drifted). The ``gs``
-axis is not ported yet and raises ``NotImplementedError``.
+On a device mesh (``parallel.make_mesh``; one process a rank, every rank
+holding the whole model) the step is the JAX step's ``par`` branch
+(``trainer.py:595-1055``). Over the ``view`` axis it is data parallel:
+every rank samples all K views and takes its contiguous K / n_view of
+them, and draws every view's background and time noise in the
+single-device order, keeping its own, so that the streams are the
+single-device step's. Over the ``gs`` axis each rank computes the
+per-Gaussian work on its contiguous 1/n_gs of the capacity
+(``slice_model_gs``: views of the full leaves, so that the backward leaves
+zeros off the slice): the deltas, the preprocess, the splats exchanged
+into tile-row bands (``parallel.sharded_render.exchange_render_band``),
+its band blended and the bands all-gathered into the whole image; the
+per-point losses are masked means over the whole capacity's live count
+(``cap_masked_mean``), the losses that need every row gather them
+(``smooth``, ``sp_extra_losses``, ``arap_p``), the replicated ones run on
+every rank, and every loss is scaled by 1/n_gs. After the backward, two
+all-reduces over the whole mesh merge what the single-device step sums
+over its views: the max of the statistics' radii (gathered over ``gs``),
+the overflow, pairs (summed over the bands), visible count and largest
+warp (with which leaves have a gradient), then the sum of the leaves'
+gradients and the means2d gradient (divided by the global K), the view
+counts, the losses, the PSNR, the cache rows at their views' places and
+the last view's ``p2sp`` (what every rank of a ``gs`` row holds alike
+enters from its first rank only). Every rank then takes the same update,
+and runs the same events on the whole model; after a stage event, a KNN
+rebuild or an adaptive control event, rank 0's model, optimizer state and
+KNN are written into every rank's (``sync_replicas``, which records how
+far they had drifted).
 
 RGBA targets (the background types of ``data.base.DYNAMIC_BG``): each step
 composites the target and the render over one background
@@ -110,9 +122,9 @@ import torch
 from .. import convert, resolve_device
 from ..data.base import Scene, SceneMeta, sample_background
 from ..data.sampler import UniformSampler
-from ..models.gaussian_splatting import (densify_and_prune, expon_lr,
-                                         gaussian_inputs, ndc_grad_norm,
-                                         reset_opacity)
+from ..models.gaussian_splatting import (GaussianModel, densify_and_prune,
+                                         expon_lr, gaussian_inputs,
+                                         ndc_grad_norm, reset_opacity)
 from ..models import regularizers as reg
 from ..models import sk_gs_ops
 from ..models.deform import deform_net_apply, skeleton_net_apply
@@ -131,6 +143,9 @@ from ..models.skeleton import (joint_cost_matrix, kinematic_transforms,
 from ..ops import se3
 from ..ops.knn import knn, live_knn_index
 from ..parallel import collectives as coll
+from ..parallel.mesh import AXES
+from ..parallel.sharded_render import exchange_render_band
+from ..render.preprocess import preprocess
 from ..render.render import composite_background, render
 from ..render.settings import GaussianInputs, RasterConfig
 from .evaluate import render_eval, split_metrics
@@ -160,17 +175,66 @@ ARAP_SAMPLES = 2
 ARAP_KNN = 10
 
 
-def smooth_loss(w: torch.Tensor, index: torch.Tensor, alive: torch.Tensor
-                ) -> torch.Tensor:
-    """The mean of |w_i - w_j| over each live row i of the LBS weights
-    ``w`` [N, K] and its neighbours j in ``index`` [N, k] (the ``smooth``
-    loss). The neighbours' rows are gathered by ``index_select``, whose
-    backward is one ``index_add_``; an advanced index's backward sorts the
-    indices and sums equal ones one after another, which on the all-zero
-    index before the first rebuild is one serial sum of N k rows."""
+def smooth_loss(w: torch.Tensor, index: torch.Tensor, alive: torch.Tensor,
+                table: Optional[torch.Tensor] = None,
+                mean=masked_mean) -> torch.Tensor:
+    """The mean (``mean``) of |w_i - w_j| over each live row i of the LBS
+    weights ``w`` [N, K] and its neighbours j in ``index`` [N, k] (the
+    ``smooth`` loss), the neighbours' rows taken from ``table`` (``w``
+    itself by default; on a mesh's ``gs`` axis the gathered weights of
+    every rank, of which ``w`` is this rank's slice). The rows are
+    gathered by ``index_select``, whose backward is one ``index_add_``; an
+    advanced index's backward sorts the indices and sums equal ones one
+    after another, which on the all-zero index before the first rebuild is
+    one serial sum of N k rows."""
+    table = w if table is None else table
     n, k = index.shape
-    nb = w.index_select(0, index.reshape(-1)).view(n, k, w.shape[-1])
-    return masked_mean(torch.abs(w[:, None] - nb), alive[:, None, None])
+    nb = table.index_select(0, index.reshape(-1)).view(n, k, w.shape[-1])
+    return mean(torch.abs(w[:, None] - nb), alive[:, None, None])
+
+
+# the leaves and fields with a leading capacity axis, which a rank of a
+# mesh's gs axis computes on its slice of (trainer.py:144-147); the
+# superpoints, skeleton, nets and caches are shared
+PER_POINT_PARAMS = ('xyz', 'f_dc', 'f_rest', 'opacity', 'scaling',
+                    'rotation', 'hyper', 'sp_W')
+PER_POINT_FIELDS = ('alive', 'max_radii2d', 'xyz_grad_accum', 'denom',
+                    'sp_weights', 'sp_knn', 'p2sp')
+
+
+class ModelSlice:
+    """Capacity slice ``i`` of ``n_gs`` of an ``SKGSModel``, what
+    ``slice_model_gs`` returns: ``params`` and the fields of
+    ``PER_POINT_PARAMS`` / ``PER_POINT_FIELDS`` are the rows [i N / n_gs,
+    (i + 1) N / n_gs) of the model's, as views (``narrow``), so that a
+    gradient reaches the full leaf with zeros off the slice (the transpose
+    of JAX's ``dynamic_slice``); every other attribute is the model's."""
+
+    def __init__(self, model: SKGSModel, i: int, n_gs: int):
+        self.model = model
+        n = model.alive.shape[0] // n_gs
+        rows = lambda x: x.narrow(0, i * n, n)
+        self.params = {k: rows(v) if k in PER_POINT_PARAMS else v
+                       for k, v in model.params.items()}
+        for name in PER_POINT_FIELDS:
+            setattr(self, name, rows(getattr(model, name)))
+
+    def __getattr__(self, name):
+        return getattr(self.model, name)
+
+    def gauss_view(self) -> GaussianModel:
+        """The slice's Gaussian leaves, ``alive`` and statistics."""
+        return GaussianModel(params=dict(self.params), alive=self.alive,
+                             active_sh_degree=self.active_sh_degree,
+                             max_radii2d=self.max_radii2d,
+                             xyz_grad_accum=self.xyz_grad_accum,
+                             denom=self.denom)
+
+
+def slice_model_gs(model: SKGSModel, i: int, n_gs: int) -> ModelSlice:
+    """Contiguous capacity slice ``i`` of ``n_gs`` of the per-point leaves
+    and fields (``trainer.py:150-165``); the rest stays the model's."""
+    return ModelSlice(model, i, n_gs)
 
 
 def check_interval_v2(step: int, interval: int, start: int, end: int,
@@ -227,14 +291,19 @@ class SKGSTrainer:
         if batch_views < 1:
             raise ValueError(f'batch_views {batch_views} < 1')
         if mesh is not None:
-            if mesh.axis_size('gs') > 1:
-                raise NotImplementedError(
-                    "the trainer's 'gs' mesh axis is not ported yet "
-                    "(ROADMAP.md 1.3, next item: the trainer's gs axis)")
-            if batch_views % mesh.axis_size('view'):
+            n_view, n_gs = mesh.axis_size('view'), mesh.axis_size('gs')
+            if batch_views % n_view:
                 raise ValueError(
                     f"batch_views {batch_views} not divisible by mesh view "
-                    f"axis {mesh.axis_size('view')}")
+                    f"axis {n_view}")
+            if model.alive.shape[0] % n_gs:
+                raise ValueError(
+                    f"capacity {model.alive.shape[0]} not divisible by mesh "
+                    f"gs axis {n_gs}")
+            if rcfg.grid_h % n_gs:
+                raise ValueError(
+                    f"grid_h {rcfg.grid_h} not divisible by mesh gs axis "
+                    f"{n_gs} (pad image height)")
         self.mesh = mesh
         # the largest difference each sync found between a rank's state
         # and rank 0's, by the events it followed
@@ -575,8 +644,7 @@ class SKGSTrainer:
         if self.mesh is None or self.mesh.size == 1 or not events:
             return
         self.replica_drift['+'.join(events)] = coll.broadcast_from(
-            self.replica_state(), self.mesh.group('view'),
-            self.mesh.axis_ranks('view')[0])
+            self.replica_state(), self.mesh.group(AXES), 0)
 
     def replica_state(self) -> list:
         """Every tensor a replica must hold alike: the model's parameters
@@ -585,6 +653,56 @@ class SKGSTrainer:
                for t in field.values()]
         return list(self.model.state_dict().values()) + opt \
             + [self.gs_knn_index]
+
+    @property
+    def n_gs(self) -> int:
+        """The size of the mesh's ``gs`` axis (1 without a mesh)."""
+        return 1 if self.mesh is None else self.mesh.axis_size('gs')
+
+    def gs_rows(self, x: torch.Tensor) -> torch.Tensor:
+        """This rank's contiguous 1/n_gs of ``x``'s rows, a view (``x``
+        itself off a ``gs`` axis)."""
+        if self.n_gs == 1:
+            return x
+        n = x.shape[0] // self.n_gs
+        return x.narrow(0, self.mesh.axis_index('gs') * n, n)
+
+    def gs_model(self):
+        """The model, or this rank's ``slice_model_gs`` on a ``gs``
+        axis."""
+        if self.n_gs == 1:
+            return self.model
+        return slice_model_gs(self.model, self.mesh.axis_index('gs'),
+                              self.n_gs)
+
+    def gs_once(self, x: torch.Tensor) -> torch.Tensor:
+        """``x`` on the first rank of this rank's ``gs`` row, zeros on the
+        others: what the row holds alike enters a sum over the whole mesh
+        once."""
+        if self.n_gs == 1 or self.mesh.axis_index('gs') == 0:
+            return x
+        return torch.zeros_like(x)
+
+    def cap_masked_mean(self, x: torch.Tensor, mask: torch.Tensor
+                        ) -> torch.Tensor:
+        """``masked_mean`` over the whole capacity's rows (``trainer.py:
+        614-626``): on a ``gs`` axis ``x`` and ``mask`` are this rank's
+        slice, and the slice's masked sum, times n_gs (which the 1/n_gs
+        scale of every loss takes back), is divided by the live count
+        summed over the axis."""
+        if self.n_gs == 1:
+            return masked_mean(x, mask)
+        mask_b = torch.broadcast_to(mask, x.shape).to(x.dtype)
+        num = torch.sum(x * mask_b) * self.n_gs
+        den = coll.psum(torch.sum(mask_b), self.mesh.group('gs'))
+        return num / torch.clamp(den, min=1.0)
+
+    def gs_gather(self, x: torch.Tensor, dim: int = 0) -> torch.Tensor:
+        """The ``gs`` row's slices of ``x`` concatenated along ``dim``
+        (``x`` itself off a ``gs`` axis), differentiable."""
+        if self.n_gs == 1:
+            return x
+        return coll.all_gather(x, self.mesh.group('gs'), dim)
 
     def local_views(self, k: int) -> range:
         """The positions among a step's ``k`` views that this rank
@@ -643,43 +761,76 @@ class SKGSTrainer:
         render are composited over the view's background
         (``trainer.py:626-640, 704-705``); a net that is not ``is_blender``
         warps at a noisy time (one ``draw_time_noise`` a view). ``draws``
-        are the step's ``regularizer_draws`` (drawn here when None)."""
-        cfg, model, scene = self.cfg, self.model, self.scene
+        are the step's ``regularizer_draws`` (drawn here when None). On a
+        mesh's ``gs`` axis the deltas and the render are this rank's slice's
+        (``gs_model``, ``exchange_render``), and every loss is scaled by
+        1/n_gs, so that the sum over the axis is the one-process value
+        (``trainer.py:836-840``)."""
+        cfg, scene = self.cfg, self.scene
         family = self.family(stage)
         step = self.step + 1 if step is None else step
         if draws is None:
             draws = self.regularizer_draws(family)
         image, bg, noise, noise_scale = self.view_target(family, idx, step)
         t = scene.times[idx]
-        d = forward_deltas(cfg, model, t, stage, time_id=scene.time_ids[idx],
+        m = self.gs_model()
+        d = forward_deltas(cfg, m, t, stage, time_id=scene.time_ids[idx],
                            training=True, noise=noise,
                            noise_scale=noise_scale)
-        g = self.render_inputs(family, d)
-        out = render(g, scene.view(idx), self.rcfg,
-                     active_sh_degree=model.active_sh_degree,
-                     means2d_offset=m2d_off)
+        g = self.render_inputs(family, d, m)
+        if self.n_gs == 1:
+            out = render(g, scene.view(idx), self.rcfg,
+                         active_sh_degree=m.active_sh_degree,
+                         means2d_offset=m2d_off)
+        else:
+            out = self.exchange_render(g, scene.view(idx),
+                                       self.gs_rows(m2d_off))
         img = composite_background(out['images'], out['opacity'], bg)
         method = self.loss_w.cfg('image').get('method', 'l1')
         img_loss = mse_loss if method == 'mse' else l1_loss
         losses = {'rgb': self.loss_w.w('image') * img_loss(img, image),
                   'ssim': self.loss_w.w('ssim') * ssim_loss(img, image)}
         if family == 'sp':
-            losses.update(self.sp_losses(d, t, step))
+            losses.update(self.sp_losses(d, t, step, m=m))
         if family == 'sk_init':
             losses = {k: v.detach() for k, v in losses.items()}
-            losses.update(self.sk_init_losses(d, scene.time_ids[idx], step))
+            losses.update(self.sk_init_losses(d, scene.time_ids[idx], step,
+                                              m=m))
         if family == 'init' and self.loss_w.ever_nonzero('arap_p'):
             losses['arap_p'] = self.loss_weight('arap_p', step) \
-                * self.points_arap(d)
+                * self.points_arap(d, m=m)
         if draws is not None:
             losses.update(self.motion_reg_losses(family, t, draws, step))
         if family in ('init', 'sp') and cfg.use_canonical_net \
                 and self.loss_w.ever_nonzero('c_net'):
-            points_out = model.params['xyz'] + d.d_xyz
-            c_net = self.cnet_loss(t, points_out) if family == 'init' else \
-                self.cnet_loss_sp(t, points_out, d.aux)
+            points_out = m.params['xyz'] + d.d_xyz
+            c_net = self.cnet_loss(t, points_out, m=m) if family == 'init' \
+                else self.cnet_loss_sp(t, points_out, d.aux, m=m)
             losses['c_net'] = self.loss_weight('c_net', step) * c_net
+        if self.n_gs > 1:
+            losses = {k: v * (1.0 / self.n_gs) for k, v in losses.items()}
         return losses, d, out, img, image
+
+    def exchange_render(self, g: GaussianInputs, view,
+                        m2d_off: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """The render of a rank of a mesh's ``gs`` axis (``trainer.py:
+        679-699``): its slice's ``g`` preprocessed, the slice's means2d
+        offset ``m2d_off`` added, the splats exchanged into tile-row bands
+        (``exchange_render_band``; a band's pair capacity is pair_capacity
+        / n_gs, a block's max(pair_capacity // n_gs, 1024) rows), and the
+        bands all-gathered into the whole image (the gather's backward
+        sums the cotangents back to each band). 'radii' are the slice's;
+        'overflow' the sends' or the band's; 'num_pairs' the band's."""
+        rcfg, n = self.rcfg, self.n_gs
+        pre = preprocess(g, view, rcfg, self.model.active_sh_degree)
+        pre = pre._replace(means2d=pre.means2d + m2d_off)
+        band, opacity, overflow, binned, sent = exchange_render_band(
+            pre, g.opacities.reshape(-1), rcfg, self.mesh, 'gs',
+            max(rcfg.pair_capacity // n, 1024))
+        whole = self.gs_gather(torch.cat([band, opacity[..., None]], -1))
+        return {'images': whole[..., :-1], 'opacity': whole[..., -1],
+                'radii': pre.radius, 'overflow': overflow,
+                'num_pairs': binned.num_pairs, 'sent': sent}
 
     def view_target(self, family: str, idx: int, step: int):
         """View ``idx``'s target and its draws at step ``step``: (target,
@@ -702,7 +853,7 @@ class SKGSTrainer:
                 noise = self.draw_time_noise()
         return image, bg, noise, noise_scale
 
-    def sp_losses(self, d, t: torch.Tensor, step: int
+    def sp_losses(self, d, t: torch.Tensor, step: int, m=None
                   ) -> Dict[str, torch.Tensor]:
         """The ``sp`` family's losses on the main pass ``d``
         (``trainer.py:294-349``): the entropy of the LBS weights over the
@@ -713,16 +864,23 @@ class SKGSTrainer:
         ``sp_guided_detach``), and, when they have weight, the superpoint
         regularizers (``sp_extra_losses``) and the guided skeleton losses
         ``g_cmp_*``. The cost matrix goes into ``d.aux`` as
-        'joint_cost_now' for the running mean."""
+        'joint_cost_now' for the running mean. ``m`` is the model of the
+        main pass (``gs_model``): on a ``gs`` axis the sparsity and
+        smoothness take its rows, the latter against the gathered weights
+        of every rank (``trainer.py:705-729``)."""
         cfg, model = self.cfg, self.model
+        m = model if m is None else m
         params = model.params
         lw = lambda name: self.loss_weight(name, step)
-        alive, sp_alive = model.alive, model.sp_alive
+        alive, sp_alive = m.alive, model.sp_alive
         w = d.aux['knn_w']
         ent = -(w * torch.log(w + 1e-7) + (1 - w) * torch.log(1 - w + 1e-7))
-        out = {'sparse': lw('sparse') * masked_mean(ent, alive[:, None])}
-        out['smooth'] = lw('smooth') * smooth_loss(w, self.gs_knn_index,
-                                                   alive)
+        out = {'sparse': lw('sparse') * self.cap_masked_mean(
+            ent, alive[:, None])}
+        table = self.gs_gather(w) if self.n_gs > 1 else None
+        out['smooth'] = lw('smooth') * smooth_loss(
+            w, self.gs_rows(self.gs_knn_index), alive, table,
+            self.cap_masked_mean)
         spT = d.aux['spT']
         cost = joint_cost_matrix(params['joint_pos'],
                                  spT.detach() if cfg.sp_guided_detach
@@ -760,7 +918,9 @@ class SKGSTrainer:
         warped (detached) superpoints, the root and dead superpoints left
         out; ``sp_arap_t``, the SE3 log of each superpoint's transform
         relative to its ``sk_knn_num`` nearest live neighbours' (canonical
-        KNN), and ``sp_arap_ct``, the change of their squared distances."""
+        KNN), and ``sp_arap_ct``, the change of their squared distances.
+        On a ``gs`` axis ``re_pos`` gathers the warped Gaussians and their
+        weights of every rank (``trainer.py:749-765``)."""
         cfg, model = self.cfg, self.model
         params = model.params
         lw = lambda name: self.loss_weight(name, step)
@@ -770,10 +930,10 @@ class SKGSTrainer:
         alive = model.sp_alive
         out = {}
         if ever('re_pos'):
-            points_t = params['xyz'] + d.d_xyz
-            re_sp = get_superpoint_features(points_t, d.aux['knn_i'],
-                                            d.aux['knn_w'],
-                                            cfg.num_superpoints)
+            points_t = self.gs_gather(self.gs_rows(params['xyz']) + d.d_xyz)
+            re_sp = get_superpoint_features(
+                points_t, self.gs_gather(d.aux['knn_i']),
+                self.gs_gather(d.aux['knn_w']), cfg.num_superpoints)
             sp_t = se3.se3_act(spT, sp_pts)
             out['re_pos'] = lw('re_pos') * masked_mean(
                 torch.square(sp_t - re_sp), alive[:, None])
@@ -800,14 +960,17 @@ class SKGSTrainer:
                 torch.abs(d_c - d_t), pair_alive)
         return out
 
-    def points_arap(self, d) -> torch.Tensor:
+    def points_arap(self, d, m=None) -> torch.Tensor:
         """The point ARAP of the init family (``trainer.py:800-823``): the
         squared distances of each live Gaussian to its ``gs_knn_num``
         nearest warped live Gaussians (KNN over the whole capacity, dead
-        rows pushed 1e6 away, detached) kept through the warp."""
+        rows pushed 1e6 away, detached) kept through the warp. ``m`` is
+        the model of the main pass (``gs_model``): on a ``gs`` axis its
+        warped rows are gathered from every rank."""
         model = self.model
+        m = model if m is None else m
         xyz, alive = model.params['xyz'], model.alive
-        pts_t = xyz + d.d_xyz
+        pts_t = self.gs_gather(m.params['xyz'] + d.d_xyz)
         with torch.no_grad():
             far = torch.where(alive[:, None], pts_t, pts_t + 1e6)
             _, nn = knn(far, far, self.gs_knn_num + 1)
@@ -902,49 +1065,53 @@ class SKGSTrainer:
                 torch.square(sk_d_scale - sp_scale), sp_alive[:, None]),
         }
 
-    def sk_init_losses(self, d, time_id: torch.Tensor, step: int
+    def sk_init_losses(self, d, time_id: torch.Tensor, step: int, m=None
                        ) -> Dict[str, torch.Tensor]:
         """The ``sk_init`` family's losses (``trainer.py:769-800``): the
         skeleton's deltas ``d`` held to the blend of the cached superpoint
         motion at the view's frame under the frozen LBS ``sp_weights`` /
         ``sp_knn`` (each superpoint's own with ``warp_method``
-        'largest'), squared, over the live rows."""
-        cfg, model = self.cfg, self.model
+        'largest'), squared, over the live rows of ``m`` (the main pass's
+        model, ``gs_model``; ``cap_masked_mean``)."""
+        cfg = self.cfg
+        m = self.model if m is None else m
         sp_tr, sp_rot, sp_scale = split_sp_cache(
-            cfg, take_frame(model.sp_cache, time_id))
-        points = model.params['xyz'].detach()
-        w, knn = model.sp_weights, model.sp_knn
+            cfg, take_frame(m.sp_cache, time_id))
+        points = m.params['xyz'].detach()
+        w, knn = m.sp_weights, m.sp_knn
         if cfg.warp_method == 'largest':
             sp_xyz = warp_points(points, sp_tr, w, knn, cfg.warp_method,
-                                 model.p2sp)
+                                 m.p2sp)
             sp_rot_b = blend_attr(sp_rot, w, knn)
             sp_scale_b = blend_attr(sp_scale, w, knn)
         else:
             sp_xyz, sp_rot_b, sp_scale_b = warp_blend_dense(
                 points, sp_tr, dense_lbs_rows(w, knn, sp_tr.shape[0]), sp_rot,
                 sp_scale)
-        am = model.alive[:, None]
+        am = m.alive[:, None]
         lw = lambda name: self.loss_weight(name, step)
+        mean = self.cap_masked_mean
         return {
-            'cmp_t': lw('cmp_t') * masked_mean(
-                torch.square(d.d_xyz - sp_xyz), am),
-            'cmp_r': lw('cmp_r') * masked_mean(
+            'cmp_t': lw('cmp_t') * mean(torch.square(d.d_xyz - sp_xyz), am),
+            'cmp_r': lw('cmp_r') * mean(
                 torch.square(d.d_rotation - sp_rot_b), am),
-            'cmp_s': lw('cmp_s') * masked_mean(
+            'cmp_s': lw('cmp_s') * mean(
                 torch.square(d.d_scaling - sp_scale_b), am)}
 
-    def render_inputs(self, family: str, d) -> GaussianInputs:
-        """The renderer's inputs from the deltas ``d``; the ``init`` family
-        renders every Gaussian at the live mean log-scale (get_scaling,
-        ``trainer.py:658-664``), ``sk_init`` with the colours and opacities
-        detached (``trainer.py:672-675``)."""
+    def render_inputs(self, family: str, d, m=None) -> GaussianInputs:
+        """The renderer's inputs from the deltas ``d`` of ``m``'s rows (the
+        model, or its ``gs_model`` slice); the ``init`` family renders
+        every Gaussian at the live mean log-scale of the whole model
+        (get_scaling, ``trainer.py:658-664``), ``sk_init`` with the colours
+        and opacities detached (``trainer.py:672-675``)."""
         model = self.model
-        gv = model.gauss_view()
+        gv = (model if m is None else m).gauss_view()
         if family in ('init', 'sk_init'):
             p = dict(gv.params)
             if family == 'init':
                 p['scaling'] = torch.broadcast_to(
-                    masked_mean(p['scaling'], model.alive[:, None]),
+                    masked_mean(model.params['scaling'],
+                                model.alive[:, None]),
                     p['scaling'].shape)
             else:
                 for name in ('f_dc', 'f_rest', 'opacity'):
@@ -953,26 +1120,31 @@ class SKGSTrainer:
         return gaussian_inputs(gv, self.cfg.gauss, d.d_xyz, d.d_rotation,
                                d.d_scaling)
 
-    def cnet_loss(self, t: torch.Tensor, points_out: torch.Tensor):
+    def cnet_loss(self, t: torch.Tensor, points_out: torch.Tensor, m=None):
         """Canonical-net consistency, the init branch of ``cnet_loss``
-        (``trainer.py:558-593``): the Gaussians taken to the canonical
-        frame by ``sp_deform`` (detached) and on to time t by the
-        ``canonical`` net land where the main pass put them (detached)."""
-        cfg, model = self.cfg, self.model
+        (``trainer.py:558-593``): the Gaussians of ``m`` (the main pass's
+        model, ``gs_model``) taken to the canonical frame by ``sp_deform``
+        (detached) and on to time t by the ``canonical`` net land where the
+        main pass put them (detached); ``cap_masked_mean``."""
+        cfg = self.cfg
+        model = self.model if m is None else m
         xyz = model.params['xyz']
         tc = model.train_times[cfg.canonical_time_id]
         points_c = init_stage(cfg, model, xyz, tc).d_xyz.detach() + xyz
         points_t = init_stage(cfg, model, points_c, t,
                               use_canonical=True).d_xyz + points_c
-        return masked_mean(torch.square(points_t - points_out.detach()),
-                           model.alive[:, None])
+        return self.cap_masked_mean(
+            torch.square(points_t - points_out.detach()),
+            model.alive[:, None])
 
-    def cnet_loss_sp(self, t: torch.Tensor, points_out: torch.Tensor, aux):
+    def cnet_loss_sp(self, t: torch.Tensor, points_out: torch.Tensor, aux,
+                     m=None):
         """The ``sp`` branch of ``cnet_loss`` (``trainer.py:574-590``): the
         same with both passes through ``sp_stage`` on the main pass's LBS
         weights ``aux`` (they do not depend on t), the second from the
         superpoints taken to the canonical frame (detached)."""
-        cfg, model = self.cfg, self.model
+        cfg = self.cfg
+        model = self.model if m is None else m
         xyz = model.params['xyz']
         tc = model.train_times[cfg.canonical_time_id]
         out_c = sp_stage(cfg, model, xyz, tc, frozen_weights=aux['knn_w'],
@@ -984,8 +1156,9 @@ class SKGSTrainer:
                          frozen_weights=out_c.aux['knn_w'],
                          frozen_knn=out_c.aux['knn_i'], sp_points=sp_points_c)
         points_t = out_t.d_xyz + points_c
-        return masked_mean(torch.square(points_t - points_out.detach()),
-                           model.alive[:, None])
+        return self.cap_masked_mean(
+            torch.square(points_t - points_out.detach()),
+            model.alive[:, None])
 
     def _step(self, stage: str, idxs, lrs: Dict[str, float],
               step: Optional[int] = None) -> Dict[str, torch.Tensor]:
@@ -1013,13 +1186,14 @@ class SKGSTrainer:
 
     def _view_record(self, family: str, idx: int, total: torch.Tensor,
                      losses, d, out, img, target) -> Dict:
-        """What ``_update`` reads of one view's forward, detached."""
-        alive = self.model.alive
+        """What ``_update`` reads of one view's forward, detached (on a
+        ``gs`` axis the radii and largest warp of this rank's slice, the
+        pairs of its band)."""
+        alive = self.gs_rows(self.model.alive)
         rec = {'loss': total.detach(),
                'losses': {k: v.detach() for k, v in losses.items()},
                'psnr': psnr(img, target), 'radii': out['radii'],
                'overflow': out['overflow'], 'num_pairs': out['num_pairs'],
-               'n_vis': torch.sum((out['radii'] > 0) & alive),
                'dxyz_max': torch.amax(torch.abs(torch.where(
                    alive[:, None], d.d_xyz, torch.zeros_like(d.d_xyz)))),
                'time_id': self.scene.time_ids[idx]}
@@ -1047,34 +1221,44 @@ class SKGSTrainer:
         statistics, the cache rows (``sp_cache`` for the ``sp`` family,
         ``sk_cache`` for ``sk``, in view order), the ``sp`` family's
         ``p2sp`` of the last view ('largest') and joint cost mean, and the
-        metrics."""
+        metrics. On a ``gs`` axis the radii, band pairs and ``p2sp`` are
+        gathered over the axis first (``trainer.py:909-957``), and what
+        every rank of the axis holds alike (the statistics' view counts,
+        the PSNR, the cache rows, the joint cost, ``p2sp``) enters the
+        merge from its first rank (``gs_once``)."""
         model = self.model
         leaves = model.leaves()
         k = len(views) if k is None else k
         radii = torch.stack([v['radii'] for v in views])
         stack = lambda key: torch.stack([v[key] for v in views])
+        pairs = stack('num_pairs')
+        if self.n_gs > 1:
+            radii, pairs = self._gather_radii_pairs(radii, pairs)
+        once = self.gs_once
         maxes = {'radii': radii.amax(0).to(torch.float32),
                  'overflow': stack('overflow').any(),
-                 'num_pairs': stack('num_pairs').amax(),
-                 'n_vis': stack('n_vis').amax(),
+                 'num_pairs': pairs.amax(),
+                 'n_vis': ((radii > 0) & model.alive).sum(1).amax(),
                  'dxyz_max': stack('dxyz_max').amax()}
-        sums = {'n_seen': (radii > 0).sum(0).to(torch.float32),
-                'loss': stack('loss').sum(0), 'psnr': stack('psnr').sum(0),
+        sums = {'n_seen': once((radii > 0).sum(0).to(torch.float32)),
+                'loss': stack('loss').sum(0),
+                'psnr': once(stack('psnr').sum(0)),
                 **{'losses/' + name: torch.stack(
                     [v['losses'][name] for v in views]).sum(0)
                    for name in views[0]['losses']}}
         cache = {'sp': model.sp_cache, 'sk': model.sk_cache}.get(family)
         mine = self.local_views(k)
         if cache is not None:
-            sums['cache_rows'] = self._at_views(
-                k, mine, stack('cache_row'))
-            sums['time_ids'] = self._at_views(k, mine, stack('time_id'))
+            sums['cache_rows'] = once(self._at_views(
+                k, mine, stack('cache_row')))
+            sums['time_ids'] = once(self._at_views(k, mine,
+                                                   stack('time_id')))
         if family == 'sp':
-            sums['joint_cost'] = stack('joint_cost_now').sum(0)
+            sums['joint_cost'] = once(stack('joint_cost_now').sum(0))
             if self.cfg.warp_method == 'largest':
-                last = views[-1]['p2sp']
-                sums['p2sp'] = last if mine[-1] == k - 1 else \
-                    torch.zeros_like(last)
+                last = self.gs_gather(views[-1]['p2sp'])
+                sums['p2sp'] = once(last if mine[-1] == k - 1 else
+                                    torch.zeros_like(last))
         grads = {name: p.grad for name, p in leaves.items()}
         grads['means2d'] = m2d_off.grad
         if self.mesh is not None:
@@ -1125,6 +1309,16 @@ class SKGSTrainer:
                for name in views[0]['losses']},
         }
 
+    def _gather_radii_pairs(self, radii: torch.Tensor, pairs: torch.Tensor):
+        """This rank's views' slice radii [K, N / n_gs] and band pairs [K],
+        gathered over the ``gs`` axis in one all-gather: the whole model's
+        radii [K, N] and each view's pairs summed over the bands, which
+        partition the image's tiles."""
+        k, n = radii.shape
+        both = torch.cat([radii, pairs.to(radii.dtype)[:, None]], 1)
+        both = self.gs_gather(both, 1).view(k, self.n_gs, n + 1)
+        return both[..., :n].reshape(k, self.n_gs * n), both[..., n].sum(1)
+
     @staticmethod
     def _at_views(k: int, mine: range, x: torch.Tensor) -> torch.Tensor:
         """This rank's rows ``x`` [len(mine), ...] at their views' places of
@@ -1138,11 +1332,12 @@ class SKGSTrainer:
 
     def merge_views(self, maxes, sums, grads):
         """``maxes``, ``sums`` and ``grads`` (None where a leaf has no
-        gradient) of this rank's views, merged over the mesh's ``view``
-        axis: one max all-reduce of ``maxes`` and of which leaves have a
-        gradient on some rank, then one sum all-reduce of those leaves'
-        gradients (zeros where this rank has none) and of ``sums``."""
-        group = self.mesh.group('view')
+        gradient) of this rank's views, merged over the whole mesh (a
+        ``psum`` over ('view', 'gs')): one max all-reduce of ``maxes`` and
+        of which leaves have a gradient on some rank, then one sum
+        all-reduce of those leaves' gradients (zeros where this rank has
+        none) and of ``sums``."""
+        group = self.mesh.group(AXES)
         names = list(grads)
         has = torch.tensor([grads[n] is not None for n in names],
                            dtype=torch.float64, device=self.device)

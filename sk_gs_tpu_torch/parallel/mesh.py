@@ -102,8 +102,10 @@ def init_distributed(coordinator: Optional[str] = None,
 class Mesh:
     """The ranks as an (n_view, n_gs) grid in row order: rank r sits at
     (r // n_gs, r % n_gs). ``group(axis)`` is the process group of this
-    rank's column ('view') or row ('gs'), None on a one-process mesh.
-    ``shape`` maps each axis to its size, as the JAX ``Mesh.shape``."""
+    rank's column ('view') or row ('gs'), or of every rank for both axes
+    (``('view', 'gs')``, what a JAX ``psum`` over both reduces); None on a
+    one-process mesh. ``shape`` maps each axis to its size, as the JAX
+    ``Mesh.shape``."""
 
     def __init__(self, n_view: int, n_gs: int, rank: int,
                  groups: Dict[str, object]):
@@ -125,18 +127,31 @@ class Mesh:
             self._bad(axis)
         return self.shape[axis]
 
-    def axis_ranks(self, axis: str) -> list:
-        """The global ranks of this rank's group along ``axis``, in axis
-        order."""
+    def axis_ranks(self, axis) -> list:
+        """The global ranks of this rank's group along ``axis`` (both axes:
+        every rank), in axis order."""
         v, g = self.axis_index('view'), self.axis_index('gs')
+        if self._both(axis):
+            return list(range(self.size))
         if axis == 'view':
             return [i * self.n_gs + g for i in range(self.n_view)]
         return [v * self.n_gs + j for j in range(self.n_gs)]
 
-    def group(self, axis: str):
+    def group(self, axis):
+        """The process group along ``axis``, or of every rank when
+        ``axis`` names both axes."""
+        if self._both(axis):
+            return self._groups.get('world')
         if axis not in AXES:
             self._bad(axis)
         return self._groups.get(axis)
+
+    def _both(self, axis) -> bool:
+        if isinstance(axis, tuple):
+            if sorted(axis) != sorted(AXES):
+                self._bad(axis)
+            return True
+        return False
 
     @staticmethod
     def _bad(axis: str):
@@ -151,7 +166,7 @@ def make_mesh(n_view: Optional[int] = None, n_gs: int = 1) -> Mesh:
     """The ('view', 'gs') mesh over every rank of the process group (one
     rank without one). Every rank must call it, in the same order as its
     other group creations: it makes one process group per row and per
-    column of the grid."""
+    column of the grid; the group of both axes is the default group."""
     initialized = dist.is_initialized()
     world = dist.get_world_size() if initialized else 1
     if n_view is None:
@@ -170,6 +185,7 @@ def make_mesh(n_view: Optional[int] = None, n_gs: int = 1) -> Mesh:
             pg = dist.new_group([i * n_gs + j for i in range(n_view)])
             if j == g:
                 groups['view'] = pg
+        groups['world'] = dist.group.WORLD
     return Mesh(n_view, n_gs, rank, groups)
 
 

@@ -134,11 +134,11 @@ def test_refused_knobs():
     ref, _ = build_model_cfg(cfg, META, (48, 48))
     assert got.net.compute_dtype == got.sk_net.compute_dtype == 'bfloat16'
     assert _as_dict(got) == _as_dict(ref)
-    # a mesh's gs axis is refused; its view axis needs as many processes
+    # either mesh axis needs as many processes
     # (tests/test_torch_cli_parallel.py launches them)
     cfg = config.make_config(str(ROOT / 'configs/synthetic_smoke.yaml'),
                              ['train.parallel={"n_view": 1, "n_gs": 2}'])
-    with pytest.raises(NotImplementedError, match='parallel'):
+    with pytest.raises(ValueError, match='parallel 1x2 needs 2 processes'):
         build.trainer_options(cfg)
     cfg = config.make_config(str(ROOT / 'configs/synthetic_smoke.yaml'),
                              ['train.parallel={"n_view": 2, "n_gs": 1}'])

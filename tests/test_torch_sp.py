@@ -185,10 +185,10 @@ def spy_weights(tt) -> list:
     seen = []
     sp_losses = tt.sp_losses
 
-    def spy(d, t, step):
+    def spy(d, t, step, **kw):
         seen.append((to_np(d.aux['knn_w']).copy(), to_np(d.aux['knn_i']),
                      to_np(tt.model.params['sp_W']).copy()))
-        return sp_losses(d, t, step)
+        return sp_losses(d, t, step, **kw)
     tt.sp_losses = spy
     return seen
 

@@ -388,13 +388,23 @@ def test_trainer_refuses_what_is_not_ported(tiny, jax_scene, tmp_path):
     meta = SceneMeta(background=np.ones(3, np.float32))
     model = port_model(tiny, tmp_path)
     cfg, rcfg = model.cfg, model.rcfg
-    # a mesh's gs axis alone is refused, and a view axis that does not
-    # divide batch_views; the view axis (tests/test_torch_view_parallel.py),
+    # a mesh's gs axis must divide the capacity and the tile rows (JAX's
+    # messages), and its view axis batch_views; both axes
+    # (tests/test_torch_view_parallel.py, test_torch_gs_parallel.py),
     # batch_views and the optimizers of the JAX registry are ported
     # (tests/test_torch_train_options.py)
-    with pytest.raises(NotImplementedError, match="'gs' mesh axis"):
+    with pytest.raises(ValueError, match='grid_h 3 not divisible by mesh '
+                       'gs axis 2'):
         SKGSTrainer(cfg, rcfg, scene, meta, model, device='cpu',
                     mesh=Mesh(1, 2, 0, {}))
+    tile8 = rcfg._replace(tile_h=8)
+    with pytest.raises(ValueError, match='capacity 256 not divisible by '
+                       'mesh gs axis 3'):
+        SKGSTrainer(cfg, tile8, scene, meta, model, device='cpu',
+                    mesh=Mesh(1, 3, 0, {}))
+    tr = SKGSTrainer(cfg, tile8, scene, meta, model, device='cpu',
+                     mesh=Mesh(1, 2, 1, {}))
+    assert tr.n_gs == 2 and tr.gs_model().params['xyz'].shape[0] == 128
     with pytest.raises(ValueError, match='view axis 2'):
         SKGSTrainer(cfg, rcfg, scene, meta, model, device='cpu',
                     batch_views=3, mesh=Mesh(2, 1, 0, {}))
