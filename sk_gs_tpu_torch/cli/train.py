@@ -2,6 +2,7 @@
 
     python -m sk_gs_tpu_torch.cli.train -c configs/synthetic_smoke.yaml \\
         [--set train.lr=2e-3 ...] [--steps N] [--resume CKPT] [--device cpu]
+        [--profile FIRST:LAST]
 
 Writes into ``<output_dir>/<exp_name>``: ``config.yaml`` (the merged
 config), ``metrics.jsonl`` (every ``log_interval`` steps, with the ms a
@@ -13,6 +14,13 @@ non-finite loss, ``crash.npz``), ``vis/step_<step>.png`` every
 0), ``results.json`` (the full metrics of the eval split, ``best_PSNR``
 and ``train_time_s``) and ``last.ply`` (the live Gaussians). ``--resume``
 continues from a checkpoint of either package; ``--steps`` stops early.
+``--profile FIRST:LAST`` runs steps FIRST to LAST (rank 0's) under
+``torch.profiler`` (the host and, on the card, its kernels) and writes
+``profile_<FIRST>_<LAST>.json``, a Chrome trace in which the port's layer
+spans (``utils/tracing.py``: 'sk.train.events', 'sk.train.forward' with
+'sk.deform' and the render's spans inside, 'sk.train.losses',
+'sk.train.backward', 'sk.train.update', 'sk.sync', 'py.gc') and the
+kernels share one clock.
 
 Several processes train one model on a ``train.parallel: {n_view, n_gs}``
 mesh, one process a rank: data parallel over ``view`` (n_view dividing
@@ -30,9 +38,8 @@ rank reads ``--resume``; rank 0 alone writes the files and runs the
 evaluations.
 
 Left out, as TPU matters: the dispatch-queue depth control (the port
-synchronises only where it logs, evaluates or saves), the JAX compilation
-cache, and the ``jax.profiler`` window (``chip_smoke.py --profile``
-profiles the port).
+synchronises only where it logs, evaluates or saves) and the JAX
+compilation cache.
 """
 from __future__ import annotations
 
@@ -43,10 +50,12 @@ import logging
 import os
 import time
 from pathlib import Path
+from typing import Tuple
 
 import numpy as np
 import torch
 import torch.distributed as dist
+from torch.profiler import ProfilerActivity
 
 from .. import resolve_device
 from ..framework import build
@@ -82,10 +91,27 @@ def parse_args(argv=None):
     ap.add_argument('--dist-backend', default=None, choices=('nccl', 'gloo'),
                     help='the process group of a multi-process launch: '
                     'nccl on the card, gloo on the CPU by default')
+    ap.add_argument('--profile', default=None, type=step_window,
+                    metavar='FIRST:LAST',
+                    help='run steps FIRST to LAST under torch.profiler and '
+                    'write profile_<FIRST>_<LAST>.json beside the metrics')
     args = ap.parse_args(argv)
     if args.scene:
         args.overrides = list(args.overrides) + [f'dataset.scene={args.scene}']
     return args
+
+
+def step_window(text: str) -> Tuple[int, int]:
+    """(FIRST, LAST) of 'FIRST:LAST', 1 <= FIRST <= LAST."""
+    try:
+        first, last = (int(x) for x in text.split(':'))
+    except ValueError:
+        raise argparse.ArgumentTypeError(
+            f'{text!r} is not FIRST:LAST') from None
+    if not 1 <= first <= last:
+        raise argparse.ArgumentTypeError(
+            f'{text!r}: need 1 <= FIRST <= LAST')
+    return first, last
 
 
 def save_vis_triplet(trainer: SKGSTrainer, vis_dir: Path, step: int):
@@ -183,12 +209,26 @@ def main(argv=None):
                  skcfg.stage_at(max(start - 1, 1)),
                  trainer.skeleton_initialized)
 
+    prof = None
     t0 = time.time()
     win_t0, win_step = time.time(), start - 1
     with (out_dir / 'metrics.jsonl').open('a') if lead else \
             contextlib.nullcontext() as metrics_log:
         for step in range(start, total + 1):
+            if lead and args.profile and step == args.profile[0]:
+                acts = [ProfilerActivity.CPU] + (
+                    [ProfilerActivity.CUDA] if device.type == 'cuda' else [])
+                prof = torch.profiler.profile(activities=acts)
+                prof.start()
             metrics = trainer.train_step(step)
+            if prof is not None and step in (args.profile[1], total):
+                if device.type == 'cuda':
+                    torch.cuda.synchronize(device)
+                prof.stop()
+                first, last = args.profile
+                prof.export_chrome_trace(
+                    str(out_dir / f'profile_{first}_{last}.json'))
+                prof = None
             if not lead:
                 # the replicas' metrics are rank 0's: a non-finite loss
                 # stops every rank

@@ -16,6 +16,7 @@ from ..models.losses import psnr, ssim
 from ..models.sk_gs import SKGSModel, forward_deltas
 from ..render.render import composite_background, render
 from ..render.settings import RasterConfig, ViewParams
+from ..utils.tracing import span
 from . import lpips as lpips_mod
 from .metrics import ms_ssim
 
@@ -38,18 +39,22 @@ def render_eval(model: SKGSModel, view: ViewParams, t, bg,
                 ) -> Dict[str, torch.Tensor]:
     """Render ``model`` from ``view`` at time ``t`` and composite it over
     ``bg``. Returns the render dict plus 'image' [H, W, 3], the composite.
-    ``rcfg`` overrides the model's raster config (e.g. ``use_kernel``)."""
-    dev = model.device
-    t = torch.as_tensor(t, dtype=torch.float32, device=dev)
-    out_def = forward_deltas(model.cfg, model, t, stage, time_id=None,
-                             training=False)
-    g = gaussian_inputs(model.gauss_view(), model.cfg.gauss,
-                        d_xyz=out_def.d_xyz, d_rotation=out_def.d_rotation,
-                        d_scaling=out_def.d_scaling)
-    out = render(g, view, rcfg or model.rcfg,
-                 active_sh_degree=model.active_sh_degree)
-    out['image'] = composite_background(out['images'], out['opacity'], bg)
-    return out
+    ``rcfg`` overrides the model's raster config (e.g. ``use_kernel``).
+    The whole request is an 'sk.request' span (``utils/tracing.py``)."""
+    with span('sk.request'):
+        dev = model.device
+        t = torch.as_tensor(t, dtype=torch.float32, device=dev)
+        out_def = forward_deltas(model.cfg, model, t, stage, time_id=None,
+                                 training=False)
+        g = gaussian_inputs(model.gauss_view(), model.cfg.gauss,
+                            d_xyz=out_def.d_xyz,
+                            d_rotation=out_def.d_rotation,
+                            d_scaling=out_def.d_scaling)
+        out = render(g, view, rcfg or model.rcfg,
+                     active_sh_degree=model.active_sh_degree)
+        out['image'] = composite_background(out['images'], out['opacity'],
+                                            bg)
+        return out
 
 
 @torch.no_grad()

@@ -148,6 +148,7 @@ from ..parallel.sharded_render import exchange_render_band
 from ..render.preprocess import preprocess
 from ..render.render import composite_background, render
 from ..render.settings import GaussianInputs, RasterConfig
+from ..utils.tracing import host_read, span
 from .evaluate import render_eval, split_metrics
 
 log = logging.getLogger(__name__)
@@ -487,7 +488,8 @@ class SKGSTrainer:
         sp_fix_start = self.cfg.stages['sp_fix'][0]
         m = self.model
         if (step > sp_fix_start and (step - sp_fix_start) % 1000 == 0
-                and int(m.active_sh_degree) < self.cfg.gauss.sh_degree):
+                and int(host_read(m.active_sh_degree))
+                < self.cfg.gauss.sh_degree):
             m.active_sh_degree.add_(1)
 
     def family(self, stage: str) -> str:
@@ -550,7 +552,8 @@ class SKGSTrainer:
                    'global_tr': [model.params['global_tr']],
                    'sk_deform': list(model.sk_deform.parameters())}
         for name, leaves in checked.items():
-            bad = int(sum((~torch.isfinite(x)).sum() for x in leaves))
+            bad = int(host_read(sum((~torch.isfinite(x)).sum()
+                                     for x in leaves)))
             if bad:
                 raise FloatingPointError(
                     f"init_skeleton produced {bad} non-finite values in "
@@ -608,28 +611,31 @@ class SKGSTrainer:
 
     def train_step(self, step: int) -> Dict[str, torch.Tensor]:
         """Run training step ``step`` (1-based). Metrics stay 0-d tensors
-        on the device (reading one synchronises)."""
+        on the device (reading one synchronises). The events before the
+        views and those after them are 'sk.train.events' spans."""
         cfg = self.cfg
-        fired = self.maybe_stage_events(step)
         stage = cfg.stage_at(step)
         family = self.family(stage)
-        self.loss_w.set_step(step)
-        self.update_sh_degree(step)
-        if stage == 'sp' and self.update_gs_knn(step):
-            fired.append('update_gs_knn')
-        self.sync_replicas(fired)
+        with span('sk.train.events'):
+            fired = self.maybe_stage_events(step)
+            self.loss_w.set_step(step)
+            self.update_sh_degree(step)
+            if stage == 'sp' and self.update_gs_knn(step):
+                fired.append('update_gs_knn')
+            self.sync_replicas(fired)
         idxs = [self.sampler.sample(step) for _ in range(self.batch_views)]
         metrics = self._step(stage, idxs, self.lr_trees(step), step)
         event, after = {}, []
-        if stage == 'sp' and check_interval_v2(
-                step, *cfg.joint_update_interval, close='[)'):
-            event['joint_root'] = self._update_joint()
-            after.append('update_joint')
-        control = self.maybe_adaptive_control(step, family)
-        if control:
-            event.update(control)
-            after.append('adaptive_control')
-        self.sync_replicas(after)
+        with span('sk.train.events'):
+            if stage == 'sp' and check_interval_v2(
+                    step, *cfg.joint_update_interval, close='[)'):
+                event['joint_root'] = self._update_joint()
+                after.append('update_joint')
+            control = self.maybe_adaptive_control(step, family)
+            if control:
+                event.update(control)
+                after.append('adaptive_control')
+            self.sync_replicas(after)
         self.last_event = event
         self.step = step
         return metrics
@@ -774,41 +780,44 @@ class SKGSTrainer:
         image, bg, noise, noise_scale = self.view_target(family, idx, step)
         t = scene.times[idx]
         m = self.gs_model()
-        d = forward_deltas(cfg, m, t, stage, time_id=scene.time_ids[idx],
-                           training=True, noise=noise,
-                           noise_scale=noise_scale)
-        g = self.render_inputs(family, d, m)
-        if self.n_gs == 1:
-            out = render(g, scene.view(idx), self.rcfg,
-                         active_sh_degree=m.active_sh_degree,
-                         means2d_offset=m2d_off)
-        else:
-            out = self.exchange_render(g, scene.view(idx),
-                                       self.gs_rows(m2d_off))
-        img = composite_background(out['images'], out['opacity'], bg)
-        method = self.loss_w.cfg('image').get('method', 'l1')
-        img_loss = mse_loss if method == 'mse' else l1_loss
-        losses = {'rgb': self.loss_w.w('image') * img_loss(img, image),
-                  'ssim': self.loss_w.w('ssim') * ssim_loss(img, image)}
-        if family == 'sp':
-            losses.update(self.sp_losses(d, t, step, m=m))
-        if family == 'sk_init':
-            losses = {k: v.detach() for k, v in losses.items()}
-            losses.update(self.sk_init_losses(d, scene.time_ids[idx], step,
-                                              m=m))
-        if family == 'init' and self.loss_w.ever_nonzero('arap_p'):
-            losses['arap_p'] = self.loss_weight('arap_p', step) \
-                * self.points_arap(d, m=m)
-        if draws is not None:
-            losses.update(self.motion_reg_losses(family, t, draws, step))
-        if family in ('init', 'sp') and cfg.use_canonical_net \
-                and self.loss_w.ever_nonzero('c_net'):
-            points_out = m.params['xyz'] + d.d_xyz
-            c_net = self.cnet_loss(t, points_out, m=m) if family == 'init' \
-                else self.cnet_loss_sp(t, points_out, d.aux, m=m)
-            losses['c_net'] = self.loss_weight('c_net', step) * c_net
-        if self.n_gs > 1:
-            losses = {k: v * (1.0 / self.n_gs) for k, v in losses.items()}
+        with span('sk.train.forward'):
+            d = forward_deltas(cfg, m, t, stage, time_id=scene.time_ids[idx],
+                               training=True, noise=noise,
+                               noise_scale=noise_scale)
+            g = self.render_inputs(family, d, m)
+            if self.n_gs == 1:
+                out = render(g, scene.view(idx), self.rcfg,
+                             active_sh_degree=m.active_sh_degree,
+                             means2d_offset=m2d_off)
+            else:
+                out = self.exchange_render(g, scene.view(idx),
+                                           self.gs_rows(m2d_off))
+            img = composite_background(out['images'], out['opacity'], bg)
+        with span('sk.train.losses'):
+            method = self.loss_w.cfg('image').get('method', 'l1')
+            img_loss = mse_loss if method == 'mse' else l1_loss
+            losses = {'rgb': self.loss_w.w('image') * img_loss(img, image),
+                      'ssim': self.loss_w.w('ssim') * ssim_loss(img, image)}
+            if family == 'sp':
+                losses.update(self.sp_losses(d, t, step, m=m))
+            if family == 'sk_init':
+                losses = {k: v.detach() for k, v in losses.items()}
+                losses.update(self.sk_init_losses(d, scene.time_ids[idx],
+                                                  step, m=m))
+            if family == 'init' and self.loss_w.ever_nonzero('arap_p'):
+                losses['arap_p'] = self.loss_weight('arap_p', step) \
+                    * self.points_arap(d, m=m)
+            if draws is not None:
+                losses.update(self.motion_reg_losses(family, t, draws, step))
+            if family in ('init', 'sp') and cfg.use_canonical_net \
+                    and self.loss_w.ever_nonzero('c_net'):
+                points_out = m.params['xyz'] + d.d_xyz
+                c_net = self.cnet_loss(t, points_out, m=m) \
+                    if family == 'init' \
+                    else self.cnet_loss_sp(t, points_out, d.aux, m=m)
+                losses['c_net'] = self.loss_weight('c_net', step) * c_net
+            if self.n_gs > 1:
+                losses = {k: v * (1.0 / self.n_gs) for k, v in losses.items()}
         return losses, d, out, img, image
 
     def exchange_render(self, g: GaussianInputs, view,
@@ -1179,10 +1188,12 @@ class SKGSTrainer:
             losses, d, out, img, target = self._losses(stage, idx, m2d_off,
                                                        step, draws)
             total = sum(losses.values())
-            total.backward()
+            with span('sk.train.backward'):
+                total.backward()
             views.append(self._view_record(family, idx, total, losses, d,
                                            out, img, target))
-        return self._update(family, lrs, views, m2d_off, len(idxs))
+        with span('sk.train.update'):
+            return self._update(family, lrs, views, m2d_off, len(idxs))
 
     def _view_record(self, family: str, idx: int, total: torch.Tensor,
                      losses, d, out, img, target) -> Dict:
@@ -1345,7 +1356,7 @@ class SKGSTrainer:
         has = out[0] > 0
         maxes = dict(zip(maxes, out[1:]))
         shapes = {'means2d': (self.model.alive.shape[0], 2)}
-        live = [n for n, h in zip(names, has.tolist()) if h]
+        live = [n for n, h in zip(names, host_read(has).tolist()) if h]
         mine = [grads[n] if grads[n] is not None else torch.zeros(
             shapes.get(n) or self.model.leaves()[n].shape,
             device=self.device) for n in live]
@@ -1394,9 +1405,10 @@ class SKGSTrainer:
                 size_thr = g.prune_max_screen_size \
                     if step > g.opacity_reset_interval[0] else 0.0
                 do_dens = True
-                if not cfg.net.is_blender and int(self.model.alive.sum()) > (
-                        cfg.num_superpoints
-                        * cfg.node_max_num_ratio_during_init):
+                cap = cfg.num_superpoints \
+                    * cfg.node_max_num_ratio_during_init
+                if not cfg.net.is_blender and \
+                        int(host_read(self.model.alive.sum())) > cap:
                     do_dens = False   # real-capture nets cap the init growth
                 event.update(self._densify_prune(do_dens, size_thr))
             if step < cfg.init_sampling_step and check_interval_v2(

@@ -20,6 +20,7 @@ from ..ops import quaternion as quat
 from ..ops.knn import mean_knn_dist2
 from ..ops.sh import rgb_to_sh
 from ..render.settings import GaussianInputs
+from ..utils.tracing import host_read
 from . import optim
 
 
@@ -220,7 +221,7 @@ def densify_and_prune_noise(m: GaussianModel, opt_state: optim.AdamState,
     new_sel = clone_sel | split_sel     # each adds exactly one Gaussian
     rank = torch.cumsum(new_sel.to(torch.int64), 0) - 1
     dead_order = torch.sort(alive.to(torch.int8), stable=True).indices
-    n_dead = cap - int(alive.sum())
+    n_dead = cap - int(host_read(alive.sum()))
     has_slot = new_sel & (rank < n_dead)
     slot = dead_order[torch.clamp(rank, 0, cap - 1)][has_slot]
 

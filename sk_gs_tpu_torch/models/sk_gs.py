@@ -32,6 +32,7 @@ from .. import resolve_device
 from ..ops import quaternion as quat
 from ..ops import se3
 from ..render.settings import RasterConfig
+from ..utils.tracing import span
 from . import skeleton, superpoints
 from .deform import (DeformNet, DeformNetConfig, SkeletonNetConfig,
                      deform_net_apply, deform_net_init, skeleton_net_apply,
@@ -532,19 +533,20 @@ def sk_stage(cfg: SKGSConfig, model: SKGSModel, points: torch.Tensor,
         sk_r = sk_rot_activation(sk_r_raw)
         cached_r = sk_r if sk_r_raw.shape[-1] == 4 else sk_r_raw
         cache_row = torch.cat([cached_r, d_rot, d_scale], dim=-1)
-    sk_T = skeleton.kinematic_transforms(joints, sk_r, g_tr,
-                                         model.joint_parents,
-                                         model.joint_root, sk_r_delta)
+    with span('sk.deform.fk'):
+        sk_T = skeleton.kinematic_transforms(joints, sk_r, g_tr,
+                                             model.joint_parents,
+                                             model.joint_root, sk_r_delta)
     if detach:
         sk_T, d_rot, d_scale = sk_T.detach(), d_rot.detach(), d_scale.detach()
-    weights, indices = superpoints.calc_lbs_weight(
-        points, joints, model.sp_alive, cfg.num_knn, cfg.LBS_method,
-        sp_W=params['sp_W'] if 'sp_W' in params else None,
-        sp_radius_raw=params['sp_radius'] if 'sp_radius' in params else None,
-        sp_weight_raw=params['sp_weight'] if 'sp_weight' in params else None)
-    dense_w = superpoints.dense_lbs_rows(weights, indices, sk_T.shape[0])
-    d_xyz, d_rotation, d_scaling = superpoints.warp_blend_dense(
-        points, sk_T, dense_w, d_rot, d_scale)
+    with span('sk.deform.lbs'):
+        weights, indices = superpoints.calc_lbs_weight(
+            points, joints, model.sp_alive, cfg.num_knn, cfg.LBS_method,
+            sp_W=params.get('sp_W'), sp_radius_raw=params.get('sp_radius'),
+            sp_weight_raw=params.get('sp_weight'))
+        dense_w = superpoints.dense_lbs_rows(weights, indices, sk_T.shape[0])
+        d_xyz, d_rotation, d_scaling = superpoints.warp_blend_dense(
+            points, sk_T, dense_w, d_rot, d_scale)
     aux = {'skT': sk_T, 'knn_w': weights, 'knn_i': indices, 'g_tr': g_tr,
            'sk_rot': d_rot, 'sk_scale': d_scale, 'cache_row': cache_row}
     return StageOutputs(d_xyz, d_rotation, d_scaling, aux)
@@ -556,26 +558,28 @@ def forward_deltas(cfg: SKGSConfig, model: SKGSModel, t: torch.Tensor,
                    noise: Optional[torch.Tensor] = None,
                    noise_scale: float = 0.0) -> StageOutputs:
     """Stage-dispatched deformation deltas; ``noise`` / ``noise_scale``
-    are the time noise of the init and sp families (``noisy_time``)."""
-    if stage == 'static':
-        zero = torch.zeros((), device=model.device)
-        return StageOutputs(zero, zero, zero, {})
-    if stage in ('init', 'init_fix'):
-        out = init_stage(cfg, model, model.params['xyz'], t, noise=noise,
-                         noise_scale=noise_scale)
-        if stage == 'init_fix':
-            out = out._replace(d_xyz=out.d_xyz.detach())
-        return out
-    if stage in ('sp', 'sp_fix'):
-        out = sp_stage(cfg, model, model.params['xyz'], t, noise=noise,
-                       noise_scale=noise_scale)
-        if stage == 'sp_fix':
-            out = out._replace(d_xyz=out.d_xyz.detach(),
-                               d_rotation=out.d_rotation.detach(),
-                               d_scaling=out.d_scaling.detach())
-        return out
-    if stage in SK_STAGES:
-        return sk_stage(cfg, model, model.params['xyz'], t, time_id,
-                        sk_r_delta, detach=stage == 'sk_fix',
-                        training=training)
-    raise ValueError(f'unknown stage {stage!r}')
+    are the time noise of the init and sp families (``noisy_time``). The
+    whole of it is an 'sk.deform' span."""
+    with span('sk.deform'):
+        if stage == 'static':
+            zero = torch.zeros((), device=model.device)
+            return StageOutputs(zero, zero, zero, {})
+        if stage in ('init', 'init_fix'):
+            out = init_stage(cfg, model, model.params['xyz'], t, noise=noise,
+                             noise_scale=noise_scale)
+            if stage == 'init_fix':
+                out = out._replace(d_xyz=out.d_xyz.detach())
+            return out
+        if stage in ('sp', 'sp_fix'):
+            out = sp_stage(cfg, model, model.params['xyz'], t, noise=noise,
+                           noise_scale=noise_scale)
+            if stage == 'sp_fix':
+                out = out._replace(d_xyz=out.d_xyz.detach(),
+                                   d_rotation=out.d_rotation.detach(),
+                                   d_scaling=out.d_scaling.detach())
+            return out
+        if stage in SK_STAGES:
+            return sk_stage(cfg, model, model.params['xyz'], t, time_id,
+                            sk_r_delta, detach=stage == 'sk_fix',
+                            training=training)
+        raise ValueError(f'unknown stage {stage!r}')

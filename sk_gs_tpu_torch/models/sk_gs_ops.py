@@ -27,6 +27,7 @@ import torch
 
 from ..ops import se3
 from ..ops.knn import furthest_point_sampling
+from ..utils.tracing import host_read
 from . import optim, skeleton, superpoints
 from .deform import DeformNet, deform_net_apply
 from .gaussian_splatting import GaussianConfig, init_from_pcd
@@ -251,8 +252,8 @@ def superpoint_merge(cfg: SKGSConfig, model: SKGSModel
         model.params['sp_points'][..., :3], model.sp_alive, sp_cache,
         cfg.num_knn)
     removed = torch.as_tensor(_merge_pairs(
-        min_diff.cpu().numpy(), min_index.cpu().numpy(),
-        model.sp_alive.cpu().numpy(), cfg.sp_merge_threshold),
+        host_read(min_diff).numpy(), host_read(min_index).numpy(),
+        host_read(model.sp_alive).numpy(), cfg.sp_merge_threshold),
         device=model.sp_alive.device)
     model.sp_alive.copy_(model.sp_alive & ~removed)
     return {'n_merged': removed.sum()}

@@ -17,6 +17,7 @@ import torch
 
 from ..ops import quaternion as quat
 from ..ops import se3
+from ..utils.tracing import host_read
 
 MAX_LEVELS = 10  # chains up to 2^10 deep (M <= 1024)
 
@@ -140,7 +141,7 @@ def update_joint(cost: torch.Tensor, sp_points: torch.Tensor,
         big = torch.abs(torch.max(finite)) + 1.0
         cost = torch.where(d > kth[:, None], cost + big, cost)
     parents, depth, root = joint_discovery_host(
-        cost.cpu().numpy(), sp_alive.cpu().numpy())
+        host_read(cost).numpy(), host_read(sp_alive).numpy())
     dev = cost.device
     return (torch.as_tensor(parents, dtype=torch.int32, device=dev),
             torch.as_tensor(depth, dtype=torch.int32, device=dev),

@@ -29,6 +29,8 @@ from typing import Dict, Iterable
 import torch
 import torch.distributed as dist
 
+from ..utils.tracing import host_read
+
 counts: Dict[str, int] = {'calls': 0, 'bytes': 0}
 
 
@@ -197,7 +199,7 @@ def broadcast_from(tensors: Iterable[torch.Tensor], group,
         else:
             diff = (got.to(torch.int64) - flat.to(torch.int64)).abs()
         if diff.numel():
-            drift = max(drift, float(diff.max()))
+            drift = max(drift, float(host_read(diff.max())))
         o = 0
         with torch.no_grad():
             for t in ts:

@@ -12,6 +12,7 @@ from typing import Dict, NamedTuple, Optional
 
 import torch
 
+from ..utils.tracing import span
 from .binning import BinnedSplats, build_tile_lists
 from .blend import assemble_image, topk_weights
 from .preprocess import PreprocessOut, preprocess
@@ -34,24 +35,27 @@ def prepare_blend(g: GaussianInputs, view: ViewParams, cfg: RasterConfig,
     dummy row n (opacity 0: it never adds) and are brought into depth-rank
     order once, so the blend reads entry i's row at ``sort_gauss[i]``.
     ``means2d_offset`` [N, 2] is added to the pixel means first (binning
-    uses the means without it, as in the JAX package)."""
-    pre = preprocess(g, view, cfg, active_sh_degree)
-    colors = pre.colors
-    if g.extras is not None:
-        colors = torch.cat([colors, g.extras], dim=-1)
-    binned = build_tile_lists(pre, cfg)
-    means2d = pre.means2d
-    if means2d_offset is not None:
-        means2d = means2d + means2d_offset
+    uses the means without it, as in the JAX package). Spans:
+    'sk.preprocess', then 'sk.binning' (the lists and the gathers)."""
+    with span('sk.preprocess'):
+        pre = preprocess(g, view, cfg, active_sh_degree)
+    with span('sk.binning'):
+        colors = pre.colors
+        if g.extras is not None:
+            colors = torch.cat([colors, g.extras], dim=-1)
+        binned = build_tile_lists(pre, cfg)
+        means2d = pre.means2d
+        if means2d_offset is not None:
+            means2d = means2d + means2d_offset
 
-    def pad1(x):
-        return torch.cat([x, torch.zeros_like(x[:1])], dim=0)
+        def pad1(x):
+            return torch.cat([x, torch.zeros_like(x[:1])], dim=0)
 
-    do = binned.depth_order.to(torch.int64)
-    geo = pad1(torch.cat([means2d, pre.conic,
-                          g.opacities.reshape(-1, 1)], dim=-1))[do]
-    return BlendInputs(pre, binned, geo.contiguous(),
-                       pad1(colors)[do].contiguous())
+        do = binned.depth_order.to(torch.int64)
+        geo = pad1(torch.cat([means2d, pre.conic,
+                              g.opacities.reshape(-1, 1)], dim=-1))[do]
+        return BlendInputs(pre, binned, geo.contiguous(),
+                           pad1(colors)[do].contiguous())
 
 
 def blend_tiles(binned: BinnedSplats, geo: torch.Tensor, col: torch.Tensor,
@@ -75,11 +79,13 @@ def render(g: GaussianInputs, view: ViewParams, cfg: RasterConfig,
            ) -> Dict[str, torch.Tensor]:
     """``means2d_offset``: pass zeros [N, 2] that require grad, and its
     gradient is the pixel-space position gradient the densification
-    statistics read (the JAX ``render.py:48`` contract)."""
+    statistics read (the JAX ``render.py:48`` contract). The blend and the
+    image's assembly are an 'sk.blend' span."""
     pre, binned, geo, col = prepare_blend(g, view, cfg, active_sh_degree,
                                           means2d_offset)
-    tile_color, tile_alpha = blend_tiles(binned, geo, col, cfg)
-    out = assemble_image(tile_color, tile_alpha, cfg)
+    with span('sk.blend'):
+        tile_color, tile_alpha = blend_tiles(binned, geo, col, cfg)
+        out = assemble_image(tile_color, tile_alpha, cfg)
     images = out['images']
     result = {
         'images': images[..., :3] if g.extras is not None else images,
