@@ -37,6 +37,7 @@ from . import skeleton, superpoints
 from .deform import (DeformNet, DeformNetConfig, SkeletonNetConfig,
                      deform_net_apply, deform_net_init, skeleton_net_apply,
                      skeleton_net_init)
+from .deform_graph import DeformGraph
 from .gaussian_splatting import GaussianConfig, GaussianModel
 
 STAGE_NAMES = ('static', 'init_fix', 'init', 'sp_fix', 'sp', 'sk_init',
@@ -181,6 +182,7 @@ class SKGSModel(nn.Module):
                     None if net is None else net.requires_grad_(trainable))
         for name in AUX_BUFFERS:
             self.register_buffer(name, buffers[name])
+        self.deform_graph = DeformGraph()
         xyz = params['xyz']
         n, m = xyz.shape[0], params['joints'].shape[0]
         zeros = {'max_radii2d': (n,), 'xyz_grad_accum': (n,), 'denom': (n,),
@@ -377,7 +379,8 @@ def split_sp_cache(cfg: SKGSConfig, row: torch.Tensor):
 def take_frame(x: torch.Tensor, time_id) -> torch.Tensor:
     """``x[time_id]`` for an int or a 0-d integer tensor; a tensor index
     goes through ``index_select``, so that the host never reads it (a 0-d
-    tensor subscript reads its value on the host, a device sync)."""
+    tensor subscript reads its value on the host, a device sync, which a
+    CUDA graph cannot capture)."""
     if isinstance(time_id, torch.Tensor):
         return x.index_select(0, time_id.reshape(1).to(torch.int64))[0]
     return x[time_id]
@@ -475,13 +478,14 @@ def sk_rot_activation(sk_r: torch.Tensor, biased: bool = False
 def frame_weight(train_times: torch.Tensor, t: torch.Tensor):
     """(idx1, idx2, w) of time ``t`` between the train frames: the frames
     around t (clamped to the first and last pair) and t's offset from idx1
-    as a share of their gap, unclipped."""
+    as a share of their gap, unclipped. The frames' times are taken on the
+    device (``take_frame``): no host sync."""
     t0 = t.reshape(())
     idx2 = torch.clamp(torch.searchsorted(train_times, t0.reshape(1)), 1,
                        train_times.shape[0] - 1)[0]
     idx1 = idx2 - 1
-    w = (t0 - train_times[idx1]) / torch.clamp(
-        train_times[idx2] - train_times[idx1], min=1e-8)
+    t1, t2 = take_frame(train_times, idx1), take_frame(train_times, idx2)
+    w = (t0 - t1) / torch.clamp(t2 - t1, min=1e-8)
     return idx1, idx2, w
 
 
@@ -512,15 +516,16 @@ def sk_stage(cfg: SKGSConfig, model: SKGSModel, points: torch.Tensor,
         g_tr = take_frame(params['global_tr'], time_id)
     else:
         idx1, idx2, w = frame_weight(model.train_times, t)
-        g_tr = se3.se3_interpolate(params['global_tr'][idx1],
-                                   params['global_tr'][idx2], w)
+        g_tr = se3.se3_interpolate(take_frame(params['global_tr'], idx1),
+                                   take_frame(params['global_tr'], idx2), w)
 
     if not training and cfg.test_time_interpolate:
         if time_id is not None:
             row = take_frame(model.sk_cache, time_id)
         else:
             w = torch.clamp(w, 0.0, 1.0)
-            row = (1.0 - w) * model.sk_cache[idx1] + w * model.sk_cache[idx2]
+            row = (1.0 - w) * take_frame(model.sk_cache, idx1) \
+                + w * take_frame(model.sk_cache, idx2)
         dims = tuple(cfg.sk_net.out_dims)
         d_rot = row[:, dims[0]:dims[0] + dims[1]]
         d_scale = row[:, dims[0] + dims[1]:]
@@ -559,8 +564,27 @@ def forward_deltas(cfg: SKGSConfig, model: SKGSModel, t: torch.Tensor,
                    noise_scale: float = 0.0) -> StageOutputs:
     """Stage-dispatched deformation deltas; ``noise`` / ``noise_scale``
     are the time noise of the init and sp families (``noisy_time``). The
-    whole of it is an 'sk.deform' span."""
+    whole of it is an 'sk.deform' span.
+
+    A served sk stage is one CUDA graph replay (``model.deform_graph``,
+    ``models/deform_graph.py``) when the model lies on a CUDA device,
+    ``time_id`` is None, ``training`` is False and autograd records nothing
+    (grad off, or no input requiring grad); the first such call, and every
+    call after a model tensor the stage reads was replaced, captures the
+    eager code below first. A replay hands out the three deltas as fresh
+    tensors, but the aux entries are the graph's buffers: valid until the
+    next call on the model. It makes an 'sk.deform.replay' span (a capture
+    an 'sk.deform.capture'), and no 'sk.deform.fk' / 'sk.deform.lbs'. Every
+    other call (the CPU, the trainer's steps, the init and sp families)
+    runs the eager code."""
     with span('sk.deform'):
+        if stage in SK_STAGES and model.deform_graph.engages(
+                model, t, time_id, sk_r_delta, training):
+            return model.deform_graph(
+                cfg, model, stage, t, sk_r_delta,
+                lambda t_, delta: sk_stage(
+                    cfg, model, model.params['xyz'], t_, None, delta,
+                    detach=stage == 'sk_fix'))
         if stage == 'static':
             zero = torch.zeros((), device=model.device)
             return StageOutputs(zero, zero, zero, {})

@@ -53,7 +53,7 @@ NEW_METRICS = ('serve.deform_host_ms', 'serve.preprocess_host_ms',
                'serve.render_idle_ms', 'serve.unspanned_idle_ms',
                'serve.gc_host_ms', 'serve.fk_launches',
                'serve.lbs_launches', 'serve.render_launches',
-               'serve.host_syncs')
+               'serve.host_syncs', 'serve.deform_graph_share')
 
 
 def toy_cfg():
@@ -230,6 +230,16 @@ def test_span_names():
         assert name in cli_train.__doc__, name
 
 
+def test_graph_span_names():
+    """The deformation's CUDA graph has its two spans, beside 'sk.deform'
+    (``models/deform_graph.py``), and a benchmark metric reads the replay."""
+    spans = tracing.SPANS
+    for name in ('sk.deform.replay', 'sk.deform.capture'):
+        assert name in spans and spans.index(name) > spans.index('sk.deform')
+    reader = (METRICS / 'serve.deform_graph_share.py').read_text()
+    assert "'sk.deform.replay'" in reader
+
+
 def test_cli_train_profile_window(tmp_path):
     cli_train.main(['-c', 'configs/synthetic_smoke.yaml', '--device', 'cpu',
                     '--set', f'output_dir={tmp_path}',
@@ -299,6 +309,7 @@ EXPECTED = {
     'serve.lbs_launches': 4 / 2,
     'serve.render_launches': 6 / 2,
     'serve.host_syncs': 1 / 2,
+    'serve.deform_graph_share': 0.0,
 }
 
 
