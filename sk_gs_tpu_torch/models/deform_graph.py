@@ -1,20 +1,23 @@
-"""The served sk-stage deformation as one CUDA graph replay.
+"""The served sk- and sp-stage deformation as one CUDA graph replay.
 
-Serving runs the same chain of some 660 small kernels on every request (the
-skeleton net, forward kinematics' ``se3_mul`` levels, the masked KNN, the
-dense LBS rows and the blend), on shapes fixed by the model, with the time
-``t`` (and a repose delta) its only input that changes. Launched one by one
-from Python, the chain keeps the card waiting on the host. ``DeformGraph``
-captures it once as a ``torch.cuda.CUDAGraph`` and replays it: one launch
-a request, the same kernels in the same order.
+Serving runs the same chain of small kernels on every request, on shapes
+fixed by the model, with the time ``t`` (and, for the sk stages, a repose
+delta) its only input that changes: the sk stages' skeleton net, forward
+kinematics' ``se3_mul`` levels, the masked KNN, the dense LBS rows and the
+blend (some 660 kernels); the sp stages' warp net on the superpoints, the
+masked KNN in (xyz, hyper) space, the dense LBS rows and the blend.
+Launched one by one from Python, the chain keeps the card waiting on the
+host. ``DeformGraph`` captures it once as a ``torch.cuda.CUDAGraph`` and
+replays it: one launch a request, the same kernels in the same order.
 
 The graph reads the model's tensors at the addresses they had at capture,
 so a value updated in place is seen at the next replay; the key of a
-capture is the stage, the config fields that choose a branch, the shape
-and dtype of ``t`` and of the repose delta, and ``(data_ptr, shape,
-dtype)`` of every model tensor the sk stages read. A call whose key differs
-captures again and releases the old graph and its memory pool: one graph a
-model.
+capture is the stage family ('sk' or 'sp') and the stage, the config fields
+that choose a branch, the shape and dtype of ``t`` and of the repose delta,
+and ``(data_ptr, shape, dtype)`` of every model tensor the family reads
+(``stage_inputs``). A call whose key differs captures again and releases
+the old graph and its memory pool: one graph a model, so a switch between
+stages captures again.
 """
 from __future__ import annotations
 
@@ -29,10 +32,19 @@ from ..utils.tracing import span
 WARMUP_CALLS = 3
 
 
-def stage_inputs(model) -> List[torch.Tensor]:
-    """Every tensor of ``model`` that the sk stages read: the parameters,
-    the skeleton net's weights, the train times, the per-frame skeleton
-    cache and the joint tree."""
+def family(stage: str) -> str:
+    """'sp' for the sp stages ('sp_fix', 'sp'), else 'sk'."""
+    return 'sp' if stage in ('sp_fix', 'sp') else 'sk'
+
+
+def stage_inputs(model, stage: str = 'sk') -> List[torch.Tensor]:
+    """Every tensor of ``model`` that the stage's family reads. sk: the
+    parameters, the skeleton net's weights, the train times, the per-frame
+    skeleton cache and the joint tree; sp: the parameters, the warp net
+    ``sp_deform``'s weights and the live superpoints."""
+    if family(stage) == 'sp':
+        return [*model.params.values(), *model.sp_deform.parameters(),
+                model.sp_alive]
     return [*model.params.values(), *model.sk_deform.parameters(),
             model.train_times, model.sk_cache, model.joint_parents,
             model.joint_root, model.sp_alive]
@@ -43,7 +55,7 @@ def _sig(x: Optional[torch.Tensor]):
 
 
 class DeformGraph:
-    """One model's captured sk-stage deformation. ``captures`` and
+    """One model's captured sk- or sp-stage deformation. ``captures`` and
     ``replays`` count what it did."""
 
     def __init__(self):
@@ -51,15 +63,18 @@ class DeformGraph:
         self.static_t = self.static_delta = self.out = None
         self.captures = self.replays = 0
 
-    def engages(self, model, t, time_id, sk_r_delta, training: bool
-                ) -> bool:
-        """Whether a call of an sk stage replays the graph: the model on a
-        CUDA device, no train frame (``time_id``), not ``training``, and
-        autograd recording nothing (grad off, or no input requiring grad)."""
+    def engages(self, model, t, time_id, sk_r_delta, training: bool,
+                stage: str = 'sk') -> bool:
+        """Whether a call of an sk or sp stage replays the graph: the model
+        on a CUDA device (with an ``sp_deform`` net for the sp stages), no
+        train frame (``time_id``), not ``training``, and autograd recording
+        nothing (grad off, or no input requiring grad)."""
         if training or time_id is not None or model.device.type != 'cuda':
             return False
+        if family(stage) == 'sp' and model.sp_deform is None:
+            return False
         if torch.is_grad_enabled():
-            grads = [t, *stage_inputs(model)]
+            grads = [t, *stage_inputs(model, stage)]
             if sk_r_delta is not None:
                 grads.append(sk_r_delta)
             return not any(x.requires_grad for x in grads)
@@ -74,10 +89,12 @@ class DeformGraph:
         stream with ``t`` and ``sk_r_delta`` copied into its static inputs.
         The three deltas are handed out as fresh copies; the aux entries
         are the graph's own buffers, valid until the next call."""
-        key = (stage, cfg.test_time_interpolate, cfg.LBS_method,
-               cfg.num_knn, cfg.sk_net, _sig(t), _sig(sk_r_delta),
+        key = (family(stage), stage, cfg.test_time_interpolate,
+               cfg.LBS_method, cfg.num_knn, cfg.sk_net, cfg.net,
+               cfg.hyper_dim, cfg.warp_method, cfg.sep_rot, _sig(t),
+               _sig(sk_r_delta),
                tuple((x.data_ptr(), tuple(x.shape), x.dtype)
-                     for x in stage_inputs(model)))
+                     for x in stage_inputs(model, stage)))
         if key != self.key:
             self._capture(key, model.device, t, sk_r_delta, run)
         with span('sk.deform.replay'):

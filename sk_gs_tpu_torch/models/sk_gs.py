@@ -18,7 +18,9 @@ the ``sk`` family reads the skeleton net's outputs from the per-frame
 ``sk_cache`` instead of running the net; ``sk_r_delta`` reposes the joints.
 Nets that are not ``is_blender`` (real captures) train the ``init`` and
 ``sp`` families at a noisy time t + n dt s, n a standard normal draw the
-caller hands in and s the annealed ``smooth_scale`` of the step.
+caller hands in and s the annealed ``smooth_scale`` of the step. Served
+on a card, the sk and sp families run as one CUDA graph replay
+(``forward_deltas``, ``models/deform_graph.py``).
 """
 from __future__ import annotations
 
@@ -43,6 +45,7 @@ from .gaussian_splatting import GaussianConfig, GaussianModel
 STAGE_NAMES = ('static', 'init_fix', 'init', 'sp_fix', 'sp', 'sk_init',
                'sk_fix', 'sk')
 SK_STAGES = ('sk_init', 'sk_fix', 'sk')
+SP_STAGES = ('sp_fix', 'sp')
 
 
 class SKGSConfig(NamedTuple):
@@ -403,49 +406,43 @@ def sp_stage(cfg: SKGSConfig, model: SKGSModel, points: torch.Tensor,
     / ``frozen_knn`` reuse another pass's weights on the same points: the
     weights do not depend on t. The aux holds the transforms 'spT', the
     weights 'knn_w' / 'knn_i', the superpoints' 'sp_rot' / 'sp_scale', the
-    assignment 'p2sp' and the ``sp_cache`` row 'cache_row'."""
+    assignment 'p2sp' and the ``sp_cache`` row 'cache_row'. The warp net is
+    an 'sk.deform.net' span, the LBS weights and the blend an
+    'sk.deform.lbs' span."""
     params = model.params
     points = points.detach()
     sp_points_ = params['sp_points'][..., :3] if sp_points is None \
         else sp_points
     t = noisy_time(cfg, t, noise, noise_scale)
-    if use_canonical:
-        if model.canonical is None:
-            raise ValueError('the model has no canonical net')
-        outs = deform_net_apply(model.canonical, cfg.net, sp_points_.detach(),
-                                t)
-        bias = superpoints.rot_bias(outs['d_rotation'])
-        d_xyz_sp = outs['d_xyz']
-        d_rot_sp = quat.normalize(outs['d_rotation'] + bias)
-        g_rot = quat.normalize(outs['g_rotation'] + bias) if cfg.sep_rot \
-            else None
-        d_scale_sp = outs['d_scaling']
-        weights, indices = frozen_weights, frozen_knn
-    else:
-        if model.sp_deform is None:
-            raise ValueError('the model has no sp_deform net')
+    name = 'canonical' if use_canonical else 'sp_deform'
+    net = getattr(model, name)
+    if net is None:
+        raise ValueError(f'the model has no {name} net')
+    with span('sk.deform.net'):
         d_xyz_sp, d_rot_sp, g_rot, d_scale_sp = sp_net_outputs(
-            cfg, model.sp_deform, sp_points_, t)
-        if frozen_weights is not None:
-            weights, indices = frozen_weights, frozen_knn
-        else:
-            weights, indices = lbs_weights(cfg, params, model.sp_alive, points)
-
+            cfg, net, sp_points_, t)
     spT = superpoints.sp_transforms(d_xyz_sp, d_rot_sp, sp_points_,
                                     cfg.warp_method)
-    idx = indices.to(torch.int64)
-    p2sp = torch.gather(idx, 1, torch.argmax(weights, dim=-1,
-                                             keepdim=True))[:, 0]
     rot_attr = g_rot if g_rot is not None else d_rot_sp
-    if cfg.warp_method == 'largest':
-        d_points = superpoints.warp_points(points, spT, weights, indices,
-                                           cfg.warp_method, p2sp)
-        d_rotation = superpoints.blend_attr(rot_attr, weights, indices)
-        d_scaling = superpoints.blend_attr(d_scale_sp, weights, indices)
-    else:
-        dense_w = superpoints.dense_lbs_rows(weights, indices, spT.shape[0])
-        d_points, d_rotation, d_scaling = superpoints.warp_blend_dense(
-            points, spT, dense_w, rot_attr, d_scale_sp)
+    with span('sk.deform.lbs'):
+        if use_canonical or frozen_weights is not None:
+            weights, indices = frozen_weights, frozen_knn
+        else:
+            weights, indices = lbs_weights(cfg, params, model.sp_alive,
+                                           points)
+        idx = indices.to(torch.int64)
+        p2sp = torch.gather(idx, 1, torch.argmax(weights, dim=-1,
+                                                 keepdim=True))[:, 0]
+        if cfg.warp_method == 'largest':
+            d_points = superpoints.warp_points(points, spT, weights, indices,
+                                               cfg.warp_method, p2sp)
+            d_rotation = superpoints.blend_attr(rot_attr, weights, indices)
+            d_scaling = superpoints.blend_attr(d_scale_sp, weights, indices)
+        else:
+            dense_w = superpoints.dense_lbs_rows(weights, indices,
+                                                 spT.shape[0])
+            d_points, d_rotation, d_scaling = superpoints.warp_blend_dense(
+                points, spT, dense_w, rot_attr, d_scale_sp)
     aux = {'spT': spT, 'knn_w': weights, 'knn_i': indices,
            'sp_rot': rot_attr, 'sp_scale': d_scale_sp,
            'p2sp': p2sp.to(torch.int32),
@@ -566,25 +563,32 @@ def forward_deltas(cfg: SKGSConfig, model: SKGSModel, t: torch.Tensor,
     are the time noise of the init and sp families (``noisy_time``). The
     whole of it is an 'sk.deform' span.
 
-    A served sk stage is one CUDA graph replay (``model.deform_graph``,
+    A served sk or sp stage is one CUDA graph replay (``model.deform_graph``,
     ``models/deform_graph.py``) when the model lies on a CUDA device,
-    ``time_id`` is None, ``training`` is False and autograd records nothing
-    (grad off, or no input requiring grad); the first such call, and every
-    call after a model tensor the stage reads was replaced, captures the
-    eager code below first. A replay hands out the three deltas as fresh
-    tensors, but the aux entries are the graph's buffers: valid until the
-    next call on the model. It makes an 'sk.deform.replay' span (a capture
-    an 'sk.deform.capture'), and no 'sk.deform.fk' / 'sk.deform.lbs'. Every
-    other call (the CPU, the trainer's steps, the init and sp families)
-    runs the eager code."""
+    ``time_id`` is None, ``training`` is False, ``noise`` is None and
+    autograd records nothing (grad off, or no input requiring grad); the
+    first such call, and every call after a model tensor the stage reads was
+    replaced, captures the eager code below first. A replay hands out the
+    three deltas as fresh tensors, but the aux entries are the graph's
+    buffers: valid until the next call on the model. It makes an
+    'sk.deform.replay' span (a capture an 'sk.deform.capture'), and no
+    'sk.deform.fk' / 'sk.deform.net' / 'sk.deform.lbs'. Every other call
+    (the CPU, the trainer's steps, time noise, the static and init
+    families) runs the eager code."""
     with span('sk.deform'):
-        if stage in SK_STAGES and model.deform_graph.engages(
-                model, t, time_id, sk_r_delta, training):
-            return model.deform_graph(
+        graph = model.deform_graph
+        if stage in SK_STAGES and graph.engages(
+                model, t, time_id, sk_r_delta, training, stage):
+            return graph(
                 cfg, model, stage, t, sk_r_delta,
                 lambda t_, delta: sk_stage(
                     cfg, model, model.params['xyz'], t_, None, delta,
                     detach=stage == 'sk_fix'))
+        if stage in SP_STAGES and noise is None and graph.engages(
+                model, t, time_id, None, training, stage):
+            return graph(
+                cfg, model, stage, t, None,
+                lambda t_, _: sp_stage(cfg, model, model.params['xyz'], t_))
         if stage == 'static':
             zero = torch.zeros((), device=model.device)
             return StageOutputs(zero, zero, zero, {})
@@ -594,7 +598,7 @@ def forward_deltas(cfg: SKGSConfig, model: SKGSModel, t: torch.Tensor,
             if stage == 'init_fix':
                 out = out._replace(d_xyz=out.d_xyz.detach())
             return out
-        if stage in ('sp', 'sp_fix'):
+        if stage in SP_STAGES:
             out = sp_stage(cfg, model, model.params['xyz'], t, noise=noise,
                            noise_scale=noise_scale)
             if stage == 'sp_fix':

@@ -14,12 +14,12 @@ import torch
 from ..ops import quaternion as quat
 from ..ops import se3
 
-# the identity bias of the warp net's raw rotation head
-ROT_BIAS = (0.0, 0.0, 0.0, 1.0)
-
 
 def rot_bias(like: torch.Tensor) -> torch.Tensor:
-    return torch.tensor(ROT_BIAS, dtype=like.dtype, device=like.device)
+    """The identity bias (0, 0, 0, 1) of the warp net's raw rotation head,
+    made on ``like``'s device: a host tensor's copy would synchronise the
+    host with the card, which a CUDA graph cannot capture."""
+    return torch.eye(4, dtype=like.dtype, device=like.device)[3]
 
 
 def masked_knn(queries: torch.Tensor, keys: torch.Tensor,

@@ -19,15 +19,17 @@ Every span name is one of ``SPANS``:
 
 - a served request (``framework/evaluate.py:render_eval``): 'sk.request'
   around it all, 'sk.deform' (``models/sk_gs.py:forward_deltas``, every
-  stage) holding 'sk.deform.fk' (forward kinematics) and 'sk.deform.lbs'
-  (the LBS weights and the blend of the joint transforms) of the sk stages,
-  then 'sk.preprocess', 'sk.binning' and 'sk.blend'
-  (``render/render.py``). Where the sk stage runs as a CUDA graph (on a
-  card, no train frame, autograd off: ``models/deform_graph.py``),
-  'sk.deform' holds 'sk.deform.replay' instead of 'sk.deform.fk' and
-  'sk.deform.lbs', and once before it, on the first call and after a
-  model tensor it reads was replaced, 'sk.deform.capture' (the eager warm-up
-  calls and the capture; the fk and lbs spans inside when the profiler
+  stage) holding 'sk.deform.fk' (forward kinematics) of the sk stages,
+  'sk.deform.net' (the warp net on the superpoints) of the sp stages, and
+  'sk.deform.lbs' (the LBS weights and the blend of the joint or superpoint
+  transforms) of both, then 'sk.preprocess', 'sk.binning' and 'sk.blend'
+  (``render/render.py``). Where the sk or sp stage runs as a CUDA graph (on
+  a card, no train frame, no time noise, autograd off:
+  ``models/deform_graph.py``), 'sk.deform' holds 'sk.deform.replay' instead
+  of 'sk.deform.fk', 'sk.deform.net' and 'sk.deform.lbs', and once before
+  it, on the first call, after a switch of stage and after a model tensor
+  it reads was replaced, 'sk.deform.capture' (the eager warm-up calls and
+  the capture; the fk, net and lbs spans inside when the profiler
   records);
 - a training step (``framework/trainer.py``): 'sk.train.events',
   'sk.train.forward' (a view's deformation and render, the serve spans
@@ -41,8 +43,8 @@ from contextlib import nullcontext
 
 import torch
 
-SPANS = ('sk.request', 'sk.deform', 'sk.deform.fk', 'sk.deform.lbs',
-         'sk.deform.replay', 'sk.deform.capture',
+SPANS = ('sk.request', 'sk.deform', 'sk.deform.fk', 'sk.deform.net',
+         'sk.deform.lbs', 'sk.deform.replay', 'sk.deform.capture',
          'sk.preprocess', 'sk.binning', 'sk.blend',
          'sk.train.events', 'sk.train.forward', 'sk.train.losses',
          'sk.train.backward', 'sk.train.update',

@@ -263,7 +263,9 @@ def test_bypasses_take_the_eager_path(cuda, path):
     if path == 'time_id':
         kw['time_id'] = torch.tensor(2, device=cuda)
     elif path == 'sp_stage':
+        # the sp stages take the graph too, but not with time noise
         stage = 'sp'
+        kw['noise'] = torch.zeros((), device=cuda)
     elif path == 'init_stage':
         stage = 'init'
     elif path == 'training':
