@@ -391,6 +391,8 @@ from sk_gs_tpu_torch.parallel import collectives as coll
 from sk_gs_tpu_torch.parallel import sharded_render
 from sk_gs_tpu_torch.parallel.sharded_render import (make_exchange_render,
                                                      make_sharded_render)
+from sk_gs_tpu_torch.parallel import trainer as mesh_trainer_mod
+from sk_gs_tpu_torch.parallel.trainer import MeshTrainer
 from sk_gs_tpu_torch.render import prepare_blend
 from sk_gs_tpu_torch.render.binning import build_tile_lists, num_chunks
 from sk_gs_tpu_torch.render.blend import (ALPHA_MIN, OUTCOMES, assemble_image,
@@ -4404,9 +4406,10 @@ def mesh_trainer(family: str, mesh=None, batch_views: int = MESH_RANKS,
     sk stages of synthetic_smoke (``sk_init_cfg``) with its LBS frozen
     (``freeze_lbs``, the skeleton initialisation's first part), 'sk' the
     random model with its skeleton initialised; ``batch_views`` views a
-    step, on ``mesh``. ``band``: the gs axis's setup, tile_h 8 (25 tile
-    rows at 16 do not split into 2 bands), a pair capacity of 2^21 (a
-    band holds half of it) and, for 'sp', the smooth loss's KNN rebuilt."""
+    step, a ``MeshTrainer`` on ``mesh`` when given one. ``band``: the gs
+    axis's setup, tile_h 8 (25 tile rows at 16 do not split into 2
+    bands), a pair capacity of 2^21 (a band holds half of it) and, for
+    'sp', the smooth loss's KNN rebuilt."""
     cfg, rcfg, train = synthetic_fullscale()
     if family == 'init':
         rcfg = rcfg._replace(schedule='chunk')
@@ -4429,14 +4432,15 @@ def mesh_trainer(family: str, mesh=None, batch_views: int = MESH_RANKS,
     knn = live_knn_index(model.params['xyz'].detach(), model.alive,
                          SKGSTrainer.gs_knn_num) \
         if band and family == 'sp' else None
-    return SKGSTrainer(cfg, rcfg, scene, meta, model, LossWeights(train.loss),
-                       seed=train.seed, clip_norm=train.clip_norm,
-                       optimizer=train.optimizer, batch_views=batch_views,
-                       mesh=mesh, gs_knn_index=knn,
-                       sp_initialized=family in ('sp', 'sk_init'),
-                       reinit_done=family in ('sp', 'sk_init'),
-                       skeleton_initialized=family in ('sk_init', 'sk'),
-                       device='cuda')
+    cls, kw = (SKGSTrainer, {}) if mesh is None else \
+        (MeshTrainer, {'mesh': mesh})
+    return cls(cfg, rcfg, scene, meta, model, LossWeights(train.loss),
+               seed=train.seed, clip_norm=train.clip_norm,
+               optimizer=train.optimizer, batch_views=batch_views,
+               gs_knn_index=knn, sp_initialized=family in ('sp', 'sk_init'),
+               reinit_done=family in ('sp', 'sk_init'),
+               skeleton_initialized=family in ('sk_init', 'sk'),
+               device='cuda', **kw)
 
 
 def mesh_steps(trainer: SKGSTrainer, steps):
@@ -5120,8 +5124,8 @@ def record_bands() -> dict:
     pairs ('pairs') and rows sent to each rank ('sent'), and the last band
     blend's inputs ('inputs': binned, geo, col, band config)."""
     rec = {'rects': [], 'pairs': [], 'sent': [], 'inputs': None}
-    prep, blend = trainer_mod.preprocess, sharded_render.blend_tiles
-    band = trainer_mod.exchange_render_band
+    prep, blend = mesh_trainer_mod.preprocess, sharded_render.blend_tiles
+    band = mesh_trainer_mod.exchange_render_band
 
     def prep_recorded(*args, **kw):
         pre = prep(*args, **kw)
@@ -5137,9 +5141,9 @@ def record_bands() -> dict:
         rec['pairs'].append(out[3].num_pairs)
         rec['sent'].append(out[4])
         return out
-    trainer_mod.preprocess = prep_recorded
+    mesh_trainer_mod.preprocess = prep_recorded
     sharded_render.blend_tiles = blend_recorded
-    trainer_mod.exchange_render_band = band_recorded
+    mesh_trainer_mod.exchange_render_band = band_recorded
     return rec
 
 

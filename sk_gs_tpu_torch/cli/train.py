@@ -30,12 +30,13 @@ tile rows: at 16-pixel tiles a 48-pixel image has 3, so
 ``raster.tile_h=8`` gives 6). Launch n_view x n_gs ranks by ``torchrun
 --nproc_per_node <n_view x n_gs> -m sk_gs_tpu_torch.cli.train ...`` or
 with ``MASTER_ADDR`` / ``MASTER_PORT`` / ``WORLD_SIZE`` / ``RANK`` set by
-hand (``parallel.init_distributed``).
-Each rank drives ``cuda:<LOCAL_RANK>`` over NCCL; ``--device cuda:0
---dist-backend gloo`` puts every rank on one card (NCCL takes one card a
-rank), and ``--device cpu`` runs the ranks over gloo on the CPU. Every
-rank reads ``--resume``; rank 0 alone writes the files and runs the
-evaluations.
+hand (``parallel.init_distributed``). A run of one process trains the
+one-device ``framework.trainer.SKGSTrainer``, each rank of a mesh a
+``parallel.trainer.MeshTrainer``. Each rank drives ``cuda:<LOCAL_RANK>``
+over NCCL; ``--device cuda:0 --dist-backend gloo`` puts every rank on one
+card (NCCL takes one card a rank), and ``--device cpu`` runs the ranks
+over gloo on the CPU. Every rank reads ``--resume``; rank 0 alone writes
+the files and runs the evaluations.
 
 Left out, as TPU matters: the dispatch-queue depth control (the port
 synchronises only where it logs, evaluates or saves) and the JAX
@@ -66,6 +67,7 @@ from ..models import sk_gs
 from ..models.gaussian_splatting import init_from_pcd
 from ..models.losses import LossWeights
 from ..parallel import init_distributed
+from ..parallel.trainer import MeshTrainer
 from ..utils.ply import save_gaussian_ply
 from ..utils.png import write_png
 
@@ -182,7 +184,8 @@ def main(argv=None):
     base = init_from_pcd(pts, cols, skcfg.gauss, device=device)
     model = sk_gs.init_model(skcfg, rcfg, base, meta.train_times,
                              seed=opts['seed'], device=device)
-    trainer = SKGSTrainer(skcfg, rcfg, scene, meta, model,
+    trainer_cls = MeshTrainer if 'mesh' in opts else SKGSTrainer
+    trainer = trainer_cls(skcfg, rcfg, scene, meta, model,
                           loss_weights=LossWeights(cfg.get('loss', {})),
                           sampler=build.build_sampler(cfg, scene, skcfg),
                           pcd=(pts, cols), eval_scene=eval_scene,

@@ -10,9 +10,9 @@ false the plain version everywhere.
 
 ``train.precision`` bf16 (or bfloat16) computes the warp and skeleton nets
 in bfloat16 (``compute_dtype``), as the JAX package's ``train.py`` does;
-``train.optimizer``, ``train.batch_views`` and the ``view`` axis of a
-``train.parallel`` mesh go to the trainer. Refused, as the trainer refuses
-it: a mesh's ``gs`` axis. ``train.capacity_buckets``
+``train.optimizer``, ``train.batch_views`` and a ``train.parallel`` mesh
+go to the trainer (a mesh to ``parallel.trainer.MeshTrainer``).
+``train.capacity_buckets``
 (recompile-driven capacity buckets, a TPU choice) is logged and ignored:
 a bucketed run and a padded one compute the same function.
 """
@@ -242,11 +242,11 @@ def build_sampler(cfg: Dict[str, Any], scene, skcfg: SKGSConfig):
 
 
 def trainer_options(cfg: Dict[str, Any]) -> Dict[str, Any]:
-    """The ``SKGSTrainer`` keyword arguments of ``cfg['train']`` (seed,
-    gradient clipping, views a step, optimizer, and the device mesh of
-    ``train.parallel: {n_view, n_gs}`` when it has more than one rank: the
-    process group must hold n_view x n_gs processes, as many as a launch
-    gives); logs that capacity buckets are not carried."""
+    """The trainer's keyword arguments of ``cfg['train']`` (seed,
+    gradient clipping, views a step, optimizer, and ``MeshTrainer``'s
+    device mesh of ``train.parallel: {n_view, n_gs}`` when it has more than
+    one rank: the process group must hold n_view x n_gs processes, as many
+    as a launch gives); logs that capacity buckets are not carried."""
     t = cfg['train']
     par = t.get('parallel') or {}
     n_view, n_gs = int(par.get('n_view', 1)), int(par.get('n_gs', 1))
@@ -264,8 +264,5 @@ def trainer_options(cfg: Dict[str, Any]) -> Dict[str, Any]:
             f'processes (torchrun --nproc_per_node {n_view * n_gs}); this '
             f'run has {world}')
     if n_view * n_gs > 1:
-        if opts['batch_views'] % n_view:
-            raise ValueError(f"batch_views {opts['batch_views']} not "
-                             f"divisible by mesh view axis {n_view}")
         opts['mesh'] = make_mesh(n_view, n_gs)
     return opts

@@ -74,34 +74,9 @@ shared by its views as the JAX step shares its key (the init family's
 random live rows, the times of ``elastic`` and ``arap``:
 ``regularizer_draws``).
 
-On a device mesh (``parallel.make_mesh``; one process a rank, every rank
-holding the whole model) the step is the JAX step's ``par`` branch
-(``trainer.py:595-1055``). Over the ``view`` axis it is data parallel:
-every rank samples all K views and takes its contiguous K / n_view of
-them, and draws every view's background and time noise in the
-single-device order, keeping its own, so that the streams are the
-single-device step's. Over the ``gs`` axis each rank computes the
-per-Gaussian work on its contiguous 1/n_gs of the capacity
-(``slice_model_gs``: views of the full leaves, so that the backward leaves
-zeros off the slice): the deltas, the preprocess, the splats exchanged
-into tile-row bands (``parallel.sharded_render.exchange_render_band``),
-its band blended and the bands all-gathered into the whole image; the
-per-point losses are masked means over the whole capacity's live count
-(``cap_masked_mean``), the losses that need every row gather them
-(``smooth``, ``sp_extra_losses``, ``arap_p``), the replicated ones run on
-every rank, and every loss is scaled by 1/n_gs. After the backward, two
-all-reduces over the whole mesh merge what the single-device step sums
-over its views: the max of the statistics' radii (gathered over ``gs``),
-the overflow, pairs (summed over the bands), visible count and largest
-warp (with which leaves have a gradient), then the sum of the leaves'
-gradients and the means2d gradient (divided by the global K), the view
-counts, the losses, the PSNR, the cache rows at their views' places and
-the last view's ``p2sp`` (what every rank of a ``gs`` row holds alike
-enters from its first rank only). Every rank then takes the same update,
-and runs the same events on the whole model; after a stage event, a KNN
-rebuild or an adaptive control event, rank 0's model, optimizer state and
-KNN are written into every rank's (``sync_replicas``, which records how
-far they had drifted).
+The trainer is one process on one device. What a device mesh changes in
+the step is the methods under 'seams', here the one-device code;
+``parallel.trainer.MeshTrainer`` overrides them.
 
 RGBA targets (the background types of ``data.base.DYNAMIC_BG``): each step
 composites the target and the render over one background
@@ -122,9 +97,9 @@ import torch
 from .. import convert, resolve_device
 from ..data.base import Scene, SceneMeta, sample_background
 from ..data.sampler import UniformSampler
-from ..models.gaussian_splatting import (GaussianModel, densify_and_prune,
-                                         expon_lr, gaussian_inputs,
-                                         ndc_grad_norm, reset_opacity)
+from ..models.gaussian_splatting import (densify_and_prune, expon_lr,
+                                         gaussian_inputs, ndc_grad_norm,
+                                         reset_opacity)
 from ..models import regularizers as reg
 from ..models import sk_gs_ops
 from ..models.deform import deform_net_apply, skeleton_net_apply
@@ -142,10 +117,6 @@ from ..models.skeleton import (joint_cost_matrix, kinematic_transforms,
                                update_joint)
 from ..ops import se3
 from ..ops.knn import knn, live_knn_index
-from ..parallel import collectives as coll
-from ..parallel.mesh import AXES
-from ..parallel.sharded_render import exchange_render_band
-from ..render.preprocess import preprocess
 from ..render.render import composite_background, render
 from ..render.settings import GaussianInputs, RasterConfig
 from ..utils.tracing import host_read, span
@@ -194,50 +165,6 @@ def smooth_loss(w: torch.Tensor, index: torch.Tensor, alive: torch.Tensor,
     return mean(torch.abs(w[:, None] - nb), alive[:, None, None])
 
 
-# the leaves and fields with a leading capacity axis, which a rank of a
-# mesh's gs axis computes on its slice of (trainer.py:144-147); the
-# superpoints, skeleton, nets and caches are shared
-PER_POINT_PARAMS = ('xyz', 'f_dc', 'f_rest', 'opacity', 'scaling',
-                    'rotation', 'hyper', 'sp_W')
-PER_POINT_FIELDS = ('alive', 'max_radii2d', 'xyz_grad_accum', 'denom',
-                    'sp_weights', 'sp_knn', 'p2sp')
-
-
-class ModelSlice:
-    """Capacity slice ``i`` of ``n_gs`` of an ``SKGSModel``, what
-    ``slice_model_gs`` returns: ``params`` and the fields of
-    ``PER_POINT_PARAMS`` / ``PER_POINT_FIELDS`` are the rows [i N / n_gs,
-    (i + 1) N / n_gs) of the model's, as views (``narrow``), so that a
-    gradient reaches the full leaf with zeros off the slice (the transpose
-    of JAX's ``dynamic_slice``); every other attribute is the model's."""
-
-    def __init__(self, model: SKGSModel, i: int, n_gs: int):
-        self.model = model
-        n = model.alive.shape[0] // n_gs
-        rows = lambda x: x.narrow(0, i * n, n)
-        self.params = {k: rows(v) if k in PER_POINT_PARAMS else v
-                       for k, v in model.params.items()}
-        for name in PER_POINT_FIELDS:
-            setattr(self, name, rows(getattr(model, name)))
-
-    def __getattr__(self, name):
-        return getattr(self.model, name)
-
-    def gauss_view(self) -> GaussianModel:
-        """The slice's Gaussian leaves, ``alive`` and statistics."""
-        return GaussianModel(params=dict(self.params), alive=self.alive,
-                             active_sh_degree=self.active_sh_degree,
-                             max_radii2d=self.max_radii2d,
-                             xyz_grad_accum=self.xyz_grad_accum,
-                             denom=self.denom)
-
-
-def slice_model_gs(model: SKGSModel, i: int, n_gs: int) -> ModelSlice:
-    """Contiguous capacity slice ``i`` of ``n_gs`` of the per-point leaves
-    and fields (``trainer.py:150-165``); the rest stays the model's."""
-    return ModelSlice(model, i, n_gs)
-
-
 def check_interval_v2(step: int, interval: int, start: int, end: int,
                       close: str = '()') -> bool:
     """(every, start, end) interval logic (``trainer.py:55-63``); end < 0
@@ -282,7 +209,7 @@ class SKGSTrainer:
                  meta: SceneMeta, model: SKGSModel,
                  loss_weights: Optional[LossWeights] = None, sampler=None,
                  seed: int = 0, clip_norm: float = 0.0,
-                 batch_views: int = 1, optimizer: str = 'adam', mesh=None,
+                 batch_views: int = 1, optimizer: str = 'adam',
                  opt_state=None,
                  pcd: Optional[Tuple[np.ndarray, np.ndarray]] = None,
                  gs_knn_index: Optional[torch.Tensor] = None,
@@ -291,24 +218,6 @@ class SKGSTrainer:
                  eval_scene: Optional[Scene] = None, device='cuda'):
         if batch_views < 1:
             raise ValueError(f'batch_views {batch_views} < 1')
-        if mesh is not None:
-            n_view, n_gs = mesh.axis_size('view'), mesh.axis_size('gs')
-            if batch_views % n_view:
-                raise ValueError(
-                    f"batch_views {batch_views} not divisible by mesh view "
-                    f"axis {n_view}")
-            if model.alive.shape[0] % n_gs:
-                raise ValueError(
-                    f"capacity {model.alive.shape[0]} not divisible by mesh "
-                    f"gs axis {n_gs}")
-            if rcfg.grid_h % n_gs:
-                raise ValueError(
-                    f"grid_h {rcfg.grid_h} not divisible by mesh gs axis "
-                    f"{n_gs} (pad image height)")
-        self.mesh = mesh
-        # the largest difference each sync found between a rank's state
-        # and rank 0's, by the events it followed
-        self.replica_drift: Dict[str, float] = {}
         self.opt_init, self.opt_update = make_optimizer(optimizer)
         self.optimizer = optimizer
         self.batch_views = batch_views
@@ -622,7 +531,7 @@ class SKGSTrainer:
             self.update_sh_degree(step)
             if stage == 'sp' and self.update_gs_knn(step):
                 fired.append('update_gs_knn')
-            self.sync_replicas(fired)
+            self.after_events(fired)
         idxs = [self.sampler.sample(step) for _ in range(self.batch_views)]
         metrics = self._step(stage, idxs, self.lr_trees(step), step)
         event, after = {}, []
@@ -635,89 +544,61 @@ class SKGSTrainer:
             if control:
                 event.update(control)
                 after.append('adaptive_control')
-            self.sync_replicas(after)
+            self.after_events(after)
         self.last_event = event
         self.step = step
         return metrics
 
-    def sync_replicas(self, events):
-        """On a mesh of more than one rank, after ``events`` (names; nothing
-        when empty): rank 0's model (parameters and buffers), optimizer
-        state and smooth-loss KNN written into every rank's, and the
-        largest difference found recorded in ``replica_drift`` under the
-        events' names. The events' kernels and scatters add in another
-        order on each rank (atomics), so the replicas may part there."""
-        if self.mesh is None or self.mesh.size == 1 or not events:
-            return
-        self.replica_drift['+'.join(events)] = coll.broadcast_from(
-            self.replica_state(), self.mesh.group(AXES), 0)
+    # ------------------------------------------------------------ seams
+    # what a device mesh changes in the step (parallel.trainer.MeshTrainer)
 
-    def replica_state(self) -> list:
-        """Every tensor a replica must hold alike: the model's parameters
-        and buffers, the optimizer's state and the smooth loss's KNN."""
-        opt = [t for field in self.opt_state if isinstance(field, dict)
-               for t in field.values()]
-        return list(self.model.state_dict().values()) + opt \
-            + [self.gs_knn_index]
+    def after_events(self, events):
+        """What follows the events ``events`` (names) of a step: nothing on
+        one device."""
 
-    @property
-    def n_gs(self) -> int:
-        """The size of the mesh's ``gs`` axis (1 without a mesh)."""
-        return 1 if self.mesh is None else self.mesh.axis_size('gs')
+    def pass_model(self) -> SKGSModel:
+        """The model whose rows the main pass computes."""
+        return self.model
 
-    def gs_rows(self, x: torch.Tensor) -> torch.Tensor:
-        """This rank's contiguous 1/n_gs of ``x``'s rows, a view (``x``
-        itself off a ``gs`` axis)."""
-        if self.n_gs == 1:
-            return x
-        n = x.shape[0] // self.n_gs
-        return x.narrow(0, self.mesh.axis_index('gs') * n, n)
+    def own_rows(self, x: torch.Tensor) -> torch.Tensor:
+        """The rows of the per-point tensor ``x`` that this process
+        computes."""
+        return x
 
-    def gs_model(self):
-        """The model, or this rank's ``slice_model_gs`` on a ``gs``
-        axis."""
-        if self.n_gs == 1:
-            return self.model
-        return slice_model_gs(self.model, self.mesh.axis_index('gs'),
-                              self.n_gs)
+    def all_rows(self, x: torch.Tensor, dim: int = 0) -> torch.Tensor:
+        """Every process's ``own_rows`` of ``x``, in order along ``dim``."""
+        return x
 
-    def gs_once(self, x: torch.Tensor) -> torch.Tensor:
-        """``x`` on the first rank of this rank's ``gs`` row, zeros on the
-        others: what the row holds alike enters a sum over the whole mesh
-        once."""
-        if self.n_gs == 1 or self.mesh.axis_index('gs') == 0:
-            return x
-        return torch.zeros_like(x)
+    def live_mean(self, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+        """The mean of ``x`` over the live rows ``mask`` of the whole
+        capacity."""
+        return masked_mean(x, mask)
 
-    def cap_masked_mean(self, x: torch.Tensor, mask: torch.Tensor
-                        ) -> torch.Tensor:
-        """``masked_mean`` over the whole capacity's rows (``trainer.py:
-        614-626``): on a ``gs`` axis ``x`` and ``mask`` are this rank's
-        slice, and the slice's masked sum, times n_gs (which the 1/n_gs
-        scale of every loss takes back), is divided by the live count
-        summed over the axis."""
-        if self.n_gs == 1:
-            return masked_mean(x, mask)
-        mask_b = torch.broadcast_to(mask, x.shape).to(x.dtype)
-        num = torch.sum(x * mask_b) * self.n_gs
-        den = coll.psum(torch.sum(mask_b), self.mesh.group('gs'))
-        return num / torch.clamp(den, min=1.0)
-
-    def gs_gather(self, x: torch.Tensor, dim: int = 0) -> torch.Tensor:
-        """The ``gs`` row's slices of ``x`` concatenated along ``dim``
-        (``x`` itself off a ``gs`` axis), differentiable."""
-        if self.n_gs == 1:
-            return x
-        return coll.all_gather(x, self.mesh.group('gs'), dim)
+    def render_pass(self, g: GaussianInputs, view, m2d_off: torch.Tensor
+                    ) -> Dict[str, torch.Tensor]:
+        """The main pass's render of ``view``, the means2d offset
+        ``m2d_off`` added (its gradient feeds the statistics)."""
+        return render(g, view, self.rcfg,
+                      active_sh_degree=self.model.active_sh_degree,
+                      means2d_offset=m2d_off)
 
     def local_views(self, k: int) -> range:
-        """The positions among a step's ``k`` views that this rank
-        computes: all of them on one device, its contiguous k / n_view on
-        a mesh's ``view`` axis."""
-        if self.mesh is None:
-            return range(k)
-        n, i = self.mesh.axis_size('view'), self.mesh.axis_index('view')
-        return range(i * (k // n), (i + 1) * (k // n))
+        """The positions among a step's ``k`` views that this process
+        computes."""
+        return range(k)
+
+    def view_rows(self, k: int, rows: Dict[str, torch.Tensor]
+                  ) -> Dict[str, torch.Tensor]:
+        """The step's ``k`` views' rows that ``_update`` reads, from those of
+        this process's views ``rows``."""
+        return rows
+
+    def merge(self, maxes, sums, grads):
+        """``maxes``, ``sums`` and ``grads`` of the step's views, from this
+        process's."""
+        return maxes, sums, grads
+
+    # ------------------------------------------------------------ losses
 
     def loss_weight(self, name: str, step: int) -> float:
         """The weight of loss ``name`` at ``step``, with the JAX trainer's
@@ -767,11 +648,7 @@ class SKGSTrainer:
         render are composited over the view's background
         (``trainer.py:626-640, 704-705``); a net that is not ``is_blender``
         warps at a noisy time (one ``draw_time_noise`` a view). ``draws``
-        are the step's ``regularizer_draws`` (drawn here when None). On a
-        mesh's ``gs`` axis the deltas and the render are this rank's slice's
-        (``gs_model``, ``exchange_render``), and every loss is scaled by
-        1/n_gs, so that the sum over the axis is the one-process value
-        (``trainer.py:836-840``)."""
+        are the step's ``regularizer_draws`` (drawn here when None)."""
         cfg, scene = self.cfg, self.scene
         family = self.family(stage)
         step = self.step + 1 if step is None else step
@@ -779,19 +656,13 @@ class SKGSTrainer:
             draws = self.regularizer_draws(family)
         image, bg, noise, noise_scale = self.view_target(family, idx, step)
         t = scene.times[idx]
-        m = self.gs_model()
+        m = self.pass_model()
         with span('sk.train.forward'):
             d = forward_deltas(cfg, m, t, stage, time_id=scene.time_ids[idx],
                                training=True, noise=noise,
                                noise_scale=noise_scale)
-            g = self.render_inputs(family, d, m)
-            if self.n_gs == 1:
-                out = render(g, scene.view(idx), self.rcfg,
-                             active_sh_degree=m.active_sh_degree,
-                             means2d_offset=m2d_off)
-            else:
-                out = self.exchange_render(g, scene.view(idx),
-                                           self.gs_rows(m2d_off))
+            g = self.render_inputs(family, d)
+            out = self.render_pass(g, scene.view(idx), m2d_off)
             img = composite_background(out['images'], out['opacity'], bg)
         with span('sk.train.losses'):
             method = self.loss_w.cfg('image').get('method', 'l1')
@@ -799,47 +670,23 @@ class SKGSTrainer:
             losses = {'rgb': self.loss_w.w('image') * img_loss(img, image),
                       'ssim': self.loss_w.w('ssim') * ssim_loss(img, image)}
             if family == 'sp':
-                losses.update(self.sp_losses(d, t, step, m=m))
+                losses.update(self.sp_losses(d, t, step))
             if family == 'sk_init':
                 losses = {k: v.detach() for k, v in losses.items()}
                 losses.update(self.sk_init_losses(d, scene.time_ids[idx],
-                                                  step, m=m))
+                                                  step))
             if family == 'init' and self.loss_w.ever_nonzero('arap_p'):
                 losses['arap_p'] = self.loss_weight('arap_p', step) \
-                    * self.points_arap(d, m=m)
+                    * self.points_arap(d)
             if draws is not None:
                 losses.update(self.motion_reg_losses(family, t, draws, step))
             if family in ('init', 'sp') and cfg.use_canonical_net \
                     and self.loss_w.ever_nonzero('c_net'):
                 points_out = m.params['xyz'] + d.d_xyz
-                c_net = self.cnet_loss(t, points_out, m=m) \
-                    if family == 'init' \
-                    else self.cnet_loss_sp(t, points_out, d.aux, m=m)
+                c_net = self.cnet_loss(t, points_out) if family == 'init' \
+                    else self.cnet_loss_sp(t, points_out, d.aux)
                 losses['c_net'] = self.loss_weight('c_net', step) * c_net
-            if self.n_gs > 1:
-                losses = {k: v * (1.0 / self.n_gs) for k, v in losses.items()}
         return losses, d, out, img, image
-
-    def exchange_render(self, g: GaussianInputs, view,
-                        m2d_off: torch.Tensor) -> Dict[str, torch.Tensor]:
-        """The render of a rank of a mesh's ``gs`` axis (``trainer.py:
-        679-699``): its slice's ``g`` preprocessed, the slice's means2d
-        offset ``m2d_off`` added, the splats exchanged into tile-row bands
-        (``exchange_render_band``; a band's pair capacity is pair_capacity
-        / n_gs, a block's max(pair_capacity // n_gs, 1024) rows), and the
-        bands all-gathered into the whole image (the gather's backward
-        sums the cotangents back to each band). 'radii' are the slice's;
-        'overflow' the sends' or the band's; 'num_pairs' the band's."""
-        rcfg, n = self.rcfg, self.n_gs
-        pre = preprocess(g, view, rcfg, self.model.active_sh_degree)
-        pre = pre._replace(means2d=pre.means2d + m2d_off)
-        band, opacity, overflow, binned, sent = exchange_render_band(
-            pre, g.opacities.reshape(-1), rcfg, self.mesh, 'gs',
-            max(rcfg.pair_capacity // n, 1024))
-        whole = self.gs_gather(torch.cat([band, opacity[..., None]], -1))
-        return {'images': whole[..., :-1], 'opacity': whole[..., -1],
-                'radii': pre.radius, 'overflow': overflow,
-                'num_pairs': binned.num_pairs, 'sent': sent}
 
     def view_target(self, family: str, idx: int, step: int):
         """View ``idx``'s target and its draws at step ``step``: (target,
@@ -862,7 +709,7 @@ class SKGSTrainer:
                 noise = self.draw_time_noise()
         return image, bg, noise, noise_scale
 
-    def sp_losses(self, d, t: torch.Tensor, step: int, m=None
+    def sp_losses(self, d, t: torch.Tensor, step: int
                   ) -> Dict[str, torch.Tensor]:
         """The ``sp`` family's losses on the main pass ``d``
         (``trainer.py:294-349``): the entropy of the LBS weights over the
@@ -873,23 +720,19 @@ class SKGSTrainer:
         ``sp_guided_detach``), and, when they have weight, the superpoint
         regularizers (``sp_extra_losses``) and the guided skeleton losses
         ``g_cmp_*``. The cost matrix goes into ``d.aux`` as
-        'joint_cost_now' for the running mean. ``m`` is the model of the
-        main pass (``gs_model``): on a ``gs`` axis the sparsity and
-        smoothness take its rows, the latter against the gathered weights
-        of every rank (``trainer.py:705-729``)."""
+        'joint_cost_now' for the running mean. The sparsity and smoothness
+        take the main pass's rows, the latter against ``all_rows`` of the
+        weights (``trainer.py:705-729``)."""
         cfg, model = self.cfg, self.model
-        m = model if m is None else m
         params = model.params
         lw = lambda name: self.loss_weight(name, step)
-        alive, sp_alive = m.alive, model.sp_alive
+        alive, sp_alive = self.own_rows(model.alive), model.sp_alive
         w = d.aux['knn_w']
         ent = -(w * torch.log(w + 1e-7) + (1 - w) * torch.log(1 - w + 1e-7))
-        out = {'sparse': lw('sparse') * self.cap_masked_mean(
-            ent, alive[:, None])}
-        table = self.gs_gather(w) if self.n_gs > 1 else None
+        out = {'sparse': lw('sparse') * self.live_mean(ent, alive[:, None])}
         out['smooth'] = lw('smooth') * smooth_loss(
-            w, self.gs_rows(self.gs_knn_index), alive, table,
-            self.cap_masked_mean)
+            w, self.own_rows(self.gs_knn_index), alive, self.all_rows(w),
+            self.live_mean)
         spT = d.aux['spT']
         cost = joint_cost_matrix(params['joint_pos'],
                                  spT.detach() if cfg.sp_guided_detach
@@ -928,8 +771,8 @@ class SKGSTrainer:
         out; ``sp_arap_t``, the SE3 log of each superpoint's transform
         relative to its ``sk_knn_num`` nearest live neighbours' (canonical
         KNN), and ``sp_arap_ct``, the change of their squared distances.
-        On a ``gs`` axis ``re_pos`` gathers the warped Gaussians and their
-        weights of every rank (``trainer.py:749-765``)."""
+        ``re_pos`` reads ``all_rows`` of the warped Gaussians and their
+        weights (``trainer.py:749-765``)."""
         cfg, model = self.cfg, self.model
         params = model.params
         lw = lambda name: self.loss_weight(name, step)
@@ -939,10 +782,10 @@ class SKGSTrainer:
         alive = model.sp_alive
         out = {}
         if ever('re_pos'):
-            points_t = self.gs_gather(self.gs_rows(params['xyz']) + d.d_xyz)
+            points_t = self.all_rows(self.own_rows(params['xyz']) + d.d_xyz)
             re_sp = get_superpoint_features(
-                points_t, self.gs_gather(d.aux['knn_i']),
-                self.gs_gather(d.aux['knn_w']), cfg.num_superpoints)
+                points_t, self.all_rows(d.aux['knn_i']),
+                self.all_rows(d.aux['knn_w']), cfg.num_superpoints)
             sp_t = se3.se3_act(spT, sp_pts)
             out['re_pos'] = lw('re_pos') * masked_mean(
                 torch.square(sp_t - re_sp), alive[:, None])
@@ -969,17 +812,15 @@ class SKGSTrainer:
                 torch.abs(d_c - d_t), pair_alive)
         return out
 
-    def points_arap(self, d, m=None) -> torch.Tensor:
+    def points_arap(self, d) -> torch.Tensor:
         """The point ARAP of the init family (``trainer.py:800-823``): the
         squared distances of each live Gaussian to its ``gs_knn_num``
         nearest warped live Gaussians (KNN over the whole capacity, dead
-        rows pushed 1e6 away, detached) kept through the warp. ``m`` is
-        the model of the main pass (``gs_model``): on a ``gs`` axis its
-        warped rows are gathered from every rank."""
+        rows pushed 1e6 away, detached) kept through the warp; the warped
+        rows are ``all_rows`` of the main pass's."""
         model = self.model
-        m = model if m is None else m
         xyz, alive = model.params['xyz'], model.alive
-        pts_t = self.gs_gather(m.params['xyz'] + d.d_xyz)
+        pts_t = self.all_rows(self.pass_model().params['xyz'] + d.d_xyz)
         with torch.no_grad():
             far = torch.where(alive[:, None], pts_t, pts_t + 1e6)
             _, nn = knn(far, far, self.gs_knn_num + 1)
@@ -1074,16 +915,16 @@ class SKGSTrainer:
                 torch.square(sk_d_scale - sp_scale), sp_alive[:, None]),
         }
 
-    def sk_init_losses(self, d, time_id: torch.Tensor, step: int, m=None
+    def sk_init_losses(self, d, time_id: torch.Tensor, step: int
                        ) -> Dict[str, torch.Tensor]:
         """The ``sk_init`` family's losses (``trainer.py:769-800``): the
         skeleton's deltas ``d`` held to the blend of the cached superpoint
         motion at the view's frame under the frozen LBS ``sp_weights`` /
         ``sp_knn`` (each superpoint's own with ``warp_method``
-        'largest'), squared, over the live rows of ``m`` (the main pass's
-        model, ``gs_model``; ``cap_masked_mean``)."""
+        'largest'), squared, over the live rows of the main pass's model
+        (``live_mean``)."""
         cfg = self.cfg
-        m = self.model if m is None else m
+        m = self.pass_model()
         sp_tr, sp_rot, sp_scale = split_sp_cache(
             cfg, take_frame(m.sp_cache, time_id))
         points = m.params['xyz'].detach()
@@ -1099,7 +940,7 @@ class SKGSTrainer:
                 sp_scale)
         am = m.alive[:, None]
         lw = lambda name: self.loss_weight(name, step)
-        mean = self.cap_masked_mean
+        mean = self.live_mean
         return {
             'cmp_t': lw('cmp_t') * mean(torch.square(d.d_xyz - sp_xyz), am),
             'cmp_r': lw('cmp_r') * mean(
@@ -1107,14 +948,14 @@ class SKGSTrainer:
             'cmp_s': lw('cmp_s') * mean(
                 torch.square(d.d_scaling - sp_scale_b), am)}
 
-    def render_inputs(self, family: str, d, m=None) -> GaussianInputs:
-        """The renderer's inputs from the deltas ``d`` of ``m``'s rows (the
-        model, or its ``gs_model`` slice); the ``init`` family renders
-        every Gaussian at the live mean log-scale of the whole model
-        (get_scaling, ``trainer.py:658-664``), ``sk_init`` with the colours
-        and opacities detached (``trainer.py:672-675``)."""
+    def render_inputs(self, family: str, d) -> GaussianInputs:
+        """The renderer's inputs from the deltas ``d`` of the main pass's
+        rows; the ``init`` family renders every Gaussian at the live mean
+        log-scale of the whole model (get_scaling, ``trainer.py:658-664``),
+        ``sk_init`` with the colours and opacities detached
+        (``trainer.py:672-675``)."""
         model = self.model
-        gv = (model if m is None else m).gauss_view()
+        gv = self.pass_model().gauss_view()
         if family in ('init', 'sk_init'):
             p = dict(gv.params)
             if family == 'init':
@@ -1129,31 +970,29 @@ class SKGSTrainer:
         return gaussian_inputs(gv, self.cfg.gauss, d.d_xyz, d.d_rotation,
                                d.d_scaling)
 
-    def cnet_loss(self, t: torch.Tensor, points_out: torch.Tensor, m=None):
+    def cnet_loss(self, t: torch.Tensor, points_out: torch.Tensor):
         """Canonical-net consistency, the init branch of ``cnet_loss``
-        (``trainer.py:558-593``): the Gaussians of ``m`` (the main pass's
-        model, ``gs_model``) taken to the canonical frame by ``sp_deform``
-        (detached) and on to time t by the ``canonical`` net land where the
-        main pass put them (detached); ``cap_masked_mean``."""
+        (``trainer.py:558-593``): the Gaussians of the main pass's model
+        taken to the canonical frame by ``sp_deform`` (detached) and on to
+        time t by the ``canonical`` net land where the main pass put them
+        (detached); ``live_mean``."""
         cfg = self.cfg
-        model = self.model if m is None else m
+        model = self.pass_model()
         xyz = model.params['xyz']
         tc = model.train_times[cfg.canonical_time_id]
         points_c = init_stage(cfg, model, xyz, tc).d_xyz.detach() + xyz
         points_t = init_stage(cfg, model, points_c, t,
                               use_canonical=True).d_xyz + points_c
-        return self.cap_masked_mean(
-            torch.square(points_t - points_out.detach()),
-            model.alive[:, None])
+        return self.live_mean(torch.square(points_t - points_out.detach()),
+                              model.alive[:, None])
 
-    def cnet_loss_sp(self, t: torch.Tensor, points_out: torch.Tensor, aux,
-                     m=None):
+    def cnet_loss_sp(self, t: torch.Tensor, points_out: torch.Tensor, aux):
         """The ``sp`` branch of ``cnet_loss`` (``trainer.py:574-590``): the
         same with both passes through ``sp_stage`` on the main pass's LBS
         weights ``aux`` (they do not depend on t), the second from the
         superpoints taken to the canonical frame (detached)."""
         cfg = self.cfg
-        model = self.model if m is None else m
+        model = self.pass_model()
         xyz = model.params['xyz']
         tc = model.train_times[cfg.canonical_time_id]
         out_c = sp_stage(cfg, model, xyz, tc, frozen_weights=aux['knn_w'],
@@ -1165,15 +1004,14 @@ class SKGSTrainer:
                          frozen_weights=out_c.aux['knn_w'],
                          frozen_knn=out_c.aux['knn_i'], sp_points=sp_points_c)
         points_t = out_t.d_xyz + points_c
-        return self.cap_masked_mean(
-            torch.square(points_t - points_out.detach()),
-            model.alive[:, None])
+        return self.live_mean(torch.square(points_t - points_out.detach()),
+                              model.alive[:, None])
 
     def _step(self, stage: str, idxs, lrs: Dict[str, float],
               step: Optional[int] = None) -> Dict[str, torch.Tensor]:
-        """The forward and backward of each view of ``idxs`` this rank
+        """The forward and backward of each view of ``idxs`` this process
         computes (``local_views``), the gradients summed into the leaves
-        and the means2d offset, then ``_update``. Another rank's view
+        and the means2d offset, then ``_update``. A view of another process
         takes its draws here (``view_target``) and nothing else."""
         family = FAMILY[stage]
         m2d_off = self.zero_grads()
@@ -1197,10 +1035,9 @@ class SKGSTrainer:
 
     def _view_record(self, family: str, idx: int, total: torch.Tensor,
                      losses, d, out, img, target) -> Dict:
-        """What ``_update`` reads of one view's forward, detached (on a
-        ``gs`` axis the radii and largest warp of this rank's slice, the
-        pairs of its band)."""
-        alive = self.gs_rows(self.model.alive)
+        """What ``_update`` reads of one view's forward, detached (the
+        largest warp over the live ``own_rows``)."""
+        alive = self.own_rows(self.model.alive)
         rec = {'loss': total.detach(),
                'losses': {k: v.detach() for k, v in losses.items()},
                'psnr': psnr(img, target), 'radii': out['radii'],
@@ -1225,55 +1062,49 @@ class SKGSTrainer:
     def _update(self, family: str, lrs: Dict[str, float], views,
                 m2d_off: torch.Tensor, k: Optional[int] = None
                 ) -> Dict[str, torch.Tensor]:
-        """After the backward of this rank's views ``views`` of a
-        ``family`` step of ``k`` views (``len(views)`` by default): what
-        the views give merged over the ranks of a mesh (``merge_views``),
-        the gradients divided by k, sanitised, the optimizer, the
-        statistics, the cache rows (``sp_cache`` for the ``sp`` family,
+        """After the backward of this process's views ``views`` of a
+        ``family`` step of ``k`` views (``len(views)`` by default): the
+        rows of the step's views (``view_rows``: the radii, the pairs, the
+        cache rows and the last view's ``p2sp``), what the views give
+        (``merge``), the gradients divided by k, sanitised, the optimizer,
+        the statistics, the cache rows (``sp_cache`` for the ``sp`` family,
         ``sk_cache`` for ``sk``, in view order), the ``sp`` family's
         ``p2sp`` of the last view ('largest') and joint cost mean, and the
-        metrics. On a ``gs`` axis the radii, band pairs and ``p2sp`` are
-        gathered over the axis first (``trainer.py:909-957``), and what
-        every rank of the axis holds alike (the statistics' view counts,
-        the PSNR, the cache rows, the joint cost, ``p2sp``) enters the
-        merge from its first rank (``gs_once``)."""
+        metrics (``trainer.py:909-957``)."""
         model = self.model
         leaves = model.leaves()
         k = len(views) if k is None else k
-        radii = torch.stack([v['radii'] for v in views])
         stack = lambda key: torch.stack([v[key] for v in views])
-        pairs = stack('num_pairs')
-        if self.n_gs > 1:
-            radii, pairs = self._gather_radii_pairs(radii, pairs)
-        once = self.gs_once
+        cache = {'sp': model.sp_cache, 'sk': model.sk_cache}.get(family)
+        rows = {'radii': stack('radii'), 'num_pairs': stack('num_pairs')}
+        if cache is not None:
+            rows.update(cache_row=stack('cache_row'),
+                        time_id=stack('time_id'))
+        if family == 'sp' and self.cfg.warp_method == 'largest':
+            rows['p2sp'] = views[-1]['p2sp']
+        rows = self.view_rows(k, rows)
+        radii = rows['radii']
         maxes = {'radii': radii.amax(0).to(torch.float32),
                  'overflow': stack('overflow').any(),
-                 'num_pairs': pairs.amax(),
+                 'num_pairs': rows['num_pairs'].amax(),
                  'n_vis': ((radii > 0) & model.alive).sum(1).amax(),
                  'dxyz_max': stack('dxyz_max').amax()}
-        sums = {'n_seen': once((radii > 0).sum(0).to(torch.float32)),
+        sums = {'n_seen': (radii > 0).sum(0).to(torch.float32),
                 'loss': stack('loss').sum(0),
-                'psnr': once(stack('psnr').sum(0)),
+                'psnr': stack('psnr').sum(0),
                 **{'losses/' + name: torch.stack(
                     [v['losses'][name] for v in views]).sum(0)
                    for name in views[0]['losses']}}
-        cache = {'sp': model.sp_cache, 'sk': model.sk_cache}.get(family)
-        mine = self.local_views(k)
         if cache is not None:
-            sums['cache_rows'] = once(self._at_views(
-                k, mine, stack('cache_row')))
-            sums['time_ids'] = once(self._at_views(k, mine,
-                                                   stack('time_id')))
+            sums['cache_rows'], sums['time_ids'] = rows['cache_row'], \
+                rows['time_id']
         if family == 'sp':
-            sums['joint_cost'] = once(stack('joint_cost_now').sum(0))
-            if self.cfg.warp_method == 'largest':
-                last = self.gs_gather(views[-1]['p2sp'])
-                sums['p2sp'] = once(last if mine[-1] == k - 1 else
-                                    torch.zeros_like(last))
+            sums['joint_cost'] = stack('joint_cost_now').sum(0)
+            if 'p2sp' in rows:
+                sums['p2sp'] = rows['p2sp']
         grads = {name: p.grad for name, p in leaves.items()}
         grads['means2d'] = m2d_off.grad
-        if self.mesh is not None:
-            maxes, sums, grads = self.merge_views(maxes, sums, grads)
+        maxes, sums, grads = self.merge(maxes, sums, grads)
         m2d_grad = grads.pop('means2d')
         # a degenerate splat can give a non-finite gradient entry: zero the
         # entries, count them, keep every healthy gradient
@@ -1319,51 +1150,6 @@ class SKGSTrainer:
             **{name: sums['losses/' + name] / k
                for name in views[0]['losses']},
         }
-
-    def _gather_radii_pairs(self, radii: torch.Tensor, pairs: torch.Tensor):
-        """This rank's views' slice radii [K, N / n_gs] and band pairs [K],
-        gathered over the ``gs`` axis in one all-gather: the whole model's
-        radii [K, N] and each view's pairs summed over the bands, which
-        partition the image's tiles."""
-        k, n = radii.shape
-        both = torch.cat([radii, pairs.to(radii.dtype)[:, None]], 1)
-        both = self.gs_gather(both, 1).view(k, self.n_gs, n + 1)
-        return both[..., :n].reshape(k, self.n_gs * n), both[..., n].sum(1)
-
-    @staticmethod
-    def _at_views(k: int, mine: range, x: torch.Tensor) -> torch.Tensor:
-        """This rank's rows ``x`` [len(mine), ...] at their views' places of
-        a [k, ...] block, zeros elsewhere (so that a sum over the ranks
-        gathers every view's row in view order)."""
-        if len(mine) == k:
-            return x
-        out = x.new_zeros((k,) + x.shape[1:])
-        out[mine.start:mine.stop] = x
-        return out
-
-    def merge_views(self, maxes, sums, grads):
-        """``maxes``, ``sums`` and ``grads`` (None where a leaf has no
-        gradient) of this rank's views, merged over the whole mesh (a
-        ``psum`` over ('view', 'gs')): one max all-reduce of ``maxes`` and
-        of which leaves have a gradient on some rank, then one sum
-        all-reduce of those leaves' gradients (zeros where this rank has
-        none) and of ``sums``."""
-        group = self.mesh.group(AXES)
-        names = list(grads)
-        has = torch.tensor([grads[n] is not None for n in names],
-                           dtype=torch.float64, device=self.device)
-        out = coll.pmax_all([has] + list(maxes.values()), group)
-        has = out[0] > 0
-        maxes = dict(zip(maxes, out[1:]))
-        shapes = {'means2d': (self.model.alive.shape[0], 2)}
-        live = [n for n, h in zip(names, host_read(has).tolist()) if h]
-        mine = [grads[n] if grads[n] is not None else torch.zeros(
-            shapes.get(n) or self.model.leaves()[n].shape,
-            device=self.device) for n in live]
-        out = coll.psum_all(mine + list(sums.values()), group)
-        grads = dict.fromkeys(names)
-        grads.update(zip(live, out[:len(live)]))
-        return maxes, dict(zip(sums, out[len(live):])), grads
 
     def _stats_update(self, radii_max: torch.Tensor, n_seen: torch.Tensor,
                       m2d_grad: torch.Tensor):

@@ -1,6 +1,6 @@
 """Port parity, the trainer's ``gs`` mesh axis: gloo ranks on the CPU, each
 computing its contiguous half of the capacity and a band of the image
-(``SKGSTrainer(mesh=make_mesh(n_view, 2))``), against the port's
+(``MeshTrainer(mesh=make_mesh(n_view, 2))``), against the port's
 one-process step at the same ``batch_views``, which
 tests/test_torch_train_options.py and test_torch_regularizers.py hold
 against the JAX step. One step from one state for each case: on a 1 x 2
@@ -32,12 +32,13 @@ import pytest
 import torch
 
 from sk_gs_tpu_torch import convert
-from sk_gs_tpu_torch.framework.trainer import (PER_POINT_FIELDS,
-                                               PER_POINT_PARAMS,
-                                               SKGSTrainer, slice_model_gs)
+from sk_gs_tpu_torch.framework.trainer import SKGSTrainer
 from sk_gs_tpu_torch.models.losses import LossWeights
 from sk_gs_tpu_torch.ops.knn import live_knn_index
 from sk_gs_tpu_torch.parallel import make_mesh
+from sk_gs_tpu_torch.parallel.trainer import (PER_POINT_FIELDS,
+                                              PER_POINT_PARAMS, MeshTrainer,
+                                              slice_model_gs)
 from test_torch_mesh import one_torch_thread  # noqa: F401
 from test_torch_mesh import rank_main, run_ranks
 from test_torch_view_parallel import (close_step, leaf_names, small_setup,
@@ -75,12 +76,13 @@ def make_trainer(family, optimizer, extra, batch_views, mesh=None):
     model = start_model(cfg, rcfg, meta, family)
     knn = live_knn_index(model.params['xyz'].detach(), model.alive,
                          SKGSTrainer.gs_knn_num) if family == 'sp' else None
-    return SKGSTrainer(cfg, rcfg, scene, meta, model, loss,
-                       batch_views=batch_views, optimizer=optimizer,
-                       mesh=mesh, gs_knn_index=knn, sp_initialized=True,
-                       reinit_done=True,
-                       skeleton_initialized=family in ('sk_init', 'sk'),
-                       device='cpu')
+    cls, kw = (SKGSTrainer, {}) if mesh is None else \
+        (MeshTrainer, {'mesh': mesh})
+    return cls(cfg, rcfg, scene, meta, model, loss,
+               batch_views=batch_views, optimizer=optimizer,
+               gs_knn_index=knn, sp_initialized=True, reinit_done=True,
+               skeleton_initialized=family in ('sk_init', 'sk'),
+               device='cpu', **kw)
 
 
 def one_step(family, optimizer, step, extra, batch_views, mesh=None):
@@ -230,7 +232,7 @@ def case_jax_anchor(tmp, rank):
     scene, meta = torch.load(tmp / 'scene.pt', weights_only=False)
     model = convert.model_from_flat(convert.load_npz(tmp / 'model.npz'),
                                     cfg, rcfg, device='cpu', trainable=True)
-    tr = SKGSTrainer(cfg, rcfg, scene, meta, model, LossWeights(
+    tr = MeshTrainer(cfg, rcfg, scene, meta, model, LossWeights(
         {'image': {'method': 'l1', 'lambda': 0.8}, 'ssim': 0.2}),
         optimizer='sgd', mesh=make_mesh(1, 2), skeleton_initialized=True,
         device='cpu')

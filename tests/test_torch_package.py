@@ -3,7 +3,10 @@ JAX package's root ``viewer``, and neither Pillow nor PyYAML (the card's
 machine has neither), its
 entry points default to the card and refuse to run on the CPU unasked, and
 chip_smoke.py fails (printing no result) where there is no card or no port
-beside it."""
+beside it. The one-device trainer, the evaluation, the models and the
+renderer know nothing of the device mesh."""
+import ast
+import inspect
 import json
 import re
 import shutil
@@ -16,6 +19,7 @@ import pytest
 import torch
 
 from sk_gs_tpu_torch import cuda_build, resolve_device
+from sk_gs_tpu_torch.framework.trainer import SKGSTrainer
 from sk_gs_tpu_torch.render.tile_kernel import (KERNELS, tile_blend_bwd,
                                                 tile_blend_fwd)
 
@@ -56,9 +60,46 @@ def test_importing_every_module_loads_no_jax():
                  'data.wim', 'data.zju', 'data.colmap', 'utils.png',
                  'utils.resize', 'utils.jpeg', 'framework.registry',
                  'framework.lr_schedules', 'cli.viewer', 'parallel.mesh',
-                 'parallel.collectives', 'parallel.sharded_render'):
+                 'parallel.collectives', 'parallel.sharded_render',
+                 'parallel.trainer'):
         assert 'sk_gs_tpu_torch.' + name in res['modules']
     assert res['bad'] == []
+
+
+def imported_modules(path: Path) -> set:
+    """The absolute names of the modules that ``path``, a module of
+    sk_gs_tpu_torch, imports from."""
+    package = '.'.join(path.relative_to(ROOT).with_suffix('').parts[:-1])
+    names = set()
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            names.update(a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom):
+            base = package.split('.')
+            base = base[:len(base) - node.level + 1] if node.level else []
+            name = '.'.join(base + ([node.module] if node.module else []))
+            names.add(name)
+            names.update(f'{name}.{a.name}' for a in node.names)
+    return names
+
+
+def test_one_device_modules_know_no_mesh():
+    port = ROOT / 'sk_gs_tpu_torch'
+    files = [port / 'framework' / 'trainer.py',
+             port / 'framework' / 'evaluate.py',
+             *sorted((port / 'models').rglob('*.py')),
+             *sorted((port / 'render').rglob('*.py'))]
+    assert len(files) > 10
+    for f in files:
+        names = imported_modules(f)
+        assert not any(n == 'sk_gs_tpu_torch.parallel' or n.startswith(
+            'sk_gs_tpu_torch.parallel.') for n in names), f
+    # the relative imports, which the check above reads, are resolved
+    assert 'sk_gs_tpu_torch.render.render' in imported_modules(files[0])
+    assert {'sk_gs_tpu_torch.parallel.collectives',
+            'sk_gs_tpu_torch.framework.trainer'} <= imported_modules(
+        port / 'parallel' / 'trainer.py')
+    assert 'mesh' not in inspect.signature(SKGSTrainer.__init__).parameters
 
 
 def test_entry_points_refuse_cpu_fallback(monkeypatch):

@@ -50,6 +50,7 @@ from sk_gs_tpu_torch.models import losses as tlosses
 from sk_gs_tpu_torch.models import optim as toptim
 from sk_gs_tpu_torch.models import sk_gs as tsk_gs
 from sk_gs_tpu_torch.parallel import Mesh
+from sk_gs_tpu_torch.parallel.trainer import MeshTrainer
 from sk_gs_tpu_torch.render import GaussianInputs
 from sk_gs_tpu_torch.render.render import composite_background, render
 from tests.test_torch_cli import one_torch_thread  # noqa: F401
@@ -395,18 +396,18 @@ def test_trainer_refuses_what_is_not_ported(tiny, jax_scene, tmp_path):
     # (tests/test_torch_train_options.py)
     with pytest.raises(ValueError, match='grid_h 3 not divisible by mesh '
                        'gs axis 2'):
-        SKGSTrainer(cfg, rcfg, scene, meta, model, device='cpu',
+        MeshTrainer(cfg, rcfg, scene, meta, model, device='cpu',
                     mesh=Mesh(1, 2, 0, {}))
     tile8 = rcfg._replace(tile_h=8)
     with pytest.raises(ValueError, match='capacity 256 not divisible by '
                        'mesh gs axis 3'):
-        SKGSTrainer(cfg, tile8, scene, meta, model, device='cpu',
+        MeshTrainer(cfg, tile8, scene, meta, model, device='cpu',
                     mesh=Mesh(1, 3, 0, {}))
-    tr = SKGSTrainer(cfg, tile8, scene, meta, model, device='cpu',
+    tr = MeshTrainer(cfg, tile8, scene, meta, model, device='cpu',
                      mesh=Mesh(1, 2, 1, {}))
-    assert tr.n_gs == 2 and tr.gs_model().params['xyz'].shape[0] == 128
+    assert tr.n_gs == 2 and tr.pass_model().params['xyz'].shape[0] == 128
     with pytest.raises(ValueError, match='view axis 2'):
-        SKGSTrainer(cfg, rcfg, scene, meta, model, device='cpu',
+        MeshTrainer(cfg, rcfg, scene, meta, model, device='cpu',
                     batch_views=3, mesh=Mesh(2, 1, 0, {}))
     for kw in ({'batch_views': 2}, {'optimizer': 'adan'},
                {'optimizer': 'sgd'}, {'optimizer': 'adamw'}):

@@ -1,5 +1,5 @@
 """Port parity, the trainer's ``view`` mesh axis: 2 gloo ranks on the CPU,
-one view each (``SKGSTrainer(mesh=make_mesh(2, 1), batch_views=2)``),
+one view each (``MeshTrainer(mesh=make_mesh(2, 1), batch_views=2)``),
 against the port's one-process ``batch_views`` 2 step, which
 tests/test_torch_train_options.py and test_torch_regularizers.py hold
 against the JAX ``batch_views`` step. One step from one state for each
@@ -35,6 +35,7 @@ from sk_gs_tpu_torch.models.gaussian_splatting import init_from_pcd
 from sk_gs_tpu_torch.models.losses import LossWeights
 from sk_gs_tpu_torch.models.sk_gs import init_model
 from sk_gs_tpu_torch.parallel import make_mesh
+from sk_gs_tpu_torch.parallel.trainer import MeshTrainer
 from test_torch_mesh import one_torch_thread  # noqa: F401
 from test_torch_mesh import rank_main, run_ranks
 
@@ -89,11 +90,13 @@ def one_step(family, optimizer, step, mesh=None, device='cpu'):
     as numpy arrays."""
     cfg, rcfg, train, scene, meta = small_setup(device)
     model = start_model(cfg, rcfg, meta, family, device)
-    tr = SKGSTrainer(cfg, rcfg, scene, meta, model, LossWeights(train.loss),
-                     batch_views=2, optimizer=optimizer, mesh=mesh,
-                     sp_initialized=True, reinit_done=True,
-                     skeleton_initialized=family in ('sk_init', 'sk'),
-                     device=device)
+    cls, kw = (SKGSTrainer, {}) if mesh is None else \
+        (MeshTrainer, {'mesh': mesh})
+    tr = cls(cfg, rcfg, scene, meta, model, LossWeights(train.loss),
+             batch_views=2, optimizer=optimizer, sp_initialized=True,
+             reinit_done=True,
+             skeleton_initialized=family in ('sk_init', 'sk'),
+             device=device, **kw)
     assert tr.family(cfg.stage_at(step)) == family
     metrics = tr.train_step(step)
     out = {f'metric/{k}': v.cpu().numpy() for k, v in metrics.items()}
@@ -189,7 +192,7 @@ def case_jax_anchor(tmp, rank):
     scene, meta = torch.load(tmp / 'scene.pt', weights_only=False)
     model = convert.model_from_flat(convert.load_npz(tmp / 'model.npz'),
                                     cfg, rcfg, device='cpu', trainable=True)
-    tr = SKGSTrainer(cfg, rcfg, scene, meta, model, LossWeights(
+    tr = MeshTrainer(cfg, rcfg, scene, meta, model, LossWeights(
         {'image': {'method': 'l1', 'lambda': 0.8}, 'ssim': 0.2}),
         batch_views=2, optimizer='sgd', mesh=make_mesh(2, 1),
         skeleton_initialized=True, device='cpu')
