@@ -35,7 +35,18 @@ with the ``sk_init`` family (kernel #1). Phases, one JSON line each:
 4. kernel_chunk: the chunk schedule's forward kernel (#3) against its plain
    version on the same request binned in chunks, as 3 reports #1, with the
    chunk layout and #1's device time on the same splats;
-5. slice: the launch counts set to 0, 10 renders served at
+4a. kernel_preprocess: the preprocess kernel (``csrc/preprocess_fwd.cu``,
+   no TPU kernel) against its plain PyTorch version on the first test
+   request of each sk benchmark cell (``dnerf_800.serve``,
+   ``zju_1024.serve``: 100,352 rows at 800 and 1024 px): on the rows the
+   plain version draws, the largest float error over each field's largest
+   magnitude there; the culled rows whose non-finite values, colour or tau
+   differ; the rows whose integer fields or ``visible`` differ (rounding
+   ties); the kernel's device time
+   by torch.profiler, the wrapper's by CUDA events, the plain version's
+   by CUDA events (host-bound: its ~390 launches) and its device time,
+   the bytes and their bound, and the blocks resident per SM;
+5. slice: the launch counts (#1-#5) set to 0, 10 renders served at
    distinct (orbit camera, t), the counts read back; per request the
    synchronised time, the pairs and the overflow flag; PSNR / SSIM against
    the same requests rendered by the plain path;
@@ -397,7 +408,8 @@ from sk_gs_tpu_torch.render import prepare_blend
 from sk_gs_tpu_torch.render.binning import build_tile_lists, num_chunks
 from sk_gs_tpu_torch.render.blend import (ALPHA_MIN, OUTCOMES, assemble_image,
                                           chunk_waves)
-from sk_gs_tpu_torch.render.preprocess import preprocess
+from sk_gs_tpu_torch.render.preprocess import (preprocess, preprocess_fwd,
+                                               preprocess_plain)
 from sk_gs_tpu_torch.render.render import (blend_tiles, composite_background,
                                            render, render_topk)
 from sk_gs_tpu_torch.render.settings import (GaussianInputs, RasterConfig,
@@ -437,6 +449,9 @@ BLEND_OPS_PER_EVAL = 17
 # (at ch = 3; counted per adding pair, a least count)
 BWD_OPS_PER_ADD = 49
 KERNEL_TOL = 1e-4
+# the kernels whose launches the served, training and mesh phases count:
+# the blend's (#1-#4) and the preprocess (#5)
+COUNTED = (*KERNELS, preprocess_fwd)
 BWD_TOL = 3e-4          # of each column group's max magnitude
 # two launches of a backward kernel on the same inputs differ only in the
 # order in which the tiles' atomics land on a row: rounding, far below this
@@ -738,6 +753,135 @@ def phase_kernel(model, view, t, schedule: str = 'tile'):
     return row
 
 
+PRE_FLOAT_FIELDS = ('means2d', 'depths', 'conic', 'colors', 'tau')
+PRE_INT_FIELDS = ('radius', 'tiles_touched', 'rect_min', 'rect_max',
+                  'visible')
+PRE_CELLS = ('dnerf_800.serve', 'zju_1024.serve')
+PRE_SEED = 2 ** 31 + 23
+
+
+def cell_request(cell: str, seed: int = PRE_SEED):
+    """The benchmark cell's model (built as its serve entry builds it) and
+    the Gaussian inputs, view and config of its first test request."""
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    from bench_port import harness, inputs, program
+    c = harness.find_cell(harness.load_spec(), cell)
+    sc = c.cfg['scene']
+    nf = sc['num_frames']
+    model = program.build_model(inputs.model_flat(c.cfg, seed, 'cuda', nf),
+                                c.cfg, nf, 'cuda')
+    cams = inputs.split_cameras(sc, c.traffic['split'])
+    view = program.views(inputs.view_arrays(sc, cams['c2w'][:1]), 'cuda')[0]
+    with torch.no_grad():
+        d = forward_deltas(model.cfg, model,
+                           torch.tensor(float(cams['times'][0]),
+                                        device='cuda'), 'sk')
+        g = gaussian_inputs(model.gauss_view(), model.cfg.gauss, d.d_xyz,
+                            d.d_rotation, d.d_scaling)
+    return model, g, view
+
+
+def preprocess_bytes(g: GaussianInputs) -> int:
+    """Bytes the preprocess must move: each input read once (means,
+    scales, rotation, opacity, SH, mask) and each output written once
+    (means2d, depth, conic, colour, radius, tiles, two rects, visible,
+    tau)."""
+    n, ch = g.means3d.shape[0], g.sh.shape[2]
+    read = 4 * (3 + 3 + 4 + 1 + g.sh.shape[1] * ch) + 1
+    written = 4 * (2 + 1 + 3 + ch + 1 + 1 + 2 + 2 + 1) + 1
+    return n * (read + written)
+
+
+def preprocess_errors(got, ref, differ):
+    """The kernel's float fields (``got``) against the plain version's
+    (``ref``) on the rows whose integer fields agree (``~differ``). On the
+    rows the plain version draws: each field's largest error over its
+    largest magnitude there, inf where a non-finite value differs. On the
+    others (culled, dead), whose projection may pass through 1/1e-7: the
+    count of rows whose non-finite values differ, or whose colour or tau
+    (which no cull touches) lies more than ``KERNEL_TOL`` from the plain
+    one's, relative with a floor of 1. Returns (errors, rows)."""
+    drawn, rest = ref.visible & ~differ, ~ref.visible & ~differ
+    errs, bad = {}, torch.zeros_like(rest)
+    for name in PRE_FLOAT_FIELDS:
+        a, b = getattr(got, name), getattr(ref, name)
+        x, y = a[drawn], b[drawn]
+        fin = torch.isfinite(y)
+        if not torch.equal(torch.isfinite(x), fin) \
+                or not torch.equal(x[~fin].nan_to_num(), y[~fin].nan_to_num()):
+            errs[name] = float('inf')
+        elif fin.any():
+            errs[name] = (float((x[fin] - y[fin]).abs().max())
+                          / max(float(y[fin].abs().max()), 1e-30))
+        else:
+            errs[name] = 0.0
+        fin = torch.isfinite(b)
+        wrong = (torch.isfinite(a) != fin) \
+            | (~fin & (a.nan_to_num() != b.nan_to_num()))
+        if name in ('colors', 'tau'):
+            wrong |= fin & ((a - b).abs() > KERNEL_TOL * b.abs().clamp(min=1))
+        bad |= rest & wrong.reshape(wrong.shape[0], -1).any(-1)
+    return errs, int(bad.sum())
+
+
+def phase_kernel_preprocess(cells=PRE_CELLS):
+    """Kernel #5, the preprocess, against its plain version at the sk
+    cells' shapes; one line a cell."""
+    rows = []
+    for cell in cells:
+        model, g, view = cell_request(cell)
+        rcfg, active = model.rcfg, model.active_sh_degree
+        args = (g, view, rcfg, active)
+        with torch.no_grad():
+            got = preprocess_fwd.launch(*args)
+            ref = preprocess_plain(*args)
+            torch.cuda.synchronize()
+            differ = torch.zeros(g.means3d.shape[0], dtype=torch.bool,
+                                 device='cuda')
+            for name in PRE_INT_FIELDS:
+                ne = getattr(got, name) != getattr(ref, name)
+                differ |= ne.reshape(ne.shape[0], -1).any(-1)
+            errs, culled_bad = preprocess_errors(got, ref, differ)
+            ms = device_ms(preprocess_fwd, lambda: preprocess_fwd.launch(*args))
+            wrapper_ms = cuda_ms(lambda: preprocess_fwd.launch(*args),
+                                 iters=20, warmup=3)
+            plain_ms = cuda_ms(lambda: preprocess_plain(*args), iters=10,
+                               warmup=2)
+            on_dev, _ = profile_window(
+                lambda: [preprocess_plain(*args) for _ in range(5)])
+            plain_device_ms = sum(dev_us(e) for e in on_dev) * 1e-3 / 5
+            plain_launches = sum(e.count for e in on_dev
+                                 if 'memcpy' not in e.key.lower()) / 5
+        nbytes = preprocess_bytes(g)
+        bound_ms, bound_by = bound(0, nbytes)
+        live = int(g.mask.sum())
+        row = {'phase': 'kernel_preprocess', 'cell': cell,
+               'kernel': preprocess_fwd.name, 'rows': g.means3d.shape[0],
+               'live_rows': live, 'image': [rcfg.image_width,
+                                            rcfg.image_height],
+               'max_rel_err_drawn': errs, 'culled_rows_bad': culled_bad,
+               'int_rows_differing': int(differ.sum()),
+               'tie_share_of_live': int(differ.sum()) / live,
+               'tolerance': KERNEL_TOL, 'ms': ms, 'wrapper_ms': wrapper_ms,
+               'plain_ms': plain_ms, 'plain_device_ms': plain_device_ms,
+               'plain_device_ops': plain_launches, 'bytes': nbytes,
+               'bound_ms': bound_ms, 'bound_by': bound_by,
+               'roofline': bound_ms / ms,
+               'blocks_per_sm': preprocess_fwd.blocks_per_sm(
+                   rcfg.sh_degree, g.sh.shape[1] * g.sh.shape[2])}
+        emit(row)
+        rows.append(row)
+        if max(errs.values()) > KERNEL_TOL or culled_bad \
+                or int(differ.sum()) > 1e-4 * live:
+            raise AssertionError(f'preprocess_fwd disagrees with its plain '
+                                 f'version on {cell}: {errs}, {culled_bad} '
+                                 f'culled rows, {int(differ.sum())} integer '
+                                 f'rows')
+        del model, g, got, ref
+        torch.cuda.empty_cache()
+    return rows
+
+
 def phase_slice(model, views, times, bg):
     """Serve the requests through evaluate with the counts at 0."""
     plain_rcfg = model.rcfg._replace(use_kernel=False)
@@ -746,11 +890,11 @@ def phase_slice(model, views, times, bg):
     render_eval(model, views[0], times[0], bg)          # warm-up
     torch.cuda.synchronize()
 
-    for k in KERNELS:
+    for k in COUNTED:
         k.launches = 0
     torch.cuda.reset_peak_memory_stats()
     res = evaluate(model, views, refs, times, bg)
-    launches = {k.name: k.launches for k in KERNELS}
+    launches = {k.name: k.launches for k in COUNTED}
     peak = torch.cuda.max_memory_allocated()
 
     n = res['count']
@@ -762,8 +906,10 @@ def phase_slice(model, views, times, bg):
     for req in res['requests']:
         if req['overflow'] or not 2 ** 19 <= req['num_pairs'] <= 2 ** 20:
             raise AssertionError(f'pairs out of range: {req}')
-    # serving runs the forward kernel once a render, the backward never
-    expected = {k.name: n if k is tile_blend_fwd else 0 for k in KERNELS}
+    # serving runs the preprocess and forward kernels once a render, the
+    # backward never
+    expected = {k.name: n if k in (tile_blend_fwd, preprocess_fwd) else 0
+                for k in COUNTED}
     if launches != expected:
         raise AssertionError(f'launches {launches} in {n} renders, '
                              f'expected {expected}')
@@ -1054,7 +1200,7 @@ def phase_train(trainer: SKGSTrainer, s0: int):
     watch = ('xyz', 'sp_W', 'sk_deform/layers/0/w', 'global_tr')
     before = {k: leaves[k].detach().clone() for k in watch}
 
-    for k in KERNELS:
+    for k in COUNTED:
         k.launches = 0
     torch.cuda.reset_peak_memory_stats()
     steps = []
@@ -1069,7 +1215,7 @@ def phase_train(trainer: SKGSTrainer, s0: int):
         rec['overflow'] = bool(m['overflow'])
         steps.append(rec)
         emit({'phase': 'train_step', **rec})
-    launches = {k.name: k.launches for k in KERNELS}
+    launches = {k.name: k.launches for k in COUNTED}
     peak = torch.cuda.max_memory_allocated()
     loss_after = view_loss(trainer, s0 + N_STEPS, idx0)
     changed = {k: not torch.equal(before[k], leaves[k].detach())
@@ -1084,9 +1230,10 @@ def phase_train(trainer: SKGSTrainer, s0: int):
     for r in steps:
         if not math.isfinite(r['loss']) or r['overflow']:
             raise AssertionError(f'bad training step: {r}')
-    # the tile schedule: kernels #1 and #2 once a step, #3 and #4 never
+    # the tile schedule: kernels #1 and #2 once a step, #3 and #4 never;
+    # autograd records the preprocess, so #5 never
     expected = {k.name: N_STEPS if k in (tile_blend_fwd, tile_blend_bwd)
-                else 0 for k in KERNELS}
+                else 0 for k in COUNTED}
     if launches != expected:
         raise AssertionError(f'launches {launches} in {N_STEPS} steps, '
                              f'expected {expected}')
@@ -1384,7 +1531,7 @@ def phase_init_train(cfg, rcfg, train, profile: bool = False):
     fwd_profile = (fwd_case(chunk_blend_fwd, step_blend_inputs(
         trainers['populated'], s0)[0], rcfg) if profile else None)
 
-    for k in KERNELS:
+    for k in COUNTED:
         k.launches = 0
     torch.cuda.reset_peak_memory_stats()
     records, events = [], []
@@ -1392,7 +1539,7 @@ def phase_init_train(cfg, rcfg, train, profile: bool = False):
         recs, evs = run_init_steps(trainers[start], start, steps)
         records += recs
         events += evs
-    launches = {k.name: k.launches for k in KERNELS}
+    launches = {k.name: k.launches for k in COUNTED}
     peak = torch.cuda.max_memory_allocated()
     n = len(records)
     ms = [r['ms'] for r in records]
@@ -1405,7 +1552,7 @@ def phase_init_train(cfg, rcfg, train, profile: bool = False):
         if not math.isfinite(r['loss']) or r['overflow']:
             raise AssertionError(f'bad init step: {r}')
     expected = {k.name: n if k in (chunk_blend_fwd, chunk_blend_bwd) else 0
-                for k in KERNELS}
+                for k in COUNTED}
     if launches != expected:
         raise AssertionError(f'launches {launches} in {n} init steps, '
                              f'expected {expected}')
@@ -1696,11 +1843,11 @@ def phase_sp_train(cfg, rcfg, train):
     trainer.train_step(SP_TRAIN_STEPS[0] - 1)
     log = time_events(trainer)
     torch.cuda.synchronize()
-    for k in KERNELS:
+    for k in COUNTED:
         k.launches = 0
     torch.cuda.reset_peak_memory_stats()
     records = run_sp_steps(trainer, SP_TRAIN_STEPS, log, 'sp_train')
-    launches = {k.name: k.launches for k in KERNELS}
+    launches = {k.name: k.launches for k in COUNTED}
     peak = torch.cuda.max_memory_allocated()
     events = [{k: v for k, v in e.items() if k != 'result'} for e in log]
     ms = [r['ms'] for r in records]
@@ -1721,7 +1868,7 @@ def phase_sp_train(cfg, rcfg, train):
           'max_memory_allocated': peak, 'events': events})
     n = len(records)
     expected = {k.name: n if k in (tile_blend_fwd, tile_blend_bwd) else 0
-                for k in KERNELS}
+                for k in COUNTED}
     if launches != expected:
         raise AssertionError(f'launches {launches} in {n} sp steps, '
                              f'expected {expected}')
@@ -4447,7 +4594,7 @@ def mesh_steps(trainer: SKGSTrainer, steps):
     """Steps ``steps`` with the launch counts and the collectives' counts
     at 0: (a record per step, each step's gradients on the host, the
     launches)."""
-    for k in KERNELS:
+    for k in COUNTED:
         k.launches = 0
     coll.reset_counts()
     recs, grads = [], []
@@ -4456,7 +4603,7 @@ def mesh_steps(trainer: SKGSTrainer, steps):
         recs.append({'step': step, 'ms': ms, **m})
         grads.append({k: p.grad.detach().cpu().clone()
                       for k, p in trainer.model.leaves().items()})
-    return recs, grads, {k.name: k.launches for k in KERNELS}
+    return recs, grads, {k.name: k.launches for k in COUNTED}
 
 
 def timed_merges(trainer: SKGSTrainer, nbytes: list = None) -> list:
@@ -4670,7 +4817,7 @@ def phase_mesh_view(tmp: Path) -> dict:
         fwd, bwd = (chunk_blend_fwd, chunk_blend_bwd) if family == 'init' \
             else (tile_blend_fwd, tile_blend_bwd)
         n = len(compare)
-        want_rank = {k.name: n if k in (fwd, bwd) else 0 for k in KERNELS}
+        want_rank = {k.name: n if k in (fwd, bwd) else 0 for k in COUNTED}
         want_one = {k: MESH_RANKS * v for k, v in want_rank.items()}
         # the first step of a process is its warm-up: the means leave it
         # (two steps, as train_reference holds: a third would start from
@@ -5355,7 +5502,7 @@ def gs_phase_records(name: str, ranks, tmp: Path, plan, batch_views: int,
         n = len(steps)
         views = batch_views // shape[0]
         want_rank = {k.name: n * views if k is fwd or (
-            k is bwd and family != 'sk_init') else 0 for k in KERNELS}
+            k is bwd and family != 'sk_init') else 0 for k in COUNTED}
         want_one = {k: v * shape[0] for k, v in want_rank.items()}
         warm = lambda xs: sum(xs[1:]) / len(xs[1:])
         overflow = [bool(s['overflow']) for r in rk for s in r['steps']] + \
@@ -5514,7 +5661,8 @@ def main(argv=None) -> int:
           'torch': torch.__version__, 'cuda': torch.version.cuda})
 
     t0 = time.perf_counter()
-    infos = build_all([k.library for k in KERNELS] + [jpeg.LIBRARY])
+    infos = build_all([k.library for k in KERNELS]
+                      + [preprocess_fwd.library, jpeg.LIBRARY])
     emit({'phase': 'build', 'seconds': time.perf_counter() - t0,
           'libraries': infos})
 
@@ -5528,6 +5676,7 @@ def main(argv=None) -> int:
 
     rows = [phase_kernel(model, views[0], times[0])]
     chunk_row = phase_kernel(model, views[0], times[0], schedule='chunk')
+    phase_kernel_preprocess()
     serve_launches, served_ms = phase_slice(model, views, times, bg)
     phase_reference(SEED, torch.ones(3))
 

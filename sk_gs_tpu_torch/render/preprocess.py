@@ -1,6 +1,14 @@
 """Per-Gaussian preprocessing: project, EWA cov2D, conic, tile rects, SH
 colour (port of ``sk_gs_tpu/render/preprocess.py``, same operation order so
-that float fields agree to rounding and integer fields exactly)."""
+that float fields agree to rounding and integer fields exactly).
+
+``preprocess`` runs it as one launch of the hand-written kernel
+``csrc/preprocess_fwd.cu`` (``preprocess_fwd``) where the inputs lie on a
+CUDA device, ``cfg.use_kernel`` is on and autograd records nothing (grad
+off, or no input requiring grad): every served render on a card. Everything
+else (training steps, the CPU, ``use_kernel`` off) runs the plain version,
+``preprocess_plain``.
+"""
 from __future__ import annotations
 
 from typing import NamedTuple, Optional
@@ -9,6 +17,8 @@ import torch
 
 from ..ops import quaternion as quat
 from ..ops import sh as sh_ops
+from ..utils.tracing import span
+from .kernel import _check, _Kernel
 from .settings import TILE, GaussianInputs, RasterConfig, ViewParams
 
 # largest float32 below 2^31: float -> int32 saturates like XLA's convert
@@ -101,11 +111,12 @@ def compute_cov2d(p_view: torch.Tensor, cov3d: torch.Tensor, view: ViewParams,
     return torch.stack([cxx, cxy, cyy], dim=-1)
 
 
-def preprocess(g: GaussianInputs, view: ViewParams, cfg: RasterConfig,
-               active_sh_degree: Optional[torch.Tensor] = None
-               ) -> PreprocessOut:
-    """Culled and dead Gaussians end with radius 0, tiles_touched 0 and
-    depth +inf, so they never produce pairs."""
+def preprocess_plain(g: GaussianInputs, view: ViewParams, cfg: RasterConfig,
+                     active_sh_degree: Optional[torch.Tensor] = None
+                     ) -> PreprocessOut:
+    """The plain version, in PyTorch operations. Culled and dead Gaussians
+    end with radius 0, tiles_touched 0 and depth +inf, so they never
+    produce pairs."""
     p_view, p_ndc = project_points(g.means3d, view)
     in_front = p_view[:, 2] > cfg.near
 
@@ -164,3 +175,132 @@ def preprocess(g: GaussianInputs, view: ViewParams, cfg: RasterConfig,
     rect_max = torch.stack([rect_max_x, rect_max_y], dim=-1).to(torch.int32)
     return PreprocessOut(means2d, depths, conic, colors, radius,
                          tiles_touched, rect_min, rect_max, visible, tau)
+
+
+class PreprocessForward(_Kernel):
+    """Wrapper of the preprocess kernel: ``preprocess_plain``'s every field
+    for all N rows in one launch (``preprocess`` picks between the two)."""
+
+    name = 'preprocess_fwd'
+    replaces = 'none (the JAX package leaves the preprocess to XLA)'
+    source = 'sk_gs_tpu_torch/csrc/preprocess_fwd.cu'
+    n_pointers = 22
+    n_ints = 10
+    n_floats = 2
+    # a served request launches the forward blend next: build both at once
+    builds_with = ('tile_blend_fwd.cu',)
+
+    def launch(self, g: GaussianInputs, view: ViewParams, cfg: RasterConfig,
+               active_sh_degree: Optional[torch.Tensor] = None
+               ) -> PreprocessOut:
+        """``preprocess_plain(g, view, cfg, active_sh_degree)`` on the
+        card, with no host read: ``active_sh_degree`` is None (every band)
+        or an int32 tensor of one element on the card. The inputs are
+        contiguous float32 on one CUDA device (the mask bool); ``g.sh``
+        [N, bases, C] with ``cfg.sh_degree`` <= 3, or
+        ``g.colors``, which the result hands back as the plain version
+        does."""
+        dev = g.means3d.device
+        if dev.type != 'cuda':
+            raise ValueError(f'{self.name} launches on CUDA tensors, got {dev}')
+        f32 = torch.float32
+        n = g.means3d.shape[0]
+        opac = g.opacities.reshape(-1)
+        _check(dev, means3d=(g.means3d, f32), scales=(g.scales, f32),
+               rotations=(g.rotations, f32), opacities=(opac, f32),
+               Tw2v=(view.Tw2v, f32), Tv2c=(view.Tv2c, f32),
+               campos=(view.campos, f32), tan_fovx=(view.tan_fovx, f32),
+               tan_fovy=(view.tan_fovy, f32))
+        for name, t, shape in (('means3d', g.means3d, (n, 3)),
+                               ('scales', g.scales, (n, 3)),
+                               ('rotations', g.rotations, (n, 4)),
+                               ('opacities', opac, (n,)),
+                               ('Tw2v', view.Tw2v, (4, 4)),
+                               ('Tv2c', view.Tv2c, (4, 4)),
+                               ('campos', view.campos, (3,))):
+            if tuple(t.shape) != shape:
+                raise ValueError(f'{name} must be {list(shape)}, got '
+                                 f'{list(t.shape)}')
+        for name, t in (('tan_fovx', view.tan_fovx),
+                        ('tan_fovy', view.tan_fovy)):
+            if t.numel() != 1:
+                raise ValueError(f'{name} must hold one value')
+        if g.mask is not None:
+            _check(dev, mask=(g.mask, torch.bool))
+            if tuple(g.mask.shape) != (n,):
+                raise ValueError(f'mask must be [{n}]')
+        sh, colors = None, g.colors
+        if colors is None:
+            sh = g.sh
+            _check(dev, sh=(sh, f32))
+            nb = (cfg.sh_degree + 1) ** 2
+            if not 0 <= cfg.sh_degree <= 3:
+                raise ValueError(f'sh_degree {cfg.sh_degree} is not in 0..3')
+            if sh.dim() != 3 or sh.shape[0] != n or sh.shape[1] < nb \
+                    or sh.shape[2] < 1:
+                raise ValueError(f'sh must be [{n}, >= {nb}, C], got '
+                                 f'{list(sh.shape)}')
+            if active_sh_degree is not None and sh.shape[1] != nb:
+                raise ValueError(f'the band mask needs sh [{n}, {nb}, C]')
+            colors = torch.empty((n, sh.shape[2]), dtype=f32, device=dev)
+        if active_sh_degree is not None:
+            _check(dev, active_sh_degree=(active_sh_degree, torch.int32))
+            if active_sh_degree.numel() != 1:
+                raise ValueError('active_sh_degree must hold one value')
+
+        e = lambda *shape, dtype=f32: torch.empty(shape, dtype=dtype,
+                                                  device=dev)
+        i32 = torch.int32
+        out = PreprocessOut(
+            means2d=e(n, 2), depths=e(n), conic=e(n, 3), colors=colors,
+            radius=e(n, dtype=i32), tiles_touched=e(n, dtype=i32),
+            rect_min=e(n, 2, dtype=i32), rect_max=e(n, 2, dtype=i32),
+            visible=e(n, dtype=torch.bool), tau=e(n))
+        self._run(dev, (g.means3d, g.scales, g.rotations, opac, sh, g.mask,
+                        view.Tw2v, view.Tv2c, view.campos, view.tan_fovx,
+                        view.tan_fovy, active_sh_degree, out.means2d,
+                        out.depths, out.conic,
+                        None if sh is None else out.colors, out.radius,
+                        out.tiles_touched, out.rect_min, out.rect_max,
+                        out.visible, out.tau),
+                  (n, cfg.sh_degree, 0 if sh is None else sh.shape[1],
+                   colors.shape[1], cfg.image_width, cfg.image_height,
+                   cfg.grid_w, cfg.grid_h, cfg.tile_h,
+                   int(cfg.tight_culling)),
+                  (cfg.near, cfg.scale_modifier))
+        return out
+
+    def blocks_per_sm(self, sh_degree: int, row_floats: int) -> int:
+        """Blocks of the kernel resident on one SM at once for SH degree
+        ``sh_degree`` and SH rows of ``row_floats`` floats (bases x
+        channels; 0 where colours are given)."""
+        return self._occupancy(sh_degree, row_floats)
+
+
+preprocess_fwd = PreprocessForward()
+
+
+def kernel_engages(g: GaussianInputs, view: ViewParams,
+                   cfg: RasterConfig) -> bool:
+    """Whether ``preprocess`` launches the kernel: the inputs on a CUDA
+    device, ``cfg.use_kernel`` on, and autograd recording nothing (grad
+    off, or no input of ``g`` or ``view`` requiring grad)."""
+    if not cfg.use_kernel or g.means3d.device.type != 'cuda':
+        return False
+    if torch.is_grad_enabled():
+        return not any(isinstance(t, torch.Tensor) and t.requires_grad
+                       for t in (*g, *view))
+    return True
+
+
+def preprocess(g: GaussianInputs, view: ViewParams, cfg: RasterConfig,
+               active_sh_degree: Optional[torch.Tensor] = None
+               ) -> PreprocessOut:
+    """``preprocess_plain``'s fields: one launch of ``preprocess_fwd``
+    (inside an 'sk.preprocess.kernel' span) where ``kernel_engages``, else
+    the plain version. Culled and dead Gaussians end with radius 0,
+    tiles_touched 0 and depth +inf, so they never produce pairs."""
+    if kernel_engages(g, view, cfg):
+        with span('sk.preprocess.kernel'):
+            return preprocess_fwd.launch(g, view, cfg, active_sh_degree)
+    return preprocess_plain(g, view, cfg, active_sh_degree)

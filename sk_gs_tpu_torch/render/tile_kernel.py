@@ -20,25 +20,15 @@ other.
 """
 from __future__ import annotations
 
-import ctypes
-from pathlib import Path
 from typing import Tuple
 
 import torch
 
-from ..cuda_build import CudaLibrary
 from .binning import num_chunks
 from .blend import (blend_backward_rows_plain, blend_forward_plain,
                     chunk_blend_backward_rows_plain, chunk_blend_forward_plain)
+from .kernel import _check, _Kernel
 from .settings import RasterConfig
-
-
-def _check(dev: torch.device, **tensors):
-    """Each (tensor, dtype) must be contiguous, of that dtype, on ``dev``."""
-    for name, (t, dtype) in tensors.items():
-        if t.device != dev or t.dtype != dtype or not t.is_contiguous():
-            raise ValueError(f'{name}: need a contiguous {dtype} tensor on '
-                             f'{dev}, got {t.dtype} on {t.device}')
 
 
 def _check_rows(geo, col, sort_gauss, cfg: RasterConfig):
@@ -82,18 +72,12 @@ def _check_pixel_grads(dev, tile_color, tile_alpha, g_color, g_alpha,
                              f'{list(t.shape)}')
 
 
-class _Kernel:
-    """A kernel's library, its C entry point and its launch count. Called,
-    it runs ``plain`` (the plain version, same arguments) when the first
-    tensor lies on the CPU and ``launch`` otherwise. Its library also
-    exports ``<name>_occupancy``."""
+class _BlendKernel(_Kernel):
+    """A blend kernel: its occupancy depends on the tile height and the
+    channels. Called, it runs ``plain`` (the plain version, same
+    arguments) when the first tensor lies on the CPU and ``launch``
+    otherwise."""
 
-    name = ''
-    route = 'cuda'
-    replaces = ''
-    source = ''
-    n_pointers = 0
-    n_ints = 0
     plain = None
 
     def __call__(self, *args):
@@ -101,52 +85,11 @@ class _Kernel:
             return type(self).plain(*args)
         return self.launch(*args)
 
-    def __init__(self):
-        self.library = CudaLibrary(Path(self.source).name)
-        self.launches = 0
-        self._fn = None
-
-    def _load(self):
-        if self._fn is None:
-            lib = self.library.load()
-            fn = getattr(lib, self.name)
-            fn.argtypes = ([ctypes.c_void_p] * self.n_pointers
-                           + [ctypes.c_int] * self.n_ints + [ctypes.c_void_p])
-            fn.restype = ctypes.c_int
-            err = getattr(lib, self.name + '_error_string')
-            err.argtypes = [ctypes.c_int]
-            err.restype = ctypes.c_char_p
-            self._err = err
-            self._fn = fn
-        return self._fn
-
-    def _run(self, dev: torch.device, tensors, ints):
-        if dev.type != 'cuda':
-            raise ValueError(f'{self.name} launches on CUDA tensors, got {dev}')
-        fn = self._load()
-        with torch.cuda.device(dev):
-            stream = torch.cuda.current_stream(dev).cuda_stream
-            err = fn(*(t.data_ptr() for t in tensors), *ints, stream)
-        if err != 0:
-            raise RuntimeError(f'{self.name} launch failed: '
-                               f'{self._err(err).decode()} ({err})')
-        self.launches += 1
-
     def blocks_per_sm(self, cfg: RasterConfig, ch: int) -> int:
         """Blocks of the kernel resident on one SM at once for ``cfg``'s
         tile height and ``ch`` channels (cudaOccupancyMaxActiveBlocksPer
         Multiprocessor, on the current device)."""
-        self._load()                     # the library and its error strings
-        fn = getattr(self.library.load(), self.name + '_occupancy')
-        fn.argtypes = [ctypes.c_int, ctypes.c_int,
-                       ctypes.POINTER(ctypes.c_int)]
-        fn.restype = ctypes.c_int
-        blocks = ctypes.c_int(0)
-        err = fn(cfg.tile_h, ch, ctypes.byref(blocks))
-        if err != 0:
-            raise RuntimeError(f'{self.name} occupancy query failed: '
-                               f'{self._err(err).decode()} ({err})')
-        return blocks.value
+        return self._occupancy(cfg.tile_h, ch)
 
 
 def _check_pixel_count(cfg: RasterConfig):
@@ -155,7 +98,7 @@ def _check_pixel_count(cfg: RasterConfig):
                          'number of warps')
 
 
-class TileBlendForward(_Kernel):
+class TileBlendForward(_BlendKernel):
     """Callable wrapper of the forward kernel."""
 
     name = 'tile_blend_fwd'
@@ -184,7 +127,7 @@ class TileBlendForward(_Kernel):
         return color, alpha
 
 
-class _RowsKernel(_Kernel):
+class _RowsKernel(_BlendKernel):
     """A backward kernel: it adds the gradient rows [R, 6 + ch] of the
     depth-ordered rows by atomics into ``g_rows``, which the wrapper zeroes
     (so the sums vary at rounding level from run to run)."""
@@ -251,7 +194,7 @@ def _check_chunk_call(name, geo, col, sort_gauss, chunk_fields,
                          'entries')
 
 
-class ChunkBlendForward(_Kernel):
+class ChunkBlendForward(_BlendKernel):
     """Callable wrapper of the chunk schedule's forward kernel: one block
     per tile walks its chunks in order."""
 

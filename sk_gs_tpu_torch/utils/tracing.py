@@ -23,14 +23,16 @@ Every span name is one of ``SPANS``:
   'sk.deform.net' (the warp net on the superpoints) of the sp stages, and
   'sk.deform.lbs' (the LBS weights and the blend of the joint or superpoint
   transforms) of both, then 'sk.preprocess', 'sk.binning' and 'sk.blend'
-  (``render/render.py``). Where the sk or sp stage runs as a CUDA graph (on
-  a card, no train frame, no time noise, autograd off:
-  ``models/deform_graph.py``), 'sk.deform' holds 'sk.deform.replay' instead
-  of 'sk.deform.fk', 'sk.deform.net' and 'sk.deform.lbs', and once before
-  it, on the first call, after a switch of stage and after a model tensor
-  it reads was replaced, 'sk.deform.capture' (the eager warm-up calls and
-  the capture; the fk, net and lbs spans inside when the profiler
-  records);
+  (``render/render.py``); where the preprocess is one launch of its kernel
+  (on a card, ``use_kernel`` on, autograd off: ``render/preprocess.py``),
+  'sk.preprocess' holds 'sk.preprocess.kernel' around it. Where the sk or sp
+  stage runs as a CUDA graph (on a card, no train frame, no time noise,
+  autograd off: ``models/deform_graph.py``), 'sk.deform' holds
+  'sk.deform.replay' instead of 'sk.deform.fk', 'sk.deform.net' and
+  'sk.deform.lbs', and once before it, on the first call, after a switch of
+  stage and after a model tensor it reads was replaced, 'sk.deform.capture'
+  (the eager warm-up calls and the capture; the fk, net and lbs spans inside
+  when the profiler records);
 - a training step (``framework/trainer.py``): 'sk.train.events',
   'sk.train.forward' (a view's deformation and render, the serve spans
   inside), 'sk.train.losses', 'sk.train.backward', 'sk.train.update';
@@ -45,7 +47,7 @@ import torch
 
 SPANS = ('sk.request', 'sk.deform', 'sk.deform.fk', 'sk.deform.net',
          'sk.deform.lbs', 'sk.deform.replay', 'sk.deform.capture',
-         'sk.preprocess', 'sk.binning', 'sk.blend',
+         'sk.preprocess', 'sk.preprocess.kernel', 'sk.binning', 'sk.blend',
          'sk.train.events', 'sk.train.forward', 'sk.train.losses',
          'sk.train.backward', 'sk.train.update',
          'sk.sync', 'py.gc')
